@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of ``crdt_benches_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package beside this one is the reference: module paths and names
+mirror it so each counterpart is easy to find.  This package imports
+``torch``, ``numpy`` and the standard library only — never ``jax`` and
+nothing of ``crdt_benches_tpu`` (host modules it needs are copied).
+
+Slice 1 covers the headline range replay: ``traces`` (loading and range
+tensorization), ``ops`` (resolver kernel K1, fused range apply K2/K3 and
+their plain PyTorch versions), ``engine.replay_range``,
+``backends.torch_backend`` and ``models.flagship``.  Hand-written CUDA
+kernels live in ``csrc/`` and build at first use (``_build.py``).
+"""

@@ -1,0 +1,242 @@
+"""Range-op resolver K1 (the JAX package's
+``ops/resolve_range_pallas.py``): one batch of range ops, shared by every
+replica, resolved per replica over a cum-primary token list.
+
+Token list: (ttype, ta, tch, cum) per token, ``tta = ta*4 + ttype``:
+
+- RUN(a): surviving pre-batch chars with ranks a .. a+len-1;
+- TINS(s, c): chars c .. c+len-1 of the insert run whose first slot id is
+  s (zero length = fully deleted within the batch);
+- FREE: unused token (cum stays flat).
+
+An INSERT replaces the token holding its position by up to three tokens
+(left piece, the new run, right piece).  A DELETE clamps every token's
+cum and splits at most one token; per delete op it reports the covered
+surviving pre-batch chars as one rank interval [dlo, dhi] plus their
+count.  :func:`resolve_range` launches the CUDA kernel
+(``csrc/resolve_range.cu``) on a CUDA tensor; :func:`resolve_range_plain`
+is its plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._build import check, kernels
+from ..traces.tensorize import DELETE, INSERT
+from .resolve import FREE, RUN, TINS
+
+I32 = torch.int32
+_BIG = 1 << 30
+#: Shared memory a block may use on Hopper (227 KB).
+_MAX_SMEM = 232448
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def effective_token_list_size(B: int, token_cap: int | None) -> int:
+    """The token-list size T for a batch of B ops under ``token_cap`` —
+    the one formula shared with the overflow check of the replay engine."""
+    return _round_up(min(2 * B + 2, token_cap) if token_cap else 2 * B + 2,
+                     128)
+
+
+def resolve_range_plain(kind, pos, rlen, slot0, v0, *,
+                        token_cap: int | None = None):
+    """Plain PyTorch version of K1 (any device): a Python loop over the
+    ops with tensor passes over the (R, T) token list.  Same arguments and
+    results as :func:`resolve_range`."""
+    resolve_range_plain.calls += 1
+    B = kind.shape[0]
+    R = v0.shape[0]
+    T = effective_token_list_size(B, token_cap)
+    dev = v0.device
+    lane = torch.arange(T, dtype=I32, device=dev)[None, :]
+    tta = torch.where(lane == 0, RUN, FREE).to(I32).expand(R, T)
+    tch = torch.zeros((R, T), dtype=I32, device=dev)
+    cum = v0.to(I32)[:, None].expand(R, T)
+    total = v0.to(I32)[:, None]
+    nused = torch.ones((R, 1), dtype=I32, device=dev)
+    dlo_o = torch.full((R, B), -1, dtype=I32, device=dev)
+    dhi_o = torch.full((R, B), -1, dtype=I32, device=dev)
+    dn_o = torch.zeros((R, B), dtype=I32, device=dev)
+
+    def tsum(x):
+        return x.sum(dim=1, keepdim=True, dtype=I32)
+
+    ops = zip(kind.tolist(), pos.tolist(), rlen.tolist(), slot0.tolist())
+    for j, (k, p0, L0, s0) in enumerate(ops):
+        is_ins = k == INSERT and L0 > 0
+        p = torch.minimum(torch.full_like(total, max(p0, 0)), total)
+        if k == DELETE:
+            D = torch.minimum(torch.full_like(total, max(L0, 0)), total - p)
+        else:
+            D = torch.zeros_like(total)
+        is_del = (D > 0) & (k == DELETE)
+        L = L0 if is_ins else 0
+
+        pre_all = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], 1)
+        is_run_tok = (tta & 3) == RUN
+
+        # delete rank interval outputs (from the pre-clamp state)
+        pD = p + D
+        ov_lo = torch.maximum(pre_all, p)
+        ov_hi = torch.minimum(cum, pD)
+        has_ov = is_del & is_run_tok & (ov_hi > ov_lo)
+        ta_all = tta >> 2
+        r_lo = ta_all + (ov_lo - pre_all)
+        r_hi = ta_all + (ov_hi - pre_all) - 1
+        dlo = torch.where(has_ov, r_lo, _BIG).amin(dim=1, keepdim=True)
+        dhi = torch.where(has_ov, r_hi, -1).amax(dim=1, keepdim=True)
+        dcount = tsum(torch.where(has_ov, ov_hi - ov_lo, 0))
+        dlo = torch.where(dlo >= _BIG, -1, dlo)
+
+        # vector clamp (the delete's effect on every token)
+        consumed = (torch.minimum(cum, pD) - torch.maximum(pre_all, p)).clamp(
+            min=0
+        )
+        adv = torch.where(is_del & (cum > pD), consumed, 0)
+        cum_c = torch.where(
+            is_del, torch.minimum(cum, p) + (cum - pD).clamp(min=0), cum
+        )
+        tta_c = tta + torch.where(is_run_tok, adv * 4, 0)
+        tch_c = tch + torch.where((tta & 3) == TINS, adv, 0)
+
+        # the token holding p (pre-clamp coordinates)
+        t = torch.minimum(tsum((cum <= p).to(I32)), nused)
+        m_t = lane == t
+        c_t = tsum(torch.where(m_t, cum, 0))
+        pre = tsum(torch.where(m_t, pre_all, 0))
+        tta_t = tsum(torch.where(m_t, tta, 0))
+        ch = tsum(torch.where(m_t, tch, 0))
+        tt = tta_t & 3
+        off = p - pre
+        is_run_t = tt == RUN
+
+        split_ins = (off > 0) & is_ins
+        split_del = is_del & (off > 0) & (pD < c_t)
+        if is_ins:
+            m = torch.where(split_ins, 3, 2).to(I32)
+        else:
+            m = torch.where(split_del, 2, 1).to(I32)
+
+        c_t_cl = torch.where(
+            is_del, torch.minimum(c_t, p) + (c_t - pD).clamp(min=0), c_t
+        )
+        adv_t = torch.where(
+            is_del & (c_t > pD),
+            (torch.minimum(c_t, pD) - torch.maximum(pre, p)).clamp(min=0),
+            0,
+        )
+        tta_cl = tta_t + torch.where(is_run_t, adv_t * 4, 0)
+        ch_cl = ch + torch.where(tt == TINS, adv_t, 0)
+        tta_right_del = tta_t + torch.where(is_run_t, (pD - pre) * 4, 0)
+        ch_right_del = torch.where(is_run_t, ch, ch + (pD - pre))
+        tta_right_ins = tta_t + torch.where(is_run_t, off * 4, 0)
+        ch_right_ins = torch.where(is_run_t, ch, ch + off)
+        jj_tins = s0 * 4 + TINS
+
+        if is_ins:
+            n0ta = torch.where(split_ins, tta_cl, jj_tins)
+            n0c = torch.where(split_ins, ch_cl, 0)
+            n0cum = torch.where(split_ins, p, pre + L)
+            n1ta = torch.where(split_ins, jj_tins, tta_t)
+            n1c = torch.where(split_ins, 0, ch)
+            n1cum = torch.where(split_ins, p + L, c_t + L)
+        else:
+            n0ta = torch.where(split_del, tta_t, tta_cl)
+            n0c = torch.where(split_del, ch, ch_cl)
+            n0cum = torch.where(split_del, p, c_t_cl)
+            n1ta, n1c, n1cum = tta_right_del, ch_right_del, c_t - D
+        n2ta, n2c, n2cum = tta_right_ins, ch_right_ins, c_t + L
+
+        def place(x, x0, x1, x2, dlt):
+            sh = torch.where(
+                m == 1, x,
+                torch.where(m == 2, torch.roll(x, 1, 1), torch.roll(x, 2, 1)),
+            ) + dlt
+            out = torch.where(lane < t, x, sh)
+            out = torch.where(lane == t, x0, out)
+            out = torch.where((m >= 2) & (lane == t + 1), x1, out)
+            return torch.where((m == 3) & (lane == t + 2), x2, out)
+
+        tta = place(tta_c, n0ta, n1ta, n2ta, 0)
+        tch = place(tch_c, n0c, n1c, n2c, 0)
+        cum = place(cum_c, n0cum, n1cum, n2cum, L)
+
+        dlo_o[:, j:j + 1] = torch.where(is_del, dlo, dlo_o[:, j:j + 1])
+        dhi_o[:, j:j + 1] = torch.where(is_del, dhi, dhi_o[:, j:j + 1])
+        dn_o[:, j:j + 1] = torch.where(is_del, dcount, dn_o[:, j:j + 1])
+        total = total + L - D
+        nused = nused + (m - 1)
+
+    tlen = cum - torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], 1)
+    return (
+        (tta & 3, tta >> 2, tch, tlen),
+        (dlo_o, dhi_o, dn_o),
+        nused,
+    )
+
+
+resolve_range_plain.calls = 0
+
+
+def resolve_range(kind, pos, rlen, slot0, v0, *,
+                  token_cap: int | None = None):
+    """Resolve one batch of range ops for R replicas (K1).
+
+    kind/pos/rlen/slot0: int32[B] (shared by every replica); v0: int32[R]
+    visible lengths.  Returns ((ttype, ta, tch, tlen) int32[R, T],
+    (dlo, dhi, dcount) int32[R, B], nused int32[R, 1]) with
+    T = effective_token_list_size(B, token_cap); ``ta`` is the pre-batch
+    rank of a RUN token and the first slot id of a TINS token.  ``nused``
+    is the batch's TRUE token demand: callers compare it with T, since
+    placements past T are dropped.  On a CUDA tensor this launches the
+    kernel (or raises); on a CPU tensor it runs
+    :func:`resolve_range_plain`."""
+    B = kind.shape[0]
+    R = v0.shape[0]
+    for name, t, n in (("kind", kind, B), ("pos", pos, B),
+                       ("rlen", rlen, B), ("slot0", slot0, B),
+                       ("v0", v0, R)):
+        if t.device != v0.device:
+            raise ValueError(f"{name} on {t.device}, v0 on {v0.device}")
+        if t.dtype != I32 or tuple(t.shape) != (n,):
+            raise ValueError(
+                f"{name}: want int32[{n}], got {t.dtype}{list(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if v0.device.type == "cpu":
+        return resolve_range_plain(
+            kind, pos, rlen, slot0, v0, token_cap=token_cap
+        )
+    if v0.device.type != "cuda":
+        raise ValueError(f"resolve_range: unsupported device {v0.device}")
+    T = effective_token_list_size(B, token_cap)
+    if B < 1 or (6 * T + 3 * B) * 4 > _MAX_SMEM:
+        raise ValueError(
+            f"resolve_range: batch {B} (token list {T}) outside the "
+            "kernel's shared-memory range"
+        )
+    mk = lambda n: torch.empty((R, n), dtype=I32, device=v0.device)
+    ttype, ta, tch, tlen = mk(T), mk(T), mk(T), mk(T)
+    dlo, dhi, dn, nused = mk(B), mk(B), mk(B), mk(1)
+    if R:
+        lib = kernels()
+        err = lib.crdt_resolve_range(
+            kind.data_ptr(), pos.data_ptr(), rlen.data_ptr(),
+            slot0.data_ptr(), v0.data_ptr(), R, B, T,
+            ttype.data_ptr(), ta.data_ptr(), tch.data_ptr(),
+            tlen.data_ptr(), dlo.data_ptr(), dhi.data_ptr(), dn.data_ptr(),
+            nused.data_ptr(),
+            torch.cuda.current_stream(v0.device).cuda_stream,
+        )
+        check(err, "crdt_resolve_range")
+        resolve_range.launches += 1
+    return (ttype, ta, tch, tlen), (dlo, dhi, dn), nused
+
+
+resolve_range.launches = 0

@@ -1,0 +1,148 @@
+"""Boundaries of the PyTorch port: it imports no JAX and nothing of the
+JAX package, its entry points default to CUDA and refuse to fall back to
+the CPU, its chip driver fails without a card, and states carry across
+from the JAX reference and back."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from crdt_benches_tpu.ops.apply2 import init_state4 as jax_init_state4
+from crdt_benches_tpu.oracle import replay_trace
+from crdt_benches_tpu.traces.synth import synth_trace
+from crdt_benches_tpu_torch.backends.torch_backend import TorchReplayBackend
+from crdt_benches_tpu_torch.engine.replay_range import RangeReplayEngine
+from crdt_benches_tpu_torch.models import flagship
+from crdt_benches_tpu_torch.ops.apply2 import init_state4
+from crdt_benches_tpu_torch.traces.tensorize import tensorize_ranges
+from crdt_benches_tpu_torch.utils.convert import (
+    state4_from_jax,
+    state4_to_numpy,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import crdt_benches_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+old = sorted(m for m in sys.modules
+             if m == "crdt_benches_tpu" or m.startswith("crdt_benches_tpu."))
+print(len(names), old)
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_module():
+    done = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert done.returncode == 0, done.stderr
+    n, old = done.stdout.split(" ", 1)
+    assert int(n) >= 15  # every module of the slice was imported
+    assert old.strip() == "[]"
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the CUDA-less behaviour")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    _no_cuda()
+    rt = tensorize_ranges(synth_trace(seed=0, n_ops=20), batch=16)
+    for call in (
+        lambda: RangeReplayEngine(rt),
+        lambda: TorchReplayBackend(),
+        lambda: flagship.backend(),
+        lambda: init_state4(1, 1024),
+        lambda: state4_from_jax({}),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_bench_entry_without_cuda_exits_with_error():
+    _no_cuda()
+    done = subprocess.run(
+        [sys.executable, "-m", "crdt_benches_tpu_torch.bench",
+         "--trace", "sveltecomponent", "--samples", "1"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert done.returncode != 0
+    assert "CUDA is not available" in done.stderr
+    assert done.stdout.strip() == ""
+
+
+def test_chip_smoke_fails_without_cuda():
+    _no_cuda()
+    done = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert done.returncode != 0
+    assert '"ok": true' not in done.stdout
+
+
+def test_bench_entry_on_cpu_prints_one_json_line():
+    done = subprocess.run(
+        [sys.executable, "-m", "crdt_benches_tpu_torch.bench",
+         "--trace", "sveltecomponent", "--samples", "1", "--replicas", "1",
+         "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert done.returncode == 0, done.stderr
+    lines = done.stdout.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert out["unit"] == "elements/sec" and out["value"] > 0
+    assert "torch-cpu" in out["metric"]
+
+
+def test_state_conversion_round_trip():
+    jst = jax_init_state4(3, 2048, 700)
+    arrays = {
+        "doc": np.asarray(jst.doc),
+        "cv_intile": np.asarray(jst.cv_intile.astype(jnp.int32)),
+        "vis_tile": np.asarray(jst.vis_tile),
+        "length": np.asarray(jst.length),
+        "nvis": np.asarray(jst.nvis),
+    }
+    pst = state4_from_jax(arrays, device="cpu")
+    assert pst.cv_intile.dtype == torch.int16
+    back = state4_to_numpy(pst)
+    for f, a in arrays.items():
+        np.testing.assert_array_equal(back[f], a, err_msg=f)
+    # the port's own fresh state equals the reference's
+    fresh = state4_to_numpy(init_state4(3, 2048, 700, device="cpu"))
+    for f, a in arrays.items():
+        np.testing.assert_array_equal(fresh[f], a, err_msg=f)
+    with pytest.raises(ValueError, match="integer"):
+        state4_from_jax(
+            dict(arrays, cv_intile=arrays["cv_intile"].astype(np.float32)),
+            device="cpu",
+        )
+
+
+def test_backend_replay_once_and_layouts():
+    trace = synth_trace(seed=2, n_ops=120, base="backend check ")
+    trace = dataclasses.replace(trace, end_content=replay_trace(trace))
+    bk = TorchReplayBackend(n_replicas=2, batch=32, layout="range",
+                            device="cpu")
+    bk.prepare(trace)
+    assert bk.replay_once() == len(trace.end_content)
+    assert bk.final_content() == trace.end_content
+    # unit-op random edits do not coalesce 2x: auto picks the unit layout,
+    # which is a later slice
+    with pytest.raises(NotImplementedError, match="unit layout"):
+        TorchReplayBackend(device="cpu").prepare(trace)
