@@ -19,7 +19,27 @@ Phases (one line each; any failure exits non-zero):
    batch 1536)`` replays automerge-paper (1 warm-up, 3 timed); every
    replica's length must be the trace's, replicas 0 and 1023 must decode
    byte-identical to its end content, and each replay must launch K1 and
-   K2 once per batch and call no plain version.
+   K2 once per batch and call no plain version;
+6. K5 (unit resolver) against ``resolve_batch_plain``, with
+   ``emit_origin`` off and on, on every batch of sveltecomponent at 8
+   replicas (the plain versions run on the CPU, in worker processes) —
+   all six outputs equal;
+7. K6 (fused unit apply) against ``apply_fused2_plain``, with ``emit_cv``
+   on and off, on the v4 producer's operands for every batch of
+   automerge-paper at 8 replicas (staged capacities up to 182,400) and at
+   2 replicas with a capacity of 1,310,720;
+8. the v3 and v2 unit replays of automerge-paper at 64 replicas, batch
+   256: every length the trace's, replicas 0 and 63 byte-identical, K5
+   and K8 (or K9) launched once per batch, no plain version called; then
+   K8 and K9 (expansions) against their plain versions on the v3 and v2
+   producers' operands for every batch at 64 replicas (capacity 182,400)
+   and at 2 replicas with a capacity of 1,310,720, timed at batch 1013;
+9. the unit path at full width: ``TorchReplayBackend(1024 replicas,
+   batch 256, layout="unit")`` (v4) replays automerge-paper (1 warm-up,
+   3 timed) under the same checks, launching K5 and K6 once per batch;
+   one more replay times each stage, and K5 and K6 are held against
+   their plain versions (both flags each way) on the operands of its
+   batch 1013 (1024 replicas, capacity 182,400) and timed there.
 
 The line before the last holds the kernels' numbers as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -30,15 +50,30 @@ result.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
-#: H100 SXM peaks (NVIDIA data sheet) used for the bounds: HBM bytes/s,
-#: and the float32 non-tensor rate as the int32 ALU rate.
+#: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s.  The int32
+#: rate is the card's own (``int32_rate``): the data sheet's 67 TFLOP/s
+#: float32 rate counts 128 FP32 lanes per SM and two operations per FMA,
+#: which is not the int32 rate.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12
+#: INT32 lanes per Hopper SM.
+INT32_LANES_PER_SM = 64
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def int32_rate(smi_max_sm_mhz: str) -> float:
+    """The card's int32 operations/s: SMs x 64 INT32 lanes x the maximum
+    SM clock that nvidia-smi reports (MHz)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * float(smi_max_sm_mhz.split()[0]) * 1e6
 
 
 def k2_bytes(R: int, C: int) -> int:
@@ -68,7 +103,12 @@ def elapsed_ms(fn, reps: int) -> float:
 
 
 def max_err(got, want) -> int:
-    """Largest absolute difference over paired tensors (0 = identical)."""
+    """Largest absolute difference over paired tensors (0 = identical);
+    a lone tensor counts as a 1-tuple."""
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
     worst = 0
     for g, w in zip(got, want):
         if g.shape != w.shape:
@@ -77,6 +117,24 @@ def max_err(got, want) -> int:
             d = (g.long() - w.long()).abs().max().item()
             worst = max(worst, int(d))
     return worst
+
+
+def k5_plain_on_cpu(task):
+    """Worker process: K5's plain version on CPU tensors from numpy
+    operands (kind, pos, v0, emit_origin); returns its outputs as numpy."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import torch
+
+    from crdt_benches_tpu_torch.ops.resolve import resolve_batch_plain
+
+    torch.set_num_threads(1)
+    kind, pos, v0, emit_origin = task
+    out = resolve_batch_plain(
+        torch.from_numpy(kind), torch.from_numpy(pos), torch.from_numpy(v0),
+        emit_origin=emit_origin,
+    )
+    return [t.numpy() for t in out]
 
 
 def main() -> int:
@@ -90,11 +148,22 @@ def main() -> int:
     from crdt_benches_tpu_torch.backends.torch_backend import (
         TorchReplayBackend,
     )
+    from crdt_benches_tpu_torch.engine import replay as urep
+    from crdt_benches_tpu_torch.engine.replay import ReplayEngine
+    from crdt_benches_tpu_torch.ops import apply2
     from crdt_benches_tpu_torch.ops import apply_range_fused as arf
+    from crdt_benches_tpu_torch.ops import expand as ex
+    from crdt_benches_tpu_torch.ops import resolve as rs
     from crdt_benches_tpu_torch.ops import resolve_range as rr
-    from crdt_benches_tpu_torch.ops.apply2 import PackedState4, init_state4
+    from crdt_benches_tpu_torch.ops.apply2 import (
+        PackedState4,
+        init_state2,
+        init_state3,
+        init_state4,
+    )
     from crdt_benches_tpu_torch.traces import (
         load_testing_data,
+        tensorize,
         tensorize_ranges,
     )
 
@@ -108,7 +177,18 @@ def main() -> int:
     if smi.returncode:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
-    print(f"[device] {name}; nvidia-smi: {smi_line}", flush=True)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if clk.returncode:
+        fail(f"nvidia-smi: {clk.stderr.strip()}")
+    int32_ops_per_s = int32_rate(clk.stdout.strip().splitlines()[0])
+    print(f"[device] {name}; nvidia-smi: {smi_line}; int32 rate "
+          f"{int32_ops_per_s:.4g} ops/s "
+          f"({torch.cuda.get_device_properties(0).multi_processor_count} "
+          f"SMs x {INT32_LANES_PER_SM} lanes x "
+          f"{clk.stdout.strip()})", flush=True)
 
     t0 = time.perf_counter()
     _build.kernels()
@@ -244,50 +324,319 @@ def main() -> int:
           + f"; sum {sum(stages.values()):.2f} of {wall:.2f} ms wall "
           "(wall includes state init)", flush=True)
 
+    def main_path(bk, trace, counters, plains, tag):
+        """Drive ``bk`` on ``trace``: 1 warm-up and 3 timed replays, each
+        with every count set to 0 just before and read just after; every
+        kernel in ``counters`` must launch once per batch and no plain
+        version run; all lengths must be the trace's and replicas 0 and
+        R-1 decode to its end content.  Returns the launches per replay."""
+        R = bk.n_replicas
+        eng = bk.engine
+        nb = eng.rt.n_batches if hasattr(eng, "rt") else eng.tt.n_batches
+        bk.replay_once()  # warm-up
+        samples = []
+        launches = {}
+        for _ in range(3):
+            for f in counters:
+                f.launches = 0
+            for f in plains:
+                f.calls = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = bk.replay_once()
+            torch.cuda.synchronize()
+            samples.append(time.perf_counter() - t0)
+            launches = {f.__name__: f.launches for f in counters}
+            plain_calls = {f.__name__: f.calls for f in plains}
+            if any(v != nb for v in launches.values()):
+                fail(f"{tag}: launches per replay {launches}, want {nb} each")
+            if any(plain_calls.values()):
+                fail(f"{tag}: plain versions called on the main path: "
+                     f"{plain_calls}")
+        if n != len(trace.end_content):
+            fail(f"{tag}: replay length {n} != {len(trace.end_content)}")
+        st = eng.run()
+        lengths = st.nvis.cpu()
+        if not bool((lengths == len(trace.end_content)).all()):
+            fail(f"{tag}: replica lengths differ from the trace's end length")
+        for r in (0, R - 1):
+            if eng.decode(st, r) != trace.end_content:
+                fail(f"{tag}: replica {r} does not decode to the trace's "
+                     "end content")
+        del st
+        med = sorted(samples)[1]
+        eps = len(trace) * R / med
+        print(f"[{tag}] automerge-paper R={R} B={bk.batch}: {nb} batches, "
+              f"all {R} lengths {len(trace.end_content)}, replicas 0 and "
+              f"{R - 1} byte-identical; replay s "
+              f"{[round(s, 4) for s in samples]}, median {med:.4f} s, "
+              f"{eps:.1f} elements/s; launches per replay {launches}, "
+              "plain calls 0", flush=True)
+        return launches
+
     # ---- the main path at full width ----
-    R, B = 1024, 1536
     trace = traces["automerge-paper"]
-    bk = TorchReplayBackend(n_replicas=R, batch=B, device=dev)
+    bk = TorchReplayBackend(n_replicas=1024, batch=1536, device=dev)
     bk.prepare(trace)
-    nb = bk.engine.rt.n_batches
-    counters = (rr.resolve_range, arf.range_apply)
-    plains = (rr.resolve_range_plain, arf.range_apply_plain)
-    bk.replay_once()  # warm-up
-    samples = []
-    launches = {}
-    for _ in range(3):
-        for f in counters:
+    launches = main_path(
+        bk, trace, (rr.resolve_range, arf.range_apply),
+        (rr.resolve_range_plain, arf.range_apply_plain), "main",
+    )
+    del bk
+
+    # ---- the unit-op path: K5, K6, K8, K9 ----
+    utts = {n: tensorize(t, batch=256) for n, t in traces.items()}
+    uerr = {"k5": 0, "k6": 0, "k8": 0, "k9": 0}
+    am = utts["automerge-paper"]
+    end_am = len(trace.end_content)
+    late = am.n_batches - 2  # the last batch without PAD ops
+    kb, pb, _, sb = (torch.as_tensor(a, device=dev) for a in am.batched())
+    # engine: (producer, kernel, plain version, finish, init, kernel keys
+    # each checked), as apply2.apply_batch2/3/4 compose them
+    unit = {
+        "v4": ("k6", apply2.batch4_operands, arf.apply_fused2,
+               arf.apply_fused2_plain, apply2.batch4_finish, init_state4,
+               ({}, {"emit_cv": False})),
+        "v3": ("k8", apply2.batch3_operands, ex.expand_packed,
+               ex.expand_packed_plain, apply2.batch3_finish, init_state3,
+               ({},)),
+        "v2": ("k9", apply2.batch2_operands, ex.expand_fill_zero,
+               ex.expand_fill_zero_plain, apply2.batch2_finish, init_state2,
+               ({},)),
+    }
+
+    def engine_chunks(e):
+        return list(zip(e.stage_caps, e.chunks))
+
+    def time_unit_batch(key, kern, plain, ops, args):
+        """At one batch: K5 held against its plain version with emit_origin
+        off and on, and K5 (v4 only), the apply kernel, its plain version
+        and (K8, K9) torch.gather on the source index timed."""
+        for eo in (False, True):
+            e = max_err(tuple(rs.resolve_batch(*args, emit_origin=eo)),
+                        tuple(rs.resolve_batch_plain(*args, emit_origin=eo)))
+            if e:
+                fail(f"K5 != plain at R={args[2].shape[0]}, emit_origin "
+                     f"{eo}: {e}")
+            uerr["k5"] = max(uerr["k5"], e)
+        R, C = ops[0].shape
+        if key == "k6":
+            times["k5_ms"] = elapsed_ms(
+                lambda: rs.resolve_batch(*args, emit_origin=False), 10)
+            times["k5_plain_ms"] = elapsed_ms(
+                lambda: rs.resolve_batch_plain(*args, emit_origin=False), 1)
+            times["k5_shape"] = (R, args[0].shape[0],
+                                 rs.token_list_size(args[0].shape[0]))
+            # doc and combo matter only below new_len (2 is written past it)
+            times["k6_rows"] = int(ops[2].clamp(max=C).sum())
+        col = torch.arange(C, device=dev)
+        if key == "k8":
+            src = (col - (ops[1] >> 1)).clamp(min=0).long()
+            times["k8_lib_ms"] = elapsed_ms(
+                lambda: torch.gather(ops[0], 1, src), 20)
+        elif key == "k9":
+            src = (col - ops[2]).clamp(min=0).long()
+            times["k9_lib_ms"] = elapsed_ms(
+                lambda: (torch.gather(ops[0], 1, src),
+                         torch.gather(ops[1], 1, src)), 20)
+        times[f"{key}_ms"] = elapsed_ms(lambda: kern(*ops), 20)
+        times[f"{key}_plain_ms"] = elapsed_ms(lambda: plain(*ops), 3)
+        times[f"{key}_shape"] = (R, C)
+
+    def unit_walk(eng, st, chunks, check=never, k5_log=None, time_at=None,
+                  stages=None):
+        """Replay ``chunks`` ((capacity, (kind, pos, slot)) each) from
+        ``st`` batch by batch as ``ReplayEngine.run`` does: K5, then
+        ``eng``'s producer, kernel and finish.  Where ``check(i)`` or at
+        batch ``time_at`` the kernel's outputs (with each keyword variant)
+        are held against its plain version on the same operands; at
+        ``time_at`` K5 is checked too and both are timed
+        (:func:`time_unit_batch`); K5's operands and outputs go to
+        ``k5_log`` if given; with ``stages`` a dict, each stage's device
+        time is summed into it.  Returns (state, batches checked, host
+        seconds spent checking and timing)."""
+        key, producer, kern, plain, finish, _, variants = unit[eng]
+        i = n_checked = 0
+        aside = 0.0
+        ev = []
+        for cap, (kind, pos, slot) in chunks:
+            if eng == "v4":
+                st = urep._grow_state4(st, cap)
+            for j in range(kind.shape[0]):
+                if stages is not None:
+                    ev.append([torch.cuda.Event(enable_timing=True)
+                               for _ in range(4)])
+                    ev[-1][0].record()
+                args = (kind[j], pos[j], st.nvis)
+                res = rs.resolve_batch(*args, emit_origin=False)
+                if stages is not None:
+                    ev[-1][1].record()
+                if k5_log is not None:
+                    k5_log.append((args, res))
+                ops, rest = producer(st, res, slot[j])
+                if stages is not None:
+                    ev[-1][2].record()
+                out = kern(*ops)
+                if stages is not None:
+                    ev[-1][3].record()
+                if check(i) or i == time_at:
+                    t1 = time.perf_counter()
+                    for kw in variants:
+                        got = kern(*ops, **kw) if kw else out
+                        e = max_err(got, plain(*ops, **kw))
+                        if e:
+                            fail(f"{kern.__name__} != plain ({kw}) at batch "
+                                 f"{i}, (R, C) = {tuple(ops[0].shape)}: {e}")
+                        uerr[key] = max(uerr[key], e)
+                    n_checked += 1
+                    if i == time_at:
+                        time_unit_batch(key, kern, plain, ops, args)
+                    aside += time.perf_counter() - t1
+                st = finish(out, *rest)
+                i += 1
+        torch.cuda.synchronize()
+        for e in ev:
+            for k, (a, b) in enumerate(zip(e, e[1:])):
+                name = ("k5", "producer", key)[k]
+                stages[name] = stages.get(name, 0.0) + a.elapsed_time(b)
+        return st, n_checked, aside
+
+    def lengths_ok(st, tag):
+        if not bool((st.nvis == end_am).all()):
+            fail(f"{tag}: lengths {st.nvis[:4].tolist()} != {end_am}")
+
+    def checked_all(n, tag):
+        if n != am.n_batches:
+            fail(f"{tag}: {n} batches checked, want {am.n_batches}")
+
+    # K5 on every sveltecomponent batch, emit_origin off (as the replay
+    # launches it) and on; the plain versions run in CPU worker processes
+    t0 = time.perf_counter()
+    sv = ReplayEngine(utts["sveltecomponent"], n_replicas=8, device=dev)
+    k5_log = []
+    unit_walk("v4", sv.init_state(), engine_chunks(sv), k5_log=k5_log)
+    if len(k5_log) != sv.tt.n_batches:
+        fail(f"K5 logged {len(k5_log)} batches, want {sv.tt.n_batches}")
+    tasks, got = [], []
+    for args, out in k5_log:
+        for eo, res in ((False, out),
+                        (True, rs.resolve_batch(*args, emit_origin=True))):
+            tasks.append((*(a.cpu().numpy() for a in args), eo))
+            got.append(res)
+    workers = max(1, min(6, (os.cpu_count() or 2) - 2))
+    with ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn")
+    ) as pool:
+        wants = list(pool.map(k5_plain_on_cpu, tasks, chunksize=8))
+    for i, (g, w) in enumerate(zip(got, wants)):
+        e = max_err(tuple(g), tuple(torch.from_numpy(x).to(dev) for x in w))
+        if e:
+            fail(f"K5 != plain on sveltecomponent batch {i // 2}, "
+                 f"emit_origin {tasks[i][3]}: {e}")
+        uerr["k5"] = max(uerr["k5"], e)
+    print(f"[k5 R=8] sveltecomponent: all {len(k5_log)} batches equal with "
+          f"emit_origin off and on (plain on {workers} CPU workers; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    del k5_log, tasks, got, wants
+
+    # K6 on every automerge-paper batch: R = 8 at the staged capacities,
+    # R = 2 at a capacity past the TPU kernel's ~1.09M-position gate
+    long_c = 1_310_720
+    long_chunks = [(long_c, (kb, pb, sb))]
+    t0 = time.perf_counter()
+    e8 = ReplayEngine(am, n_replicas=8, device=dev)
+    st, n, _ = unit_walk("v4", e8.init_state(), engine_chunks(e8), every)
+    lengths_ok(st, "K6 R=8")
+    checked_all(n, "K6 R=8")
+    st, n, _ = unit_walk(
+        "v4", init_state4(2, long_c, len(am.init_chars), device=dev),
+        long_chunks, every)
+    lengths_ok(st, "K6 long")
+    checked_all(n, "K6 long")
+    print(f"[k6] automerge-paper, all {am.n_batches} batches equal with "
+          f"emit_cv on and off at R=8 (C up to {e8.stage_caps[-1]}) and at "
+          f"R=2, C={long_c} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    del st, e8
+
+    # K8 (v3) and K9 (v2): their replays at R = 64 through the engine,
+    # counted; then every batch held against the plain version at that
+    # width and at R = 2 past the gate, timed at a late batch
+    alt_launches = {}
+    for eng in ("v3", "v2"):
+        key, _, kern, plain, _, init, _ = unit[eng]
+        t0 = time.perf_counter()
+        e64 = ReplayEngine(am, n_replicas=64, engine=eng, device=dev)
+        pair = (rs.resolve_batch, kern)
+        for f in pair:
             f.launches = 0
-        for f in plains:
+        for f in (rs.resolve_batch_plain, plain, arf.apply_fused2_plain):
             f.calls = 0
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        n = bk.replay_once()
-        torch.cuda.synchronize()
-        samples.append(time.perf_counter() - t0)
-        launches = {f.__name__: f.launches for f in counters}
-        plain_calls = {f.__name__: f.calls for f in plains}
-        if any(v != nb for v in launches.values()):
-            fail(f"launches per replay {launches}, want {nb} each")
-        if any(plain_calls.values()):
-            fail(f"plain versions called on the main path: {plain_calls}")
-    if n != len(trace.end_content):
-        fail(f"replay length {n} != {len(trace.end_content)}")
-    st = bk.engine.run()
-    lengths = st.nvis.cpu()
-    if not bool((lengths == len(trace.end_content)).all()):
-        fail("replica lengths differ from the trace's end length")
-    for r in (0, R - 1):
-        if bk.engine.decode(st, r) != trace.end_content:
-            fail(f"replica {r} does not decode to the trace's end content")
-    del st
-    med = sorted(samples)[1]
-    eps = len(trace) * R / med
-    print(f"[main] automerge-paper R={R} B={B}: {nb} batches, all "
-          f"{R} lengths {len(trace.end_content)}, replicas 0 and {R - 1} "
-          f"byte-identical; replay s {[round(s, 4) for s in samples]}, "
-          f"median {med:.4f} s, {eps:.1f} elements/s; launches per "
-          f"replay {launches}, plain calls 0", flush=True)
+        t1 = time.perf_counter()
+        st = e64.run()
+        lengths_ok(st, f"{eng} R=64")
+        secs = time.perf_counter() - t1
+        la = {f.__name__: f.launches for f in pair}
+        pc = (rs.resolve_batch_plain.calls + plain.calls
+              + arf.apply_fused2_plain.calls)
+        if any(v != am.n_batches for v in la.values()) or pc:
+            fail(f"{eng} replay: launches {la}, plain calls {pc}")
+        for r in (0, 63):
+            if e64.decode(st, r) != trace.end_content:
+                fail(f"{eng} replay: replica {r} differs from the end content")
+        alt_launches[key] = la[kern.__name__]
+        st, n, _ = unit_walk(eng, e64.init_state(), engine_chunks(e64),
+                             every, time_at=late)
+        lengths_ok(st, f"{key} R=64")
+        checked_all(n, f"{key} R=64")
+        st, n, _ = unit_walk(
+            eng, init(2, long_c, len(am.init_chars), device=dev),
+            long_chunks, every)
+        lengths_ok(st, f"{key} long")
+        checked_all(n, f"{key} long")
+        del st
+        print(f"[{key}] automerge-paper: the {eng} replay at R=64: all "
+              f"lengths {end_am}, replicas 0 and 63 byte-identical, launches "
+              f"{la}, plain calls 0, {secs:.3f} s; all {am.n_batches} batches"
+              f" equal at R=64, C={e64.capacity} and at R=2, C={long_c}; "
+              f"batch {late}: kernel {times[key + '_ms']:.4f} ms, plain "
+              f"{times[key + '_plain_ms']:.4f} ms, torch.gather on the "
+              f"source index {times[key + '_lib_ms']:.4f} ms at (R, C) = "
+              f"{times[key + '_shape']} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+    # ---- the unit path at full width ----
+    bk = TorchReplayBackend(n_replicas=1024, batch=256, layout="unit",
+                            device=dev)
+    bk.prepare(trace)
+    unit_launches = main_path(
+        bk, trace, (rs.resolve_batch, arf.apply_fused2),
+        (rs.resolve_batch_plain, arf.apply_fused2_plain), "unit main",
+    )
+    # one more replay, stage by stage, with K5 and K6 held against their
+    # plain versions (both flags each way) and timed at a late batch
+    ustages: dict[str, float] = {}
+    eng = bk.engine
+    t0 = time.perf_counter()
+    st, n, aside = unit_walk("v4", eng.init_state(), engine_chunks(eng),
+                             time_at=late, stages=ustages)
+    wall = (time.perf_counter() - t0 - aside) * 1e3
+    lengths_ok(st, "unit stages")
+    if n != 1:
+        fail(f"unit stages: {n} batches checked, want 1")
+    del st, bk, eng
+    print("[unit stages] automerge-paper R=1024 B=256, all batches, device "
+          "ms: " + ", ".join(f"{k} {v:.2f}" for k, v in ustages.items())
+          + f"; sum {sum(ustages.values()):.2f} of {wall:.2f} ms wall "
+          f"(wall includes state init and capacity growth, not the check)",
+          flush=True)
+    print(f"[k5+k6 R=1024] automerge-paper batch {late} equal (K5 with "
+          f"emit_origin off and on, K6 with emit_cv on and off); "
+          f"K5 {times['k5_ms']:.3f} ms, plain {times['k5_plain_ms']:.1f} ms "
+          f"at (R, B, T) = {times['k5_shape']}; K6 {times['k6_ms']:.3f} ms, "
+          f"plain {times['k6_plain_ms']:.3f} ms at (R, C) = "
+          f"{times['k6_shape']}, {times['k6_rows']} positions below "
+          f"new_len ({aside:.1f} s)", flush=True)
 
     R1, B1, T1 = times["k1_shape"]
     k1_bytes = 4 * B1 * 4 + R1 * 4 + R1 * (4 * T1 + 3 * B1 + 1) * 4
@@ -296,26 +645,51 @@ def main() -> int:
     # per position: depth-field decode (3), four prefix adds, vis clear
     # (2), fill arithmetic (3) — 12 int32 operations
     k2_ops = R2 * C2 * 12
+    R5, B5, T5 = times["k5_shape"]
+    # kind/pos and v0 read; five int32 and one bool output per (R, B)
+    k5_bytes = 2 * B5 * 4 + R5 * 4 + R5 * B5 * (5 * 4 + 1)
+    k5_ops = R5 * B5 * T5 * 2  # two token fields (tta, cum) per op
+    R6, C6 = times["k6_shape"]
+    # doc_predel and combo read below new_len; doc (int32), cv_intile
+    # (int16) and vis_tile written everywhere; new_len read
+    k6_bytes = (times["k6_rows"] * (4 + 4) + R6 * C6 * (4 + 2)
+                + R6 * (C6 // 128) * 4 + R6 * 4)
+    k6_ops = R6 * C6 * 8  # prefix, hole test, source, length test, vis
+    R8, C8 = times["k8_shape"]
+    R9, C9 = times["k9_shape"]
 
     def bound(nbytes, nops):
-        tb, to = nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S
+        tb, to = nbytes / HBM_BYTES_PER_S, nops / int32_ops_per_s
         return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
+    src = "crdt_benches_tpu_torch/csrc/"
+    tpu = "crdt_benches_tpu/ops/"
     rows = []
-    for key, kname, src, rep, nbytes, nops in (
-        ("k1", "resolve_range", "crdt_benches_tpu_torch/csrc/resolve_range.cu",
-         "crdt_benches_tpu/ops/resolve_range_pallas.py:255", k1_bytes,
-         k1_ops),
-        ("k2", "range_apply", "crdt_benches_tpu_torch/csrc/range_apply.cu",
-         "crdt_benches_tpu/ops/apply_range_fused.py:388", k2_bytes(R2, C2),
-         k2_ops),
+    for key, kname, cu, rep, n_launch, e, nbytes, nops, lib in (
+        ("k1", "resolve_range", "resolve_range.cu",
+         "resolve_range_pallas.py:255", launches["resolve_range"],
+         err["k1"], k1_bytes, k1_ops, None),
+        ("k2", "range_apply", "range_apply.cu",
+         "apply_range_fused.py:388", launches["range_apply"], err["k2"],
+         k2_bytes(R2, C2), k2_ops, None),
+        ("k5", "resolve_batch", "resolve_unit.cu",
+         "resolve_pallas.py:282", unit_launches["resolve_batch"],
+         uerr["k5"], k5_bytes, k5_ops, None),
+        ("k6", "apply_fused2", "unit_apply.cu", "apply_range_fused.py:167",
+         unit_launches["apply_fused2"], uerr["k6"], k6_bytes, k6_ops, None),
+        ("k8", "expand_packed", "expand.cu", "expand_pallas.py:114",
+         alt_launches["k8"], uerr["k8"], R8 * C8 * 12, R8 * C8 * 3,
+         times["k8_lib_ms"]),
+        ("k9", "expand_fill_zero", "expand.cu", "expand_pallas.py:396",
+         alt_launches["k9"], uerr["k9"], R9 * C9 * 24, R9 * C9 * 4,
+         times["k9_lib_ms"]),
     ):
         b_ms, b_by = bound(nbytes, nops)
         rows.append({
-            "name": kname, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[kname], "max_abs_err": err[key],
+            "name": kname, "route": "cuda", "source": src + cu,
+            "replaces": tpu + rep, "launches": n_launch, "max_abs_err": e,
             "ms": times[f"{key}_ms"], "plain_ms": times[f"{key}_plain_ms"],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
         })
     print(json.dumps({"kernels": rows}))
     print(smi_line)

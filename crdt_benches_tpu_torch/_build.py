@@ -40,6 +40,16 @@ SIGNATURES = {
     # doc, delpk, ind_d, dd, new_len, R, C, dsh,
     # doc_out, cv_intile, vis_tile, scratch, stream
     "crdt_range_apply": [_P] * 5 + [_I] * 3 + [_P] * 4 + [_P],
+    # kind, pos, v0, R, B, T, emit_origin,
+    # del_rank, ins_gvis, ins_seq, ins_alive, origin, del_batch, stream
+    "crdt_resolve_unit": [_P] * 3 + [_I] * 4 + [_P] * 6 + [_P],
+    # doc, combo, new_len, R, C, emit_cv, doc_out, cv_intile, vis_tile,
+    # stream
+    "crdt_unit_apply": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_P],
+    # doc, cntind, R, C, out, stream
+    "crdt_expand_packed": [_P] * 2 + [_I] * 2 + [_P] + [_P],
+    # order, vis, cnt, ind, R, C, order_out, vis_out, stream
+    "crdt_expand_fill_zero": [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

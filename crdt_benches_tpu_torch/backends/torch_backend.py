@@ -12,25 +12,29 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..engine.replay import ReplayEngine
 from ..engine.replay_range import RangeReplayEngine
 from ..traces.loader import TestData
-from ..traces.tensorize import coalesce_patches, tensorize_ranges
+from ..traces.tensorize import coalesce_patches, tensorize, tensorize_ranges
 from .base import BatchedReplay
 
 
 class TorchReplayBackend(BatchedReplay):
     def __init__(self, n_replicas: int = 1, batch: int = 512,
                  layout: str | None = None, pack: int = 8,
+                 unit_engine: str = "v4",
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.n_replicas = n_replicas
         self.batch = batch
         #: None/'auto' picks the coalesced range engine when RLE shrinks
-        #: the op stream >= 2x; 'range' forces it; 'unit' (the per-char
-        #: engine) is not ported yet.
+        #: the op stream >= 2x and the unit-op engine otherwise; 'range'
+        #: and 'unit' force one.
         self.layout = layout
         self.pack = pack
-        self._eng: RangeReplayEngine | None = None
+        #: the unit engine's apply: 'v4' (fused, default), 'v3' or 'v2'
+        self.unit_engine = unit_engine
+        self._eng: RangeReplayEngine | ReplayEngine | None = None
         self._end_len = 0
 
     @property
@@ -38,7 +42,7 @@ class TorchReplayBackend(BatchedReplay):
         return self.n_replicas
 
     @property
-    def engine(self) -> RangeReplayEngine:
+    def engine(self) -> RangeReplayEngine | ReplayEngine:
         if self._eng is None:
             raise RuntimeError("call prepare(trace) first")
         return self._eng
@@ -56,16 +60,21 @@ class TorchReplayBackend(BatchedReplay):
             )
             layout = "range" if unit_ops >= 2 * range_ops else "unit"
         if layout == "unit":
-            raise NotImplementedError("unit layout: later slice")
-        if layout != "range":
+            self._eng = ReplayEngine(
+                tensorize(trace, batch=self.batch),
+                n_replicas=self.n_replicas, engine=self.unit_engine,
+                device=self.device,
+            )
+        elif layout == "range":
+            rt = tensorize_ranges(
+                trace, batch=self.batch, coalesce=True, patches=patches
+            )
+            self._eng = RangeReplayEngine(
+                rt, n_replicas=self.n_replicas, pack=self.pack,
+                device=self.device,
+            )
+        else:
             raise ValueError(f"unknown layout {layout!r}")
-        rt = tensorize_ranges(
-            trace, batch=self.batch, coalesce=True, patches=patches
-        )
-        self._eng = RangeReplayEngine(
-            rt, n_replicas=self.n_replicas, pack=self.pack,
-            device=self.device,
-        )
         self._end_len = len(trace.end_content)
 
     def replay_once(self) -> int:

@@ -2,6 +2,10 @@
 
     python -m crdt_benches_tpu_torch.bench [--trace automerge-paper]
         [--replicas 1024] [--batch 1536] [--samples 5] [--device cuda]
+        [--layout auto|range|unit] [--unit-engine v4|v3|v2]
+
+The default is the headline range replay; ``--layout unit --batch 256``
+is the unit-op engine (the JAX package's ``jax-unit`` bench column).
 
 Metric: aggregate replay throughput of the trace across many replicas on
 one GPU, in elements/sec (element = one trace patch, times replicas).
@@ -49,15 +53,21 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=1536)
     ap.add_argument("--samples", type=int, default=5)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layout", choices=("auto", "range", "unit"),
+                    default="auto")
+    ap.add_argument("--unit-engine", choices=("v4", "v3", "v2"),
+                    default="v4")
     args = ap.parse_args(argv)
 
     from ..backends.torch_backend import TorchReplayBackend
+    from ..engine.replay import ReplayEngine
     from ..traces.loader import load_testing_data
     from .harness import measure
 
     try:
         backend = TorchReplayBackend(
-            n_replicas=args.replicas, batch=args.batch, device=args.device
+            n_replicas=args.replicas, batch=args.batch, layout=args.layout,
+            unit_engine=args.unit_engine, device=args.device,
         )
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
@@ -78,13 +88,19 @@ def main(argv=None) -> int:
         torch.cuda.get_device_name(backend.device)
         if backend.device.type == "cuda" else "cpu"
     )
-    base = base_rle or base_pp
+    # the unit engine replays the per-patch stream exploded to chars, so
+    # its baseline is the per-patch C++ replay
+    unit = isinstance(backend.engine, ReplayEngine)
+    base = base_pp if unit else (base_rle or base_pp)
+    label = ("cpp-crdt 1 core, per patch" if unit
+             else "cpp-crdt 1 core, same coalesced stream")
     out = {
         "metric": (
             f"{args.trace} aggregate replay throughput, {args.replicas} "
-            f"replicas, torch-{backend.device.type} ({kind}) (baseline: "
-            + ("cpp-crdt 1 core, same coalesced stream" if base_rle
-               else "cpp-crdt unavailable")
+            f"replicas, "
+            + (f"unit layout {args.unit_engine}, " if unit else "")
+            + f"torch-{backend.device.type} ({kind}) (baseline: "
+            + (label if base else "cpp-crdt unavailable")
             + ")"
         ),
         "value": round(agg, 1),

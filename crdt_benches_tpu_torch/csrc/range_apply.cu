@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_scan.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -41,52 +43,6 @@ constexpr int kItems = 4;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = kThreads * kItems;
 constexpr unsigned kFull = 0xffffffffu;
-
-// Exclusive block scan of N int32 values per thread.  On return v[n] is
-// the exclusive prefix of this thread's value and total[n] the block sum.
-template <int N>
-__device__ __forceinline__ void block_excl_scan(int (&v)[N], int (&total)[N],
-                                                int (*ws)[kWarps]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int incl[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) incl[n] = v[n];
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const int y = __shfl_up_sync(kFull, incl[n], o);
-      if (lane >= o) incl[n] += y;
-    }
-  }
-  if (lane == 31) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) ws[n][warp] = incl[n];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      int w = lane < kWarps ? ws[n][lane] : 0;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(kFull, w, o);
-        if (lane >= o) w += y;
-      }
-      __syncwarp();
-      if (lane < kWarps) ws[n][lane] = w;  // inclusive warp-total prefix
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    const int before = warp > 0 ? ws[n][warp - 1] : 0;
-    total[n] = ws[n][kWarps - 1];
-    v[n] = before + incl[n] - v[n];
-  }
-  __syncthreads();  // ws is reused by the next scan
-}
 
 __global__ void __launch_bounds__(kThreads)
 range_apply_kernel(const int* __restrict__ doc, const int* __restrict__ delpk,
@@ -132,7 +88,7 @@ range_apply_kernel(const int* __restrict__ doc, const int* __restrict__ delpk,
       ldd[k] = sdd;
     }
     int s1[3] = {sdep, sind, sdd}, t1[3];
-    block_excl_scan<3>(s1, t1, ws);
+    block_excl_scan<kThreads>(s1, t1, ws);
 
     int xv[kItems], run[kItems], dcum[kItems];
     int srun = 0;
@@ -149,7 +105,7 @@ range_apply_kernel(const int* __restrict__ doc, const int* __restrict__ delpk,
           make_int4(xv[0], xv[1], xv[2], xv[3]);
     }
     int s2[1] = {srun}, t2[1];
-    block_excl_scan<1>(s2, t2, ws);  // its barriers publish the scratch row
+    block_excl_scan<kThreads>(s2, t2, ws);  // its barriers publish the scratch row
 
     int ov[kItems];
     int cnt = c_cnt + s2[0];

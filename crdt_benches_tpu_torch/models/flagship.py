@@ -23,7 +23,8 @@ class FlagshipConfig:
     batch: int = 1536  # ops per resolver launch
     pack: int = 8  # chunk lengths round to a multiple of this
     #: 'auto' picks the coalesced range engine when RLE shrinks the op
-    #: stream >= 2x (all four reference traces); 'range' forces it.
+    #: stream >= 2x (all four reference traces); 'range' forces it and
+    #: 'unit' forces the unit-op engine.
     layout: str = "auto"
 
 

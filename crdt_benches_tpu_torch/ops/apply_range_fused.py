@@ -1,5 +1,7 @@
-"""Fused RANGE batch application (the JAX package's
-``ops/apply_range_fused.py`` v4 path).
+"""Fused batch applications (the JAX package's
+``ops/apply_range_fused.py``): the range v4 path, and the fused unit
+apply K6 (:func:`apply_fused2`, ``csrc/unit_apply.cu``, with its plain
+version :func:`apply_fused2_plain`) that ``apply2.apply_batch4`` calls.
 
 Per batch the producer (:func:`range_apply_operands`) does the B/T-sized
 work — token extraction, rank queries against the maintained two-level
@@ -28,6 +30,8 @@ from .apply2 import (
     LANE,
     PackedState4,
     _excl_cumsum_small,
+    _scatter_rows,
+    _zeros_like_rows,
     count_le_two_level,
     tile_cumsum,
 )
@@ -73,13 +77,15 @@ def range_apply_plain(doc, delpk, ind_d, dd, new_len, dsh: int):
 range_apply_plain.calls = 0
 
 
-def _check_operands(doc, delpk, ind_d, dd, new_len):
+def _check_operands(doc, *rows, new_len):
+    """Every operand int32 and contiguous on doc's device: ``rows`` as
+    (name, tensor) pairs of doc's (R, C), new_len (R,); C % 128 == 0."""
     R, C = doc.shape
     if C % LANE:
         raise ValueError(f"capacity {C} is not a multiple of {LANE}")
     for name, t, shape in (
-        ("doc", doc, (R, C)), ("delpk", delpk, (R, C)),
-        ("ind_d", ind_d, (R, C)), ("dd", dd, (R, C)),
+        ("doc", doc, (R, C)),
+        *((n, t, (R, C)) for n, t in rows),
         ("new_len", new_len, (R,)),
     ):
         if t.device != doc.device:
@@ -98,7 +104,8 @@ def range_apply(doc, delpk, ind_d, dd, new_len, dsh: int):
     of ``csrc/range_apply.cu`` (or raises); on a CPU tensor it runs
     :func:`range_apply_plain`.  Same contract as the JAX ``range_fused`` /
     ``range_fused_blocked``, with ``cv_intile`` as int16."""
-    _check_operands(doc, delpk, ind_d, dd, new_len)
+    _check_operands(doc, ("delpk", delpk), ("ind_d", ind_d), ("dd", dd),
+                    new_len=new_len)
     if doc.device.type == "cpu":
         return range_apply_plain(doc, delpk, ind_d, dd, new_len, dsh)
     if doc.device.type != "cuda":
@@ -125,15 +132,74 @@ def range_apply(doc, delpk, ind_d, dd, new_len, dsh: int):
 range_apply.launches = 0
 
 
+def apply_fused2_plain(doc_predel, combo, new_len, *, emit_cv: bool = True):
+    """Plain PyTorch version of the fused unit apply K6 (any device).
+    Returns doc' int32[R, C], or (doc', cv_intile int16[R, C], vis_tile
+    int32[R, nt]) with ``emit_cv``."""
+    apply_fused2_plain.calls += 1
+    R, C = doc_predel.shape
+    col = torch.arange(C, device=doc_predel.device)
+    ind = combo & 1
+    cnt = torch.cumsum(ind, dim=1, dtype=I32)
+    y = doc_predel.gather(1, (col - cnt).clamp(min=0).long())
+    out = torch.where(ind != 0, combo >> 1, y)
+    out = torch.where(col >= new_len[:, None], 2, out).to(I32)
+    if not emit_cv:
+        return out
+    cv = tile_cumsum(out & 1)
+    return (
+        out,
+        cv.reshape(R, C).to(torch.int16),
+        cv[:, :, LANE - 1].contiguous(),
+    )
+
+
+apply_fused2_plain.calls = 0
+
+
+def apply_fused2(doc_predel, combo, new_len, *, emit_cv: bool = True):
+    """Fused unit apply K6: expansion y[d] = doc_predel[d - cnt[d]] with
+    cnt the inclusive prefix of combo & 1, fill combo >> 1 at the insert
+    destinations, 2 at and past new_len, and with ``emit_cv`` the next
+    batch's cv_intile (int16) and vis_tile.  Same contract as the JAX
+    ``apply_fused2``, which ignores its cnt_base and recomputes it from
+    combo: this one takes none.  On a CUDA tensor it launches the kernel
+    of ``csrc/unit_apply.cu`` (or raises); on a CPU tensor it runs
+    :func:`apply_fused2_plain`."""
+    _check_operands(doc_predel, ("combo", combo), new_len=new_len)
+    if doc_predel.device.type == "cpu":
+        return apply_fused2_plain(doc_predel, combo, new_len,
+                                  emit_cv=emit_cv)
+    if doc_predel.device.type != "cuda":
+        raise ValueError(f"apply_fused2: unsupported device "
+                         f"{doc_predel.device}")
+    R, C = doc_predel.shape
+    dev = doc_predel.device
+    out = torch.empty_like(doc_predel)
+    cv = vt = None
+    if emit_cv:
+        cv = torch.empty((R, C), dtype=torch.int16, device=dev)
+        vt = torch.empty((R, C // LANE), dtype=I32, device=dev)
+    if R:
+        err = kernels().crdt_unit_apply(
+            doc_predel.data_ptr(), combo.data_ptr(), new_len.data_ptr(),
+            R, C, int(emit_cv), out.data_ptr(),
+            cv.data_ptr() if emit_cv else None,
+            vt.data_ptr() if emit_cv else None,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        check(err, "crdt_unit_apply")
+        apply_fused2.launches += 1
+    return (out, cv, vt) if emit_cv else out
+
+
+apply_fused2.launches = 0
+
+
 def _spread(idx, val, C: int):
     """Dense int32[R, C] with val[r, b] added at idx[r, b]; indices
     outside [0, C) are dropped."""
-    ok = (idx >= 0) & (idx < C)
-    out = torch.zeros((idx.shape[0], C), dtype=I32, device=idx.device)
-    out.scatter_add_(
-        1, torch.where(ok, idx, 0).long(), torch.where(ok, val, 0).to(I32)
-    )
-    return out
+    return _scatter_rows(_zeros_like_rows(idx, C), idx, val)
 
 
 def range_apply_operands(state: PackedState4, tokens, dints):

@@ -1,5 +1,12 @@
 from .loader import TRACES, TestData, TestPatch, TestTxn, load_testing_data, trace_path
-from .tensorize import RangeTrace, coalesce_patches, tensorize_ranges
+from .tensorize import (
+    RangeTrace,
+    TensorizedTrace,
+    coalesce_patches,
+    explode_unit_ops,
+    tensorize,
+    tensorize_ranges,
+)
 
 __all__ = [
     "TRACES",
@@ -11,4 +18,7 @@ __all__ = [
     "RangeTrace",
     "coalesce_patches",
     "tensorize_ranges",
+    "TensorizedTrace",
+    "explode_unit_ops",
+    "tensorize",
 ]

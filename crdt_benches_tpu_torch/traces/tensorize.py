@@ -1,9 +1,13 @@
-"""Range tensorization: patches -> padded integer range-op arrays.
+"""Trace tensorization: patches -> padded integer op arrays.
 
-One op per patch component (delete-range and/or insert-run) instead of
-one per char, so the sequential resolver does O(patches) work.  Each
-insert run is pre-assigned its first slot id (its index in the
-insertion-order physical buffer); slot ids double as element ids.
+Two layouts.  Unit ops (:func:`tensorize`): each patch ``(pos, del, ins)``
+is exploded into ``del`` single-char deletes at ``pos`` followed by one
+single-char insert per char of ``ins`` (at ``pos``, ``pos+1``, ...).
+Range ops (:func:`tensorize_ranges`): one op per patch component
+(delete-range and/or insert-run), so the sequential resolver does
+O(patches) work.  Either way ops pad to a multiple of the batch size with
+``PAD`` no-ops, and each insert is pre-assigned its slot id (its index in
+the insertion-order physical buffer); slot ids double as element ids.
 
 Pure NumPy.
 """
@@ -20,6 +24,88 @@ from .loader import TestData
 PAD = 0
 INSERT = 1
 DELETE = 2
+
+
+@dataclass
+class TensorizedTrace:
+    """A trace as padded unit-op arrays plus static sizing metadata."""
+
+    kind: np.ndarray  # int32[N_pad]  PAD / INSERT / DELETE
+    pos: np.ndarray  # int32[N_pad]  visible char position at op time
+    ch: np.ndarray  # int32[N_pad]  codepoint for INSERT, 0 otherwise
+    slot: np.ndarray  # int32[N_pad]  preassigned slot id for INSERT, -1 otherwise
+    init_chars: np.ndarray  # int32[S] start-content codepoints (slots 0..S-1)
+    n_ops: int  # real (unpadded) unit-op count
+    n_patches: int  # throughput element count
+    n_inserts: int  # INSERT unit-op count
+    capacity: int  # S + n_inserts = total slots ever allocated
+    batch: int  # batch size the padding is aligned to
+    end_content: str
+
+    @property
+    def n_batches(self) -> int:
+        return len(self.kind) // self.batch
+
+    def batched(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """The op arrays reshaped to (n_batches, batch)."""
+        nb, b = self.n_batches, self.batch
+        return (
+            self.kind.reshape(nb, b),
+            self.pos.reshape(nb, b),
+            self.ch.reshape(nb, b),
+            self.slot.reshape(nb, b),
+        )
+
+
+def explode_unit_ops(trace: TestData) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Explode patches into (kind, pos, ch) unit-op arrays (no padding)."""
+    kinds: list[int] = []
+    poss: list[int] = []
+    chs: list[int] = []
+    for pos, del_count, ins in trace.iter_patches():
+        kinds.extend([DELETE] * del_count)
+        poss.extend([pos] * del_count)
+        chs.extend([0] * del_count)
+        kinds.extend([INSERT] * len(ins))
+        poss.extend(range(pos, pos + len(ins)))
+        chs.extend(ord(c) for c in ins)
+    return (
+        np.asarray(kinds, dtype=np.int32),
+        np.asarray(poss, dtype=np.int32),
+        np.asarray(chs, dtype=np.int32),
+    )
+
+
+def tensorize(trace: TestData, batch: int = 256) -> TensorizedTrace:
+    """Tensorize a trace as unit ops, padded to a multiple of ``batch``."""
+    kind, pos, ch = explode_unit_ops(trace)
+    n_ops = len(kind)
+    n_pad = (-n_ops) % batch if n_ops else batch
+    if n_pad:
+        kind = np.concatenate([kind, np.zeros(n_pad, np.int32)])
+        pos = np.concatenate([pos, np.zeros(n_pad, np.int32)])
+        ch = np.concatenate([ch, np.zeros(n_pad, np.int32)])
+    init_chars = np.asarray([ord(c) for c in trace.start_content], np.int32)
+    s = len(init_chars)
+    is_ins = kind == INSERT
+    # slot id = S + (number of inserts strictly before this op)
+    slot = np.where(
+        is_ins, s + np.cumsum(is_ins, dtype=np.int64) - 1, -1
+    ).astype(np.int32)
+    n_inserts = int(is_ins.sum())
+    return TensorizedTrace(
+        kind=kind,
+        pos=pos,
+        ch=ch,
+        slot=slot,
+        init_chars=init_chars,
+        n_ops=n_ops,
+        n_patches=len(trace),
+        n_inserts=n_inserts,
+        capacity=s + n_inserts,
+        batch=batch,
+        end_content=trace.end_content,
+    )
 
 
 @dataclass

@@ -4,8 +4,10 @@ the CPU, its chip driver fails without a card, and states carry across
 from the JAX reference and back."""
 
 import dataclasses
+import glob
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -17,12 +19,24 @@ import torch
 from crdt_benches_tpu.ops.apply2 import init_state4 as jax_init_state4
 from crdt_benches_tpu.oracle import replay_trace
 from crdt_benches_tpu.traces.synth import synth_trace
+from crdt_benches_tpu_torch import _build
 from crdt_benches_tpu_torch.backends.torch_backend import TorchReplayBackend
+from crdt_benches_tpu_torch.engine.replay import ReplayEngine
 from crdt_benches_tpu_torch.engine.replay_range import RangeReplayEngine
 from crdt_benches_tpu_torch.models import flagship
-from crdt_benches_tpu_torch.ops.apply2 import init_state4
-from crdt_benches_tpu_torch.traces.tensorize import tensorize_ranges
+from crdt_benches_tpu_torch.ops.apply2 import (
+    init_state2,
+    init_state3,
+    init_state4,
+)
+from crdt_benches_tpu_torch.traces.tensorize import (
+    tensorize,
+    tensorize_ranges,
+)
 from crdt_benches_tpu_torch.utils.convert import (
+    resolved_from_jax,
+    state2_from_jax,
+    state3_from_jax,
     state4_from_jax,
     state4_to_numpy,
 )
@@ -49,7 +63,7 @@ def test_port_imports_no_jax_and_no_reference_module():
     )
     assert done.returncode == 0, done.stderr
     n, old = done.stdout.split(" ", 1)
-    assert int(n) >= 15  # every module of the slice was imported
+    assert int(n) >= 16  # every module of slices 1 and 2 was imported
     assert old.strip() == "[]"
 
 
@@ -61,12 +75,20 @@ def _no_cuda():
 def test_entry_points_default_to_cuda_and_raise_without_it():
     _no_cuda()
     rt = tensorize_ranges(synth_trace(seed=0, n_ops=20), batch=16)
+    tt = tensorize(synth_trace(seed=0, n_ops=20), batch=16)
     for call in (
         lambda: RangeReplayEngine(rt),
+        lambda: ReplayEngine(tt),
         lambda: TorchReplayBackend(),
+        lambda: TorchReplayBackend(layout="unit"),
         lambda: flagship.backend(),
+        lambda: init_state2(1, 1024),
+        lambda: init_state3(1, 1024),
         lambda: init_state4(1, 1024),
+        lambda: state2_from_jax({}),
+        lambda: state3_from_jax({}),
         lambda: state4_from_jax({}),
+        lambda: resolved_from_jax({}),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -142,7 +164,28 @@ def test_backend_replay_once_and_layouts():
     bk.prepare(trace)
     assert bk.replay_once() == len(trace.end_content)
     assert bk.final_content() == trace.end_content
-    # unit-op random edits do not coalesce 2x: auto picks the unit layout,
-    # which is a later slice
-    with pytest.raises(NotImplementedError, match="unit layout"):
-        TorchReplayBackend(device="cpu").prepare(trace)
+    # unit-op random edits do not coalesce 2x: auto picks the unit layout
+    bk = TorchReplayBackend(n_replicas=2, batch=32, device="cpu")
+    bk.prepare(trace)
+    assert isinstance(bk.engine, ReplayEngine)
+    assert bk.replay_once() == len(trace.end_content)
+    assert bk.final_content() == trace.end_content
+
+
+def test_every_c_entry_is_defined_in_a_source():
+    """Each C entry the loader binds is defined once in ``csrc/*.cu`` with
+    as many parameters as its ctypes signature lists."""
+    defs = {}
+    for src in glob.glob(os.path.join(_build.CSRC, "*.cu")):
+        with open(src) as fh:
+            text = fh.read()
+        for name, params in re.findall(
+            r'extern "C" int (\w+)\(([^)]*)\)', text
+        ):
+            assert name not in defs, f"{name} defined twice"
+            defs[name] = len(params.split(","))
+    for name, argtypes in _build.SIGNATURES.items():
+        assert defs.get(name) == len(argtypes), name
+    assert {"crdt_resolve_range", "crdt_range_apply", "crdt_resolve_unit",
+            "crdt_unit_apply", "crdt_expand_packed",
+            "crdt_expand_fill_zero"} <= set(_build.SIGNATURES)
