@@ -39,7 +39,26 @@ Phases (one line each; any failure exits non-zero):
    3 timed) under the same checks, launching K5 and K6 once per batch;
    one more replay times each stage, and K5 and K6 are held against
    their plain versions (both flags each way) on the operands of its
-   batch 1013 (1024 replicas, capacity 182,400) and timed there.
+   batch 1013 (1024 replicas, capacity 182,400) and timed there;
+10. downstream update generation for automerge-paper at batch 256 (K5 on
+    one replica, counted), then K7 (blocked no-cv apply) and K6 with
+    ``emit_cv`` off held against their plain versions on the v5
+    producer's operands of every batch at 8 replicas and at 2 replicas
+    with a capacity of 1,310,720;
+11. the downstream path at its recorded width:
+    ``TorchDownstreamBackend(64 replicas, batch 256)`` (v5) applies the
+    updates (1 warm-up, 3 timed): every length the trace's, replicas 0
+    and 63 byte-identical, K7 once per batch, no K6 and no plain version;
+    one more replay times each stage (query, producer, apply, snapshot
+    rebuild), and the profiler gives the device's idle share over one
+    whole ``replay_once``; K7, K6 without cv, K7's plain version and
+    ``torch.gather`` are timed at batch 1013;
+12. ``flagship.downstream`` at its defaults (1024 replicas, batch 1536),
+    one replay: byte-identical at replicas 0 and 1023, K6 with ``emit_cv``
+    off once per batch and no K7; its stages, idle share over one whole
+    ``run`` and the same four timings at a late batch;
+13. the v3 (K8 once per batch) and v1 downstream engines at 64 replicas,
+    byte-identical at replicas 0 and 63.
 
 The line before the last holds the kernels' numbers as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -319,25 +338,28 @@ def main() -> int:
     t0 = time.perf_counter()
     walk("automerge-paper", 1024, cap_am, never, never, stages=stages)
     wall = (time.perf_counter() - t0) * 1e3
-    print("[stages] automerge-paper R=1024, all batches, device ms: "
+    print("[stages] automerge-paper R=1024, all batches, span ms (CUDA "
+          "events, include device waits on the host): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
           + f"; sum {sum(stages.values()):.2f} of {wall:.2f} ms wall "
           "(wall includes state init)", flush=True)
 
-    def main_path(bk, trace, counters, plains, tag):
+    def main_path(bk, trace, counters, plains, tag, absent=()):
         """Drive ``bk`` on ``trace``: 1 warm-up and 3 timed replays, each
         with every count set to 0 just before and read just after; every
-        kernel in ``counters`` must launch once per batch and no plain
-        version run; all lengths must be the trace's and replicas 0 and
-        R-1 decode to its end content.  Returns the launches per replay."""
+        kernel in ``counters`` must launch once per batch, every kernel in
+        ``absent`` never, and no plain version run; all lengths must be
+        the trace's and replicas 0 and R-1 decode to its end content.
+        Returns the launches per replay."""
         R = bk.n_replicas
         eng = bk.engine
-        nb = eng.rt.n_batches if hasattr(eng, "rt") else eng.tt.n_batches
+        nb = (eng.rt.n_batches if hasattr(eng, "rt") else
+              eng.tt.n_batches if hasattr(eng, "tt") else eng.n_batches)
         bk.replay_once()  # warm-up
         samples = []
         launches = {}
         for _ in range(3):
-            for f in counters:
+            for f in (*counters, *absent):
                 f.launches = 0
             for f in plains:
                 f.calls = 0
@@ -350,6 +372,10 @@ def main() -> int:
             plain_calls = {f.__name__: f.calls for f in plains}
             if any(v != nb for v in launches.values()):
                 fail(f"{tag}: launches per replay {launches}, want {nb} each")
+            if any(f.launches for f in absent):
+                fail(f"{tag}: launched " + ", ".join(
+                    f"{f.__name__} {f.launches}x" for f in absent
+                    if f.launches) + " on this path")
             if any(plain_calls.values()):
                 fail(f"{tag}: plain versions called on the main path: "
                      f"{plain_calls}")
@@ -625,8 +651,8 @@ def main() -> int:
     if n != 1:
         fail(f"unit stages: {n} batches checked, want 1")
     del st, bk, eng
-    print("[unit stages] automerge-paper R=1024 B=256, all batches, device "
-          "ms: " + ", ".join(f"{k} {v:.2f}" for k, v in ustages.items())
+    print("[unit stages] automerge-paper R=1024 B=256, all batches, span "
+          "ms (CUDA events, include device waits on the host): " + ", ".join(f"{k} {v:.2f}" for k, v in ustages.items())
           + f"; sum {sum(ustages.values()):.2f} of {wall:.2f} ms wall "
           f"(wall includes state init and capacity growth, not the check)",
           flush=True)
@@ -637,6 +663,302 @@ def main() -> int:
           f"plain {times['k6_plain_ms']:.3f} ms at (R, C) = "
           f"{times['k6_shape']}, {times['k6_rows']} positions below "
           f"new_len ({aside:.1f} s)", flush=True)
+
+    # ---- the downstream path: K7, and K6 without cv (slice 3) ----
+    from crdt_benches_tpu_torch.engine import downstream as dsm
+    from crdt_benches_tpu_torch.models import flagship
+    from crdt_benches_tpu_torch.ops.idpos import snap_rebuild
+
+    kernels_all = (rs.resolve_batch, arf.apply_fused2, ex.expand_packed,
+                   ex.expand_fill_zero, ex.apply_fused_blocked)
+    plains_all = (rs.resolve_batch_plain, arf.apply_fused2_plain,
+                  ex.expand_packed_plain, ex.expand_fill_zero_plain,
+                  ex.apply_fused_blocked_plain)
+    derr = {"k7": 0, "k6nocv": 0}
+
+    def zero_counts():
+        for f in kernels_all:
+            f.launches = 0
+        for f in plains_all:
+            f.calls = 0
+
+    def time_down_batch(tag, ops):
+        """K7, K6 without cv, K7's plain version and torch.gather on the
+        precomputed source index (d - cnt[d], clamped), timed on one
+        batch's operands."""
+        doc_predel, combo, cnt_base, new_len = ops
+        R, C = doc_predel.shape
+        nt = C // 128
+        cnt = (torch.cumsum((combo & 1).view(R, nt, 128), dim=2,
+                            dtype=torch.int32)
+               + cnt_base[:, :, None]).view(R, C)
+        src = (torch.arange(C, device=dev) - cnt).clamp(0, C - 1).long()
+        times[f"k7{tag}_ms"] = elapsed_ms(
+            lambda: ex.apply_fused_blocked(*ops), 20)
+        times[f"k6nocv{tag}_ms"] = elapsed_ms(
+            lambda: arf.apply_fused2(doc_predel, combo, new_len,
+                                     emit_cv=False), 20)
+        times[f"k7{tag}_plain_ms"] = elapsed_ms(
+            lambda: ex.apply_fused_blocked_plain(*ops), 3)
+        times[f"k7{tag}_lib_ms"] = elapsed_ms(
+            lambda: torch.gather(doc_predel, 1, src), 20)
+        times[f"k7{tag}_shape"] = (R, C)
+        # doc_predel and combo matter only below new_len
+        times[f"k7{tag}_rows"] = int(new_len.clamp(max=C).sum())
+
+    def down_walk(wire, st, check=never, time_at=None, tag="", stages=None,
+                  until=None, epoch=32):
+        """Apply the v5 wire tensors (ins, anchor, rank, dslot int32[N, B])
+        to ``st`` batch by batch as ``dsm.apply_updates5`` does: the
+        anchor/delete query, the producer, the no-cv apply through the
+        dispatch, the snapshot rebuild after each epoch.  Where
+        ``check(i)`` or at batch ``time_at``, K7 and K6 without cv are held
+        against their plain versions (and each other) on the batch's
+        operands; at ``time_at`` they are timed (:func:`time_down_batch`).
+        With ``stages`` a dict, each stage's CUDA-event span (ms, device
+        waits on the host included) is summed into it.
+        Stops after batch ``until``.  Returns (state, batches checked, host
+        seconds spent checking and timing)."""
+        ins_b, anchor_b, rank_b, dslot_b = wire
+        doc, snap, length, nvis = st
+        N = ins_b.shape[0] if until is None else until + 1
+        n_checked = 0
+        aside = 0.0
+        ev, evs = [], []
+        mk = lambda: torch.cuda.Event(enable_timing=True)
+        for e0 in range(0, N, epoch):
+            levels = []
+            for i in range(e0, min(e0 + epoch, N)):
+                if stages is not None:
+                    ev.append([mk() for _ in range(4)])
+                    ev[-1][0].record()
+                targets = dsm.resolve_targets5(snap, levels, anchor_b[i],
+                                               dslot_b[i])
+                if stages is not None:
+                    ev[-1][1].record()
+                ops, (nvis, lv) = dsm.batch5_operands(
+                    doc, length, nvis, targets, ins_b[i], anchor_b[i],
+                    rank_b[i], dslot_b[i])
+                if stages is not None:
+                    ev[-1][2].record()
+                out = ex.fused_apply_nocv_dispatch(*ops)
+                if stages is not None:
+                    ev[-1][3].record()
+                if check(i) or i == time_at:
+                    t1 = time.perf_counter()
+                    k7 = ex.apply_fused_blocked(*ops)
+                    k6 = arf.apply_fused2(ops[0], ops[1], ops[3],
+                                          emit_cv=False)
+                    e7 = max_err(k7, ex.apply_fused_blocked_plain(*ops))
+                    e6 = max_err(k6, arf.apply_fused2_plain(
+                        ops[0], ops[1], ops[3], emit_cv=False))
+                    if e7 or e6 or max_err(k7, k6) or max_err(out, k7):
+                        fail(f"K7/K6 (no cv) != plain at batch {i}, (R, C) "
+                             f"= {tuple(ops[0].shape)}: K7 {e7}, K6 {e6}")
+                    derr["k7"] = max(derr["k7"], e7)
+                    derr["k6nocv"] = max(derr["k6nocv"], e6)
+                    n_checked += 1
+                    if i == time_at:
+                        time_down_batch(tag, ops)
+                    aside += time.perf_counter() - t1
+                doc, length = out, ops[3]
+                levels.append(lv)
+            if stages is not None:
+                evs.append([mk(), mk()])
+                evs[-1][0].record()
+            snap = snap_rebuild(doc)
+            if stages is not None:
+                evs[-1][1].record()
+        torch.cuda.synchronize()
+        for e in ev:
+            for k, (a, b) in enumerate(zip(e, e[1:])):
+                key = ("query", "producer", "apply")[k]
+                stages[key] = stages.get(key, 0.0) + a.elapsed_time(b)
+        for a, b in evs:
+            stages["snap"] = stages.get("snap", 0.0) + a.elapsed_time(b)
+        return dsm.DownPacked(doc, snap, length, nvis), n_checked, aside
+
+    def idle_share(window):
+        """Device idle share of ``window()``: 1 - the summed device time of
+        its kernels and copies (torch.profiler, one profiled call) over its
+        wall time (host clock, one unprofiled call, after a warm-up), None
+        when the profiler shows no device time; with the wall and busy ms
+        and the seconds the measurement took."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        t0 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            window()
+            torch.cuda.synchronize()
+        # the raw kineto events: prof.events() builds a Python tree of every
+        # host op, minutes for a whole v5 replay's ~1M of them
+        busy = sum(e.duration_ns()
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA) / 1e6
+        return ((1 - busy / wall if busy > 0 else None), wall, busy,
+                time.perf_counter() - t0)
+
+    def fmt_idle(idle, wall, busy, secs):
+        if idle is None:
+            return (f"idle not measured (no device time), wall {wall:.2f} ms "
+                    f"({secs:.1f} s)")
+        return (f"device busy {busy:.2f} of {wall:.2f} ms wall, idle "
+                f"{100 * idle:.1f}% ({secs:.1f} s)")
+
+    # the recorded downstream width: R = 64, B = 256; updates generated
+    # untimed (K5 on one replica, emit_origin on), counted
+    t0 = time.perf_counter()
+    zero_counts()
+    dbk = dsm.TorchDownstreamBackend(n_replicas=64, batch=256, device=dev)
+    dbk.prepare(trace)
+    deng = dbk.engine
+    gen_k5 = rs.resolve_batch.launches
+    if gen_k5 != deng.n_batches or any(f.calls for f in plains_all):
+        fail(f"downstream generation: K5 launched {gen_k5} times for "
+             f"{deng.n_batches} batches, plain calls "
+             f"{[f.calls for f in plains_all]}")
+    dcap, dinit = deng.upd.capacity, deng.upd.n_init
+    wire = (deng.ins_b, deng.anchor_b, deng.rank_b, deng.dslot_b)
+    print(f"[down gen] automerge-paper B=256: {deng.n_batches} update "
+          f"batches, capacity {dcap}, generated untimed in "
+          f"{time.perf_counter() - t0:.1f} s (K5 {gen_k5} launches, plain "
+          "calls 0)", flush=True)
+
+    # K7 and K6 without cv on every batch's v5 operands: R = 8, and R = 2
+    # at a capacity past the TPU kernel's ~1.09M-position gate
+    t0 = time.perf_counter()
+    st, n, _ = down_walk(wire, dsm.down_packed_init(8, dcap, dinit, dev),
+                         check=every)
+    lengths_ok(st, "K7 R=8")
+    checked_all(n, "K7 R=8")
+    if dbk.engine.decode(st, 7) != trace.end_content:
+        fail("K7 R=8 walk: replica 7 differs from the end content")
+    st, n, _ = down_walk(wire, dsm.down_packed_init(2, long_c, dinit, dev),
+                         check=every, time_at=late, tag="_long")
+    lengths_ok(st, "K7 long")
+    checked_all(n, "K7 long")
+    del st
+    print(f"[k7] automerge-paper downstream: all {am.n_batches} batches' v5 "
+          f"operands, K7 and K6 (emit_cv off) equal their plain versions "
+          f"and each other at R=8 (C={dcap}) and at R=2, C={long_c}; batch "
+          f"{late} at R=2: K7 {times['k7_long_ms']:.4f} ms, plain "
+          f"{times['k7_long_plain_ms']:.4f} ms "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # the downstream path at the recorded width: K7 once per batch
+    down_launches = main_path(
+        dbk, trace, (ex.apply_fused_blocked,), plains_all, "down main",
+        absent=(arf.apply_fused2, rs.resolve_batch, ex.expand_packed,
+                ex.expand_fill_zero),
+    )
+    dstages: dict[str, float] = {}
+    t0 = time.perf_counter()
+    st, n, aside = down_walk(wire, deng.init_state(), time_at=late,
+                             tag="_r64", stages=dstages)
+    wall = (time.perf_counter() - t0 - aside) * 1e3
+    lengths_ok(st, "down stages")
+    del st
+    idle64 = idle_share(dbk.replay_once)
+    print("[down stages] automerge-paper v5 R=64 B=256, all batches, span "
+          "ms (CUDA events, include device waits on the host): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in dstages.items())
+          + f"; sum {sum(dstages.values()):.2f} of {wall:.2f} ms wall "
+          f"(wall includes state init, not the check); one replay_once: "
+          + fmt_idle(*idle64), flush=True)
+    print(f"[k7 R=64] batch {late}: K7 {times['k7_r64_ms']:.4f} ms, K6 "
+          f"(emit_cv off) {times['k6nocv_r64_ms']:.4f} ms, plain "
+          f"{times['k7_r64_plain_ms']:.4f} ms, torch.gather on the source "
+          f"index {times['k7_r64_lib_ms']:.4f} ms at (R, C) = "
+          f"{times['k7_r64_shape']}", flush=True)
+
+    # flagship.downstream() at its defaults: R = 1024, B = 1536, K6
+    t0 = time.perf_counter()
+    feng = flagship.downstream(trace, device=dev)
+    gen_s = time.perf_counter() - t0
+    fR = feng.n_replicas
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = feng.run()
+    torch.cuda.synchronize()
+    rep_s = time.perf_counter() - t0
+    fl = {f.__name__: f.launches for f in kernels_all}
+    if (fl["apply_fused2"] != feng.n_batches or fl["apply_fused_blocked"]
+            or any(f.calls for f in plains_all)):
+        fail(f"flagship downstream: launches {fl} for {feng.n_batches} "
+             f"batches, plain calls {[f.calls for f in plains_all]}")
+    if not bool((st.nvis == end_am).all()):
+        fail("flagship downstream: lengths differ from the trace's")
+    for r in (0, fR - 1):
+        if feng.decode(st, r) != trace.end_content:
+            fail(f"flagship downstream: replica {r} differs from the end "
+                 "content")
+    del st
+    fwire = (feng.ins_b, feng.anchor_b, feng.rank_b, feng.dslot_b)
+    flate = feng.n_batches - 2
+    fstages: dict[str, float] = {}
+    t0 = time.perf_counter()
+    st, n, aside = down_walk(fwire, feng.init_state(), time_at=flate,
+                             tag="_r1024", stages=fstages)
+    fwall = (time.perf_counter() - t0 - aside) * 1e3
+    lengths_ok(st, "flagship stages")
+    del st
+    idle1k = idle_share(feng.run)
+    print(f"[down flagship] automerge-paper v5 R={fR} "
+          f"B={feng.upd.ins_slot.shape[1]}: "
+          f"{feng.n_batches} batches, generation {gen_s:.1f} s, one replay "
+          f"{rep_s:.4f} s = {len(trace) * fR / rep_s:.1f} elements/s; all "
+          f"lengths {end_am}, replicas 0 and {fR - 1} byte-identical; K6 "
+          f"(emit_cv off) {fl['apply_fused2']} launches, K7 0, plain calls "
+          "0; stages, span ms (CUDA events, include device waits on the "
+          "host): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in fstages.items())
+          + f"; sum {sum(fstages.values()):.2f} of {fwall:.2f} ms wall; "
+          "one run: " + fmt_idle(*idle1k), flush=True)
+    print(f"[k7 R=1024] batch {flate} equal; K7 {times['k7_r1024_ms']:.4f} "
+          f"ms, K6 (emit_cv off) {times['k6nocv_r1024_ms']:.4f} ms, plain "
+          f"{times['k7_r1024_plain_ms']:.4f} ms, torch.gather on the source "
+          f"index {times['k7_r1024_lib_ms']:.4f} ms at (R, C) = "
+          f"{times['k7_r1024_shape']}", flush=True)
+    del feng
+
+    # the v3 (K8) and v1 downstream engines at R = 64, counted
+    for ename in ("v3", "v1"):
+        t0 = time.perf_counter()
+        e = dsm.DownstreamEngine(am, n_replicas=64, engine=ename, device=dev)
+        gen_s = time.perf_counter() - t0
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = e.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        la = {f.__name__: f.launches for f in kernels_all}
+        want = {f.__name__: 0 for f in kernels_all}
+        if ename == "v3":
+            want["expand_packed"] = e.n_batches
+        if la != want or any(f.calls for f in plains_all):
+            fail(f"downstream {ename}: launches {la}, want {want}; plain "
+                 f"calls {[f.calls for f in plains_all]}")
+        lengths_ok(st, f"downstream {ename}")
+        for r in (0, 63):
+            if e.decode(st, r) != trace.end_content:
+                fail(f"downstream {ename}: replica {r} differs from the end "
+                     "content")
+        del st, e
+        print(f"[down {ename}] automerge-paper R=64 B=256: all lengths "
+              f"{end_am}, replicas 0 and 63 byte-identical; launches "
+              f"{ {k: v for k, v in la.items() if v} or 'none (no kernel)'}"
+              f", plain calls 0; generation {gen_s:.1f} s, one replay "
+              f"{secs:.4f} s", flush=True)
 
     R1, B1, T1 = times["k1_shape"]
     k1_bytes = 4 * B1 * 4 + R1 * 4 + R1 * (4 * T1 + 3 * B1 + 1) * 4
@@ -657,6 +979,12 @@ def main() -> int:
     k6_ops = R6 * C6 * 8  # prefix, hole test, source, length test, vis
     R8, C8 = times["k8_shape"]
     R9, C9 = times["k9_shape"]
+    R7, C7 = times["k7_r64_shape"]
+    # doc_predel and combo read below new_len; out written everywhere;
+    # cnt_base and new_len read
+    k7_bytes = (times["k7_r64_rows"] * (4 + 4) + R7 * C7 * 4
+                + R7 * (C7 // 128) * 4 + R7 * 4)
+    k7_ops = R7 * C7 * 6  # in-tile prefix, source, length test, selects
 
     def bound(nbytes, nops):
         tb, to = nbytes / HBM_BYTES_PER_S, nops / int32_ops_per_s
@@ -683,6 +1011,9 @@ def main() -> int:
         ("k9", "expand_fill_zero", "expand.cu", "expand_pallas.py:396",
          alt_launches["k9"], uerr["k9"], R9 * C9 * 24, R9 * C9 * 4,
          times["k9_lib_ms"]),
+        ("k7_r64", "apply_fused_blocked", "apply_blocked.cu",
+         "expand_pallas.py:276", down_launches["apply_fused_blocked"],
+         derr["k7"], k7_bytes, k7_ops, times["k7_r64_lib_ms"]),
     ):
         b_ms, b_by = bound(nbytes, nops)
         rows.append({

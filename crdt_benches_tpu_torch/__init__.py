@@ -12,6 +12,10 @@ their plain PyTorch versions), ``engine.replay_range``,
 unit-op engine (``layout="unit"``): unit tensorization, the unit resolver
 K5 (``ops.resolve``), the applies of ``ops.apply2`` with the fused unit
 apply K6 (``ops.apply_range_fused``) and the expansions K8/K9
-(``ops.expand``), and ``engine.replay.ReplayEngine``.  Hand-written CUDA
-kernels live in ``csrc/`` and build at first use (``_build.py``).
+(``ops.expand``), and ``engine.replay.ReplayEngine``.  Slice 3 adds the
+downstream update apply (``engine.downstream``, ``models.flagship
+.downstream``): the epoch id -> position structure (``ops.idpos``), the
+slot-indexed v1 apply (``ops.apply``) and the blocked no-cv apply K7
+(``ops.expand``).  Hand-written CUDA kernels live in ``csrc/`` and build
+at first use (``_build.py``).
 """

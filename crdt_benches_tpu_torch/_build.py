@@ -50,6 +50,8 @@ SIGNATURES = {
     "crdt_expand_packed": [_P] * 2 + [_I] * 2 + [_P] + [_P],
     # order, vis, cnt, ind, R, C, order_out, vis_out, stream
     "crdt_expand_fill_zero": [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P],
+    # doc, combo, cnt_base, new_len, R, C, out, stream
+    "crdt_apply_blocked": [_P] * 4 + [_I] * 2 + [_P] + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,6 +1,7 @@
 """ctypes binding to the native C++ sequence CRDT (``native/crdt.cpp``,
-built into ``native/libcrdtnative.so``) — only its whole-trace replay,
-the single-core baseline of the headline ratio."""
+built into ``native/libcrdtnative.so``): its whole-trace replay (the
+single-core baseline of the replay ratio) and its downstream update
+generation and apply (the baseline of the downstream ratio)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ import subprocess
 
 import numpy as np
 
-from ..traces.patches import PatchArrays
+from ..traces.loader import TestData
+from ..traces.patches import PatchArrays, patch_arrays
 
 NATIVE_DIR = os.path.normpath(
     os.path.join(os.path.dirname(__file__), "..", "..", "native")
@@ -18,7 +20,10 @@ NATIVE_DIR = os.path.normpath(
 LIB_PATH = os.path.join(NATIVE_DIR, "libcrdtnative.so")
 
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _i64 = ctypes.c_int64
+_vp = ctypes.c_void_p
 _lib: ctypes.CDLL | None = None
 
 
@@ -35,10 +40,17 @@ def lib() -> ctypes.CDLL:
             if done.returncode:
                 raise OSError(f"make -C native failed:\n{done.stderr[-2000:]}")
         native = ctypes.CDLL(LIB_PATH)
-        native.crdt_replay.restype = _i64
-        native.crdt_replay.argtypes = [
-            _i32p, _i64, _i32p, _i32p, _i32p, _i32p, _i64
-        ]
+        for fn, res, args in (
+            (native.crdt_replay, _i64,
+             [_i32p, _i64, _i32p, _i32p, _i32p, _i32p, _i64]),
+            (native.crdt_new, _vp, [_i32p, _i64, ctypes.c_uint32]),
+            (native.crdt_free, None, [_vp]),
+            (native.crdt_apply_updates, _i64, [_vp, _u8p, _i64p, _i64]),
+            (native.crdt_gen_updates, _i64,
+             [_i32p, _i64, _i32p, _i32p, _i32p, _i32p, _i64, _u8p, _i64,
+              _i64p]),
+        ):
+            fn.restype, fn.argtypes = res, args
         _lib = native
     return _lib
 
@@ -52,3 +64,39 @@ class CppCrdt:
             pa.init, len(pa.init), pa.pos, pa.del_count, pa.ins_off,
             pa.ins_flat, pa.n_patches,
         )
+
+
+class CppCrdtDownstream:
+    """The native CRDT's downstream: one encoded update per patch,
+    generated untimed on an upstream replica; the timed apply (fresh
+    replica, every update, final length) is one native call."""
+
+    #: bytes per op record (native/crdt.cpp OP_WIRE)
+    OP_WIRE = 21
+
+    def __init__(self, trace: TestData):
+        pa = patch_arrays(trace)
+        self._init = pa.init
+        # one wire record per unit op (a deleted or an inserted char)
+        cap = int(pa.del_count.sum() + len(pa.ins_flat)) * self.OP_WIRE
+        self._offsets = np.zeros(pa.n_patches + 1, np.int64)
+        buf = np.zeros(max(cap, 1), np.uint8)
+        n = lib().crdt_gen_updates(
+            pa.init, len(pa.init), pa.pos, pa.del_count, pa.ins_off,
+            pa.ins_flat, pa.n_patches, buf, len(buf), self._offsets,
+        )
+        if n < 0:
+            raise RuntimeError(f"update buffer undersized: need {-n}")
+        self._flat = np.ascontiguousarray(buf[:n])
+
+    def apply_all(self) -> int:
+        """Fresh replica from the start content, every update applied;
+        returns its length."""
+        native = lib()
+        h = native.crdt_new(self._init, len(self._init), 1)
+        try:
+            return native.crdt_apply_updates(
+                h, self._flat, self._offsets, len(self._offsets) - 1
+            )
+        finally:
+            native.crdt_free(h)

@@ -4,8 +4,10 @@ capacity staging shared by the replay engines.
 Per op batch the resolver K5 (``ops/resolve.py``) then one of the unit
 applies of ``ops/apply2.py`` — ``v4`` (default: the fused apply K6 over
 the maintained-cv state), ``v3`` (packed state, expansion K8) or ``v2``
-(order/vis state, expansion K9) — replicated R times, every replica
-doing its own full resolve and apply.
+(order/vis state, expansion K9) — or the slot-indexed ``v1`` apply of
+``ops/apply.py``, replicated R times, every replica doing its own full
+resolve and apply.  :func:`replay_batches_collect` is the v1 replay that
+also returns each delete's target slot (downstream update generation).
 
 The batches run in Python, one K5 launch and one apply per real batch:
 the JAX engine's padding of the batch count to a multiple of ``pack``
@@ -23,6 +25,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.apply import (
+    DocState,
+    apply_batch,
+    apply_batch_collect,
+    decode_state,
+    init_state,
+)
 from ..ops.apply2 import (
     LANE,
     MAX_COMBO_CAPACITY,
@@ -41,6 +50,7 @@ from ..ops.resolve import resolve_batch
 from ..traces.tensorize import INSERT, TensorizedTrace
 
 _ENGINES = {
+    "v1": (init_state, apply_batch, decode_state),
     "v2": (init_state2, apply_batch2, decode_state2),
     "v3": (init_state3, apply_batch3, decode_state3),
     "v4": (init_state4, apply_batch4, decode_state4),
@@ -98,14 +108,29 @@ def slot_char_table(tt: TensorizedTrace, capacity: int) -> np.ndarray:
 
 def replay_units(state, kind_b, pos_b, slot_b, engine: str = "v4"):
     """Replay the unit batches kind_b/pos_b/slot_b int32[N, B] into
-    ``state`` (the engine's state type); returns the new state."""
+    ``state`` (the engine's state type); returns the new state.  Only v1
+    keeps the CRDT origins, so only v1 has the resolver emit them."""
     apply = _ENGINES[engine][1]
     for i in range(kind_b.shape[0]):
         resolved = resolve_batch(
-            kind_b[i], pos_b[i], state.nvis, emit_origin=False
+            kind_b[i], pos_b[i], state.nvis, emit_origin=engine == "v1"
         )
         state = apply(state, resolved, slot_b[i])
     return state
+
+
+def replay_batches_collect(state: DocState, kind_b, pos_b, slot_b):
+    """The v1 replay of kind_b/pos_b/slot_b int32[N, B] that also stacks
+    each op's tombstoned slot: returns (state, dslot_b int32[N, R, B]).
+    Update generation (``engine/downstream.py``) runs it untimed."""
+    N, B = kind_b.shape
+    dslot_b = torch.empty((N, state.nvis.shape[0], B), dtype=torch.int32,
+                          device=state.nvis.device)
+    for i in range(N):
+        resolved = resolve_batch(kind_b[i], pos_b[i], state.nvis,
+                                 emit_origin=True)
+        state, dslot_b[i] = apply_batch_collect(state, resolved, slot_b[i])
+    return state, dslot_b
 
 
 class ReplayEngine:
@@ -121,8 +146,6 @@ class ReplayEngine:
         engine: str = "v4",
         device: str | torch.device = "cuda",
     ):
-        if engine == "v1":
-            raise NotImplementedError("v1 apply: downstream slice")
         if engine not in _ENGINES:
             raise ValueError(f"unknown unit engine {engine!r}")
         self.device = resolve_device(device)

@@ -1,9 +1,12 @@
-"""Flagship configuration of the port: the headline range replay.
+"""Flagship configuration of the port: one configured engine family.
+
+- ``upstream(trace)``: local-edit replay (the Upstream capability);
+- ``downstream(trace)``: remote-update apply (the Downstream capability).
 
 ``FlagshipConfig()`` with no arguments is the configuration
 ``python -m crdt_benches_tpu_torch.bench`` runs: the RLE-coalesced range
-engine, 1024 replicas, op batch 1536.  ``downstream()`` (remote-update
-apply) belongs to a later slice.
+engine, 1024 replicas, op batch 1536; ``downstream()`` applies updates
+with the v5 engine at the same width and batch.
 """
 
 from __future__ import annotations
@@ -13,8 +16,11 @@ from dataclasses import dataclass
 import torch
 
 from ..backends.torch_backend import TorchReplayBackend
+from ..device import resolve_device
+from ..engine.downstream import DownstreamEngine
 from ..engine.replay_range import RangeReplayEngine
 from ..traces.loader import TestData, load_testing_data
+from ..traces.tensorize import tensorize
 
 
 @dataclass
@@ -53,3 +59,21 @@ def upstream(
     bk = backend(cfg, device=device)
     bk.prepare(trace)
     return bk.engine
+
+
+def downstream(
+    trace: TestData | str, cfg: FlagshipConfig | None = None,
+    device: str | torch.device = "cuda",
+) -> DownstreamEngine:
+    """Remote-update apply engine for ``trace`` under ``cfg``: updates
+    generated (untimed) at op batch ``cfg.batch``, applied to
+    ``cfg.n_replicas`` replicas by the v5 engine (other engines:
+    :class:`DownstreamEngine` directly)."""
+    device = resolve_device(device)
+    cfg = cfg or FlagshipConfig()
+    if isinstance(trace, str):
+        trace = load_testing_data(trace)
+    return DownstreamEngine(
+        tensorize(trace, batch=cfg.batch), n_replicas=cfg.n_replicas,
+        engine="v5", device=device,
+    )

@@ -218,6 +218,20 @@ def spread_fill_combo(dest, fill, C: int):
     return _scatter_rows(_zeros_like_rows(dest, C), dest, (fill << 1) | 1)
 
 
+def insert_tile_base(dest, C: int):
+    """int32[R, C // 128]: for each 128-position tile, the insert
+    destinations dest[r, b] in the tiles before it (out-of-range ones
+    dropped) — the ``cnt_base`` that JAX's ``spread_fill_combo`` returns
+    beside the combo, counted from the B destinations."""
+    R = dest.shape[0]
+    nt = C // LANE
+    ok = (dest >= 0) & (dest < C)
+    count = torch.zeros((R, nt + 1), dtype=I32, device=dest.device)
+    count.scatter_add_(1, torch.where(ok, dest // LANE, nt).long(),
+                       ok.to(I32))
+    return _excl_cumsum_small(count[:, :nt])
+
+
 def _insert_dest(g_phys, is_ins, seq, drop: int):
     """Each insert's destination: its gap position plus its rank among the
     batch's inserts ordered by (gap position, tie-break).  One int64 sort

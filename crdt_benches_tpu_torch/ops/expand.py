@@ -7,20 +7,28 @@ y[d] = x[d - cnt[d]] (d - cnt[d] < 0 only at a destination).
 - :func:`expand_packed` (K8, ``apply2.apply_batch3``): the packed doc,
   with cnt and the indicator carried as ``cntind = cnt << 1 | ind``;
 - :func:`expand_fill_zero` (K9, ``apply2.apply_batch2``): order and vis,
-  with cnt and ind as separate arrays.
+  with cnt and ind as separate arrays;
+- :func:`apply_fused_blocked` (K7, the v5 downstream apply): the no-cv
+  fused apply with an explicit per-tile insert-count base ``cnt_base``,
+  so every 128-position tile is independent of the others.
 
-Both launch ``csrc/expand.cu`` on CUDA tensors; ``*_plain`` are their
-plain PyTorch versions.  The gather is exact for any 1-Lipschitz cnt, so
-unlike the TPU's roll cascade they take no ``nbits``.
+K8 and K9 launch ``csrc/expand.cu``, K7 ``csrc/apply_blocked.cu``, on
+CUDA tensors; ``*_plain`` are their plain PyTorch versions.  The gather is
+exact for any 1-Lipschitz cnt, so unlike the TPU's roll cascade they take
+no ``nbits``.  :func:`fused_apply_nocv_dispatch` picks K6 or K7 for the
+no-cv apply.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
 from .._build import check, kernels
 
 I32 = torch.int32
+LANE = 128
 
 
 def _check(*named):
@@ -118,3 +126,83 @@ def expand_fill_zero(order, vis, cnt, ind):
 
 
 expand_fill_zero.launches = 0
+
+
+def _check_blocked(doc_predel, combo, cnt_base, new_len):
+    """K7's operands: doc_predel/combo int32[R, C] (C a multiple of 128),
+    cnt_base int32[R, C // 128], new_len int32[R], contiguous, on one
+    device; returns (R, C, device)."""
+    R, C, dev = _check(("doc_predel", doc_predel), ("combo", combo))
+    if C % LANE:
+        raise ValueError(f"capacity {C} is not a multiple of {LANE}")
+    for name, t, shape in (("cnt_base", cnt_base, (R, C // LANE)),
+                           ("new_len", new_len, (R,))):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, not {dev}")
+        if t.dtype != I32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want int32{list(shape)}, got "
+                             f"{t.dtype}{list(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    return R, C, dev
+
+
+def apply_fused_blocked_plain(doc_predel, combo, cnt_base, new_len):
+    """Plain PyTorch version of K7 (any device)."""
+    apply_fused_blocked_plain.calls += 1
+    R, C = doc_predel.shape
+    ind = combo & 1
+    cnt = torch.cumsum(ind.view(R, C // LANE, LANE), dim=2, dtype=I32)
+    cnt = (cnt + cnt_base[:, :, None]).view(R, C)
+    col = torch.arange(C, device=combo.device)
+    y = doc_predel.gather(1, (col - cnt).clamp(0, C - 1).long())
+    out = torch.where(ind != 0, combo >> 1, y)
+    return torch.where(col >= new_len[:, None], 2, out).to(I32)
+
+
+apply_fused_blocked_plain.calls = 0
+
+
+def apply_fused_blocked(doc_predel, combo, cnt_base, new_len):
+    """K7: out[d] = 2 at and past new_len, combo[d] >> 1 where combo[d] & 1
+    (an insert destination), else doc_predel[d - cnt[d]], with
+    cnt[d] = cnt_base[r, d // 128] + the inclusive prefix of combo & 1
+    within d's tile.  The same function as the JAX package's
+    ``apply_fused_blocked`` and ``apply_fused_nocv_xla``; like them it
+    trusts ``cnt_base`` to be consistent with ``combo``.  On a CUDA tensor it
+    launches the kernel (or raises); on a CPU tensor it runs
+    :func:`apply_fused_blocked_plain`."""
+    R, C, dev = _check_blocked(doc_predel, combo, cnt_base, new_len)
+    if dev.type == "cpu":
+        return apply_fused_blocked_plain(doc_predel, combo, cnt_base, new_len)
+    out = torch.empty_like(doc_predel)
+    if R and C:
+        err = kernels().crdt_apply_blocked(
+            doc_predel.data_ptr(), combo.data_ptr(), cnt_base.data_ptr(),
+            new_len.data_ptr(), R, C, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        check(err, "crdt_apply_blocked")
+        apply_fused_blocked.launches += 1
+    return out
+
+
+apply_fused_blocked.launches = 0
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fused_apply_nocv_dispatch(doc_predel, combo, cnt_base, new_len):
+    """The no-cv fused apply: on a CUDA tensor K6 (``apply_fused2`` with
+    ``emit_cv=False``, one block per replica row) when the rows alone fill
+    the card (R >= its SM count), else K7, whose blocks split each row too;
+    on a CPU tensor K7's plain version."""
+    dev = doc_predel.device
+    if dev.type == "cuda" and doc_predel.shape[0] >= _sm_count(dev.index):
+        from .apply_range_fused import apply_fused2
+
+        return apply_fused2(doc_predel, combo, new_len, emit_cv=False)
+    return apply_fused_blocked(doc_predel, combo, cnt_base, new_len)

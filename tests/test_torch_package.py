@@ -5,6 +5,7 @@ from the JAX reference and back."""
 
 import dataclasses
 import glob
+import gzip
 import json
 import os
 import re
@@ -21,9 +22,17 @@ from crdt_benches_tpu.oracle import replay_trace
 from crdt_benches_tpu.traces.synth import synth_trace
 from crdt_benches_tpu_torch import _build
 from crdt_benches_tpu_torch.backends.torch_backend import TorchReplayBackend
+from crdt_benches_tpu_torch.engine.downstream import (
+    DownstreamEngine,
+    TorchDownstreamBackend,
+    down_packed_init,
+    generate_updates,
+    init_down_state,
+)
 from crdt_benches_tpu_torch.engine.replay import ReplayEngine
 from crdt_benches_tpu_torch.engine.replay_range import RangeReplayEngine
 from crdt_benches_tpu_torch.models import flagship
+from crdt_benches_tpu_torch.ops.apply import init_state
 from crdt_benches_tpu_torch.ops.apply2 import (
     init_state2,
     init_state3,
@@ -63,8 +72,11 @@ def test_port_imports_no_jax_and_no_reference_module():
     )
     assert done.returncode == 0, done.stderr
     n, old = done.stdout.split(" ", 1)
-    assert int(n) >= 16  # every module of slices 1 and 2 was imported
+    assert int(n) >= 19  # every module of slices 1 to 3 was imported
     assert old.strip() == "[]"
+    for mod in ("ops.idpos", "ops.apply", "engine.downstream"):
+        assert os.path.exists(os.path.join(
+            REPO, "crdt_benches_tpu_torch", *mod.split(".")) + ".py"), mod
 
 
 def _no_cuda():
@@ -89,6 +101,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: state3_from_jax({}),
         lambda: state4_from_jax({}),
         lambda: resolved_from_jax({}),
+        lambda: ReplayEngine(tt, engine="v1"),
+        lambda: init_state(1, 1024),
+        lambda: init_down_state(1, 1024, 0),
+        lambda: down_packed_init(1, 1024, 0),
+        lambda: generate_updates(tt),
+        lambda: DownstreamEngine(tt),
+        lambda: TorchDownstreamBackend(),
+        lambda: flagship.downstream("sveltecomponent"),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -104,6 +124,32 @@ def test_bench_entry_without_cuda_exits_with_error():
     assert done.returncode != 0
     assert "CUDA is not available" in done.stderr
     assert done.stdout.strip() == ""
+
+
+def test_downstream_bench_entry_without_cuda_exits_with_error():
+    _no_cuda()
+    done = subprocess.run(
+        [sys.executable, "-m", "crdt_benches_tpu_torch.bench", "--group",
+         "downstream", "--trace", "sveltecomponent", "--samples", "1"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert done.returncode != 0
+    assert "CUDA is not available" in done.stderr
+    assert done.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("argv", [
+    ["--group", "downstream", "--layout", "unit"],
+    ["--group", "downstream", "--unit-engine", "v3"],
+    ["--engine", "v3"],
+])
+def test_bench_entry_rejects_the_other_groups_flags(argv, capsys):
+    from crdt_benches_tpu_torch.bench.__main__ import main
+
+    with pytest.raises(SystemExit) as done:
+        main(argv + ["--device", "cpu"])
+    assert done.value.code == 2
+    assert "belong" in capsys.readouterr().err
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -129,6 +175,34 @@ def test_bench_entry_on_cpu_prints_one_json_line():
     out = json.loads(lines[0])
     assert out["unit"] == "elements/sec" and out["value"] > 0
     assert "torch-cpu" in out["metric"]
+
+
+def test_downstream_bench_entry_on_cpu_prints_one_json_line(tmp_path):
+    trace = synth_trace(seed=9, n_ops=300, base="downstream bench entry ")
+    path = tmp_path / "synth.json.gz"
+    with gzip.open(path, "wt", encoding="utf-8") as fh:
+        json.dump({
+            "startContent": trace.start_content,
+            "endContent": replay_trace(trace),
+            "txns": [{"time": "", "patches": [list(p) for p in
+                                              trace.iter_patches()]}],
+        }, fh)
+    for engine in ("v5", "v1"):
+        done = subprocess.run(
+            [sys.executable, "-m", "crdt_benches_tpu_torch.bench",
+             "--group", "downstream", "--engine", engine, "--trace",
+             str(path), "--samples", "1", "--replicas", "2", "--batch",
+             "32", "--device", "cpu"],
+            cwd=REPO, capture_output=True, text=True, timeout=300,
+        )
+        assert done.returncode == 0, done.stderr
+        lines = done.stdout.strip().splitlines()
+        assert len(lines) == 1
+        out = json.loads(lines[0])
+        assert out["unit"] == "elements/sec" and out["value"] > 0
+        assert f"engine {engine}" in out["metric"]
+        assert "torch-cpu-r2" in out["metric"]
+        assert isinstance(out["vs_baseline"], float)
 
 
 def test_state_conversion_round_trip():
@@ -188,4 +262,5 @@ def test_every_c_entry_is_defined_in_a_source():
         assert defs.get(name) == len(argtypes), name
     assert {"crdt_resolve_range", "crdt_range_apply", "crdt_resolve_unit",
             "crdt_unit_apply", "crdt_expand_packed",
-            "crdt_expand_fill_zero"} <= set(_build.SIGNATURES)
+            "crdt_expand_fill_zero", "crdt_apply_blocked"} <= set(
+                _build.SIGNATURES)

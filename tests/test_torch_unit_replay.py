@@ -122,7 +122,7 @@ def test_sveltecomponent_prefix_decodes_like_jax(svelte_trace):
 def test_backend_unit_layout_engines_and_refusals():
     trace = synth_trace(seed=4, n_ops=200, base="backend unit layout ")
     trace = dataclasses.replace(trace, end_content=replay_trace(trace))
-    for eng in ("v2", "v3", "v4"):
+    for eng in ("v1", "v2", "v3", "v4"):
         bk = TorchReplayBackend(n_replicas=2, batch=32, layout="unit",
                                 unit_engine=eng, device="cpu")
         bk.prepare(trace)
@@ -131,8 +131,6 @@ def test_backend_unit_layout_engines_and_refusals():
         assert bk.replay_once() == len(trace.end_content)
         assert bk.final_content() == trace.end_content
     tt = tensorize(trace, batch=32)
-    with pytest.raises(NotImplementedError, match="v1 apply"):
-        ReplayEngine(tt, engine="v1", device="cpu")
     with pytest.raises(ValueError, match="unknown unit engine"):
         ReplayEngine(tt, engine="v5", device="cpu")
 
