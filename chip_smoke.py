@@ -58,7 +58,17 @@ Phases (one line each; any failure exits non-zero):
     off once per batch and no K7; its stages, idle share over one whole
     ``run`` and the same four timings at a late batch;
 13. the v3 (K8 once per batch) and v1 downstream engines at 64 replicas,
-    byte-identical at replicas 0 and 63.
+    byte-identical at replicas 0 and 63;
+14. the serving fleet on serve/mixed/4096 (4096 documents, five capacity
+    classes, batch 64, macro depth 8): one drain in which every dispatch's
+    per-row resolve (K1's per-row form) equals its plain version and the
+    round-starts recurrence, and every K4 (serve macro apply) launch
+    equals ``serve_macro_plain`` — every class, tiers below the bucket
+    rows, all-PAD rows and PAD tails — with both kernels timed; then the
+    timed drain through ``run_serve_bench``: both kernels once per
+    dispatch, no plain version, evictions, restores and promotions, every
+    document byte-identical to the oracle, its host phases and device
+    spans; and the device's idle share over a third, profiled drain.
 
 The line before the last holds the kernels' numbers as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -136,6 +146,271 @@ def max_err(got, want) -> int:
             d = (g.long() - w.long()).abs().max().item()
             worst = max(worst, int(d))
     return worst
+
+
+#: The serve/mixed/4096 cell (``serve/bench.py run_serve_bench`` defaults,
+#: the README's serve quickstart): 4096 documents of the ``mixed`` band
+#: table, five capacity classes, batch 64, macro depth 8, 256 chars a slice.
+SERVE_CELL = dict(mix="mixed", n_docs=4096, batch=64, macro_k=8,
+                  batch_chars=256, classes=(256, 1024, 4096, 8192, 49152),
+                  slots=(2048, 512, 128, 32, 16), arrival_span=8, seed=0)
+
+
+def kernel_row(name, cu, replaces, launches, err, ms, plain_ms, bound,
+               library_ms=None) -> dict:
+    """One kernel's entry of the ``kernels`` line; ``bound`` is
+    (bound ms, "bytes" or "operations")."""
+    return {
+        "name": name, "route": "cuda",
+        "source": "crdt_benches_tpu_torch/csrc/" + cu,
+        "replaces": "crdt_benches_tpu/ops/" + replaces, "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
+    }
+
+
+def serve_phases(dev, bound) -> list[dict]:
+    """The serving fleet's fused macro step on ``SERVE_CELL``.
+
+    ``[k1 rows]``/``[k4]``: one drain in which every dispatch's per-row
+    resolve (K1's per-row form) is held against its plain version and the
+    round-starts recurrence, and every K4 launch against
+    ``serve_macro_plain`` on the same operands; K1's per-row form is timed
+    at the dispatch with the most rows, K4 at the largest class's widest
+    tier.  ``[serve]``: the drain through ``run_serve_bench`` with every
+    count set to 0 just before and read just after, every document
+    verified against the oracle, and CUDA-event stage spans; a third drain
+    under the profiler gives the device's idle share.  ``bound(bytes,
+    ops)`` gives (ms, "bytes" or "operations").  Returns the two kernels'
+    rows of the ``kernels`` line."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from crdt_benches_tpu_torch.ops import apply_range_fused as arf
+    from crdt_benches_tpu_torch.ops import expand as ex
+    from crdt_benches_tpu_torch.ops import resolve as rs
+    from crdt_benches_tpu_torch.ops import resolve_range as rr
+    from crdt_benches_tpu_torch.ops import serve_fused as sf
+    from crdt_benches_tpu_torch.ops.apply2 import PackedState
+    from crdt_benches_tpu_torch.serve import pool as pool_mod
+    from crdt_benches_tpu_torch.serve.bench import run_serve_bench
+    from crdt_benches_tpu_torch.serve.scheduler import (
+        FleetScheduler,
+        prepare_streams,
+    )
+    from crdt_benches_tpu_torch.serve.workload import build_fleet
+    from crdt_benches_tpu_torch.traces.tensorize import PAD
+
+    cell = SERVE_CELL
+    t0 = time.perf_counter()
+    sessions = build_fleet(cell["n_docs"], mix=cell["mix"], seed=cell["seed"],
+                           arrival_span=cell["arrival_span"])
+    fleet_s = time.perf_counter() - t0
+
+    def fresh_drain():
+        """A new pool and scheduler over the fleet's sessions."""
+        pool = pool_mod.DocPool(classes=cell["classes"], slots=cell["slots"],
+                                device=dev)
+        streams = prepare_streams(sessions, pool, batch=cell["batch"],
+                                  batch_chars=cell["batch_chars"])
+        return pool, FleetScheduler(pool, streams, batch=cell["batch"],
+                                    macro_k=cell["macro_k"],
+                                    batch_chars=cell["batch_chars"])
+
+    # ---- [k1 rows] and [k4]: every dispatch of one drain checked ----
+    err = {"k1rows": 0, "k4": 0}
+    seen = {"dispatches": 0, "pad_rows": 0, "pad_tails": 0, "below": set(),
+            "classes": set()}
+    keep: dict[str, tuple] = {}
+    pool, sched = fresh_drain()
+
+    def k1_checked(kind, pos, rlen, slot0, v0):
+        got = rr.resolve_range_rows(kind, pos, rlen, slot0, v0)
+        want = rr.resolve_range_rows_plain(kind, pos, rlen, slot0, v0)
+        e = max(max_err((*got[0], *got[1], got[2]),
+                        (*want[0], *want[1], want[2])),
+                max_err(got[2], sf.round_starts(kind, pos, rlen, v0)))
+        if e:
+            fail(f"K1 rows != plain at (K, R, B) = {tuple(kind.shape)}: {e}")
+        err["k1rows"] = max(err["k1rows"], e)
+        pad = kind == PAD
+        seen["pad_rows"] += int(pad.all(2).sum())  # (round, row): all PAD
+        seen["pad_tails"] += int((pad.any(2) & ~pad.all(2)).sum())
+        if "k1" not in keep or kind.numel() > keep["k1"][0].numel():
+            keep["k1"] = (kind, pos, rlen, slot0, v0.clone())
+        return got
+
+    def k4_checked(sub, tokens, dints, *, inputs=None, out=None):
+        want = sf.serve_macro_plain(sub, tokens, dints)  # before the update
+        Rt, C = sub.doc.shape
+        if C == max(cell["classes"]) and (
+                "k4" not in keep or Rt > keep["k4"][0].doc.shape[0]):
+            keep["k4"] = (PackedState(sub.doc.clone(), sub.length.clone(),
+                                      sub.nvis.clone()), tokens, dints)
+        got = sf.serve_macro_fused(sub, tokens, dints, inputs=inputs, out=out)
+        e = max_err((got.doc, got.length, got.nvis),
+                    (want.doc, want.length, want.nvis))
+        if e:
+            fail(f"K4 != plain at (K, Rt, C) = "
+                 f"{(tokens[0].shape[0], Rt, C)}: {e}")
+        err["k4"] = max(err["k4"], e)
+        seen["dispatches"] += 1
+        seen["classes"].add(C)
+        if Rt < pool.buckets[C].R:
+            seen["below"].add((C, Rt))
+        return got
+
+    t0 = time.perf_counter()
+    saved = pool_mod.resolve_range_rows, pool_mod.serve_macro_fused
+    pool_mod.resolve_range_rows, pool_mod.serve_macro_fused = (k1_checked,
+                                                               k4_checked)
+    try:
+        stats = sched.run()
+    finally:
+        pool_mod.resolve_range_rows, pool_mod.serve_macro_fused = saved
+        pool.close()
+    if not sched.done or seen["dispatches"] != stats.dispatches:
+        fail(f"checked drain: done {sched.done}, {seen['dispatches']} "
+             f"checked of {stats.dispatches} dispatches")
+    if seen["classes"] != set(cell["classes"]) or not seen["below"]:
+        fail(f"checked drain: classes {sorted(seen['classes'])}, tiers "
+             f"below the bucket rows {sorted(seen['below'])}")
+    if not (seen["pad_rows"] and seen["pad_tails"]):
+        fail(f"checked drain: {seen['pad_rows']} all-PAD rows, "
+             f"{seen['pad_tails']} PAD tails")
+    print(f"[k1 rows] serve/{cell['mix']}/{cell['n_docs']}: all "
+          f"{stats.dispatches} dispatches' per-row resolves equal the plain "
+          f"version and the round-starts recurrence ({seen['pad_rows']} "
+          f"all-PAD (round, row) pairs, {seen['pad_tails']} PAD tails); "
+          f"fleet built in {fleet_s:.1f} s, checked drain "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del pool, sched
+
+    # timings at the kept operands
+    args = keep["k1"]
+    K1r, R1r, B1r = args[0].shape
+    k1_ms = elapsed_ms(lambda: rr.resolve_range_rows(*args), 10)
+    k1_plain_ms = elapsed_ms(lambda: rr.resolve_range_rows_plain(*args), 1)
+    T1r = rr.effective_token_list_size(B1r, None)
+    live = int((args[0] != PAD).sum())
+    # ops, v0 read; four (K, R, T) and three (K, R, B) outputs and the
+    # starts written; three token fields rewritten per live op
+    k1_bound = bound(4 * args[0].numel() * 4 + R1r * 4
+                     + K1r * R1r * (4 * T1r + 3 * B1r + 1) * 4,
+                     live * T1r * 3)
+    st, tokens, dints = keep["k4"]
+    inputs = sf.serve_round_inputs(tokens, dints, st.length, st.nvis)
+    K4, Rt, T = tokens[0].shape
+    B, C = dints[0].shape[2], st.doc.shape[1]
+    k4_ms = elapsed_ms(lambda: sf.serve_macro_fused(st, tokens, dints,
+                                                    inputs=inputs), 20)
+    k4_plain_ms = elapsed_ms(lambda: sf.serve_macro_plain(st, tokens, dints),
+                             3)
+    # doc read and written once (8 B/pos) and the K rounds' operands read
+    # once; about 16 int32 operations per position below the round's new
+    # length (visible prefix, three boundary prefixes, clear, hole count,
+    # source, selects, fill)
+    k4_bound = bound(8 * Rt * C + K4 * Rt * (2 * B + 5 * T + 3) * 4,
+                     16 * int(inputs[5].clamp(max=C).sum()))
+    print(f"[k4] serve/{cell['mix']}/{cell['n_docs']}: all "
+          f"{stats.dispatches} K4 launches equal serve_macro_plain (max abs "
+          f"error {err['k4']}) over classes {sorted(seen['classes'])}, tiers "
+          f"below the bucket rows {sorted(seen['below'])}; at (K, Rt, C) = "
+          f"{(K4, Rt, C)}: K4 {k4_ms:.4f} ms, plain {k4_plain_ms:.3f} ms, "
+          f"bound {k4_bound[0]:.4f} ms ({k4_bound[1]}); K1 rows at (K, R, B, "
+          f"T) = {(K1r, R1r, B1r, T1r)} ({live} live ops): {k1_ms:.4f} ms, "
+          f"plain {k1_plain_ms:.1f} ms, bound {k1_bound[0]:.4f} ms "
+          f"({k1_bound[1]})", flush=True)
+    del keep, args, st, tokens, dints, inputs
+
+    # ---- [serve]: the timed drain through the bench's entry point ----
+    counted = (rr.resolve_range, arf.range_apply, rs.resolve_batch,
+               arf.apply_fused2, ex.expand_packed, ex.expand_fill_zero,
+               ex.apply_fused_blocked, rr.resolve_range_rows,
+               sf.serve_macro_fused)
+    plains = (rr.resolve_range_plain, arf.range_apply_plain,
+              rs.resolve_batch_plain, arf.apply_fused2_plain,
+              ex.expand_packed_plain, ex.expand_fill_zero_plain,
+              ex.apply_fused_blocked_plain, rr.resolve_range_rows_plain,
+              sf.serve_macro_plain)
+    held = {}
+
+    def arm(p):
+        p.spans = []
+        held["pool"] = p
+        torch.cuda.synchronize()
+        for f in counted:
+            f.launches = 0
+        for f in plains:
+            f.calls = 0
+
+    rep = run_serve_bench(**cell, device=dev, pool_hook=arm,
+                          log=lambda m: print(f"[serve] {m}", flush=True))
+    launches = {f.__name__: f.launches for f in counted if f.launches}
+    plain_calls = {f.__name__: f.calls for f in plains if f.calls}
+    n = rep["dispatches"]
+    if launches != {"resolve_range_rows": n, "serve_macro_fused": n} or (
+            plain_calls):
+        fail(f"serve drain: launches {launches} for {n} dispatches, plain "
+             f"calls {plain_calls}")
+    if not (rep["verify_ok"] and rep["verify"] == "all"
+            and rep["verified_docs"] == cell["n_docs"]
+            and set(rep["verified_per_class"]) == set(map(
+                str, cell["classes"]))):
+        fail(f"serve drain: verify {rep['verify']} ok {rep['verify_ok']} on "
+             f"{rep['verified_docs']} docs, per class "
+             f"{rep['verified_per_class']}")
+    if not (rep["evictions"] and rep["restores"] and rep["promotions"]):
+        fail(f"serve drain: evictions {rep['evictions']}, restores "
+             f"{rep['restores']}, promotions {rep['promotions']}")
+    spans: dict[str, float] = {}
+    for name, a, b in held.pop("pool").spans:
+        spans[name] = spans.get(name, 0.0) + a.elapsed_time(b)
+
+    # ---- the device's idle share over a whole drain ----
+    t0 = time.perf_counter()
+    pool, sched = fresh_drain()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pstats = sched.run()
+    pool.close()
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+    wall = rep["wall_time"] * 1e3
+    idle = (f"device busy {busy:.2f} of {wall:.2f} ms wall (the timed drain;"
+            f" profiled drain {pstats.wall_time * 1e3:.2f} ms), idle "
+            f"{100 * (1 - busy / wall):.1f}%" if busy > 0 else
+            "idle not measured (no device time)")
+    lat = rep["batch_latency"]
+    ph = rep["phase_seconds"]
+    print(f"[serve] serve/{cell['mix']}/{cell['n_docs']}: "
+          f"{rep['patches_per_sec']:.1f} patches/s ({rep['patches']} patches "
+          f"in {rep['wall_time']:.4f} s); macro-round latency p50 "
+          f"{lat['p50'] * 1e3:.2f} ms, p95 {lat['p95'] * 1e3:.2f}, p99 "
+          f"{lat['p99'] * 1e3:.2f}; {rep['rounds']} rounds, "
+          f"{rep['device_rounds']} slices, {n} dispatches, "
+          f"{rep['range_ops']} range ops ({rep['unit_ops']} unit), pad "
+          f"fraction {rep['pad_fraction']:.4f}; evictions "
+          f"{rep['evictions']}, restores {rep['restores']}, promotions "
+          f"{rep['promotions']}, admissions {rep['admissions']}; verify_ok "
+          f"on all {rep['verified_docs']} docs ({rep['verified_per_class']}"
+          f", {rep['verify_seconds']:.1f} s); launches {launches}, plain "
+          f"calls 0; host phase s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ph.items())
+          + "; device span ms (CUDA events, include device waits on the "
+          "host): " + ", ".join(f"{k} {v:.2f}" for k, v in spans.items())
+          + f"; {idle} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return [
+        kernel_row("resolve_range_rows", "resolve_range.cu",
+                   "resolve_range_pallas.py:255",
+                   launches["resolve_range_rows"], err["k1rows"], k1_ms,
+                   k1_plain_ms, k1_bound),
+        kernel_row("serve_macro_fused", "serve_macro.cu", "serve_fused.py:685",
+                   launches["serve_macro_fused"], err["k4"], k4_ms,
+                   k4_plain_ms, k4_bound),
+    ]
 
 
 def k5_plain_on_cpu(task):
@@ -1022,6 +1297,8 @@ def main() -> int:
             "ms": times[f"{key}_ms"], "plain_ms": times[f"{key}_plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
         })
+    # ---- the serving fleet: K1's per-row form and K4 ----
+    rows += serve_phases(dev, bound)
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,9 @@ SIGNATURES = {
     # kind, pos, rlen, slot0, v0, R, B, T,
     # ttype, ta, tch, tlen, dlo, dhi, dcount, nused, stream
     "crdt_resolve_range": [_P] * 5 + [_I] * 3 + [_P] * 8 + [_P],
+    # kind, pos, rlen, slot0, v0, K, R, B, T,
+    # ttype, ta, tch, tlen, dlo, dhi, dcount, starts, stream
+    "crdt_resolve_range_rows": [_P] * 5 + [_I] * 4 + [_P] * 8 + [_P],
     # doc, delpk, ind_d, dd, new_len, R, C, dsh,
     # doc_out, cv_intile, vis_tile, scratch, stream
     "crdt_range_apply": [_P] * 5 + [_I] * 3 + [_P] * 4 + [_P],
@@ -52,6 +55,9 @@ SIGNATURES = {
     "crdt_expand_fill_zero": [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P],
     # doc, combo, cnt_base, new_len, R, C, out, stream
     "crdt_apply_blocked": [_P] * 4 + [_I] * 2 + [_P] + [_P],
+    # doc_in, dlo, dhi, gvis, live, cumlen, atch, tlen, len_k, nvis_k,
+    # newlen, K, R, B, T, C, doc_out, scratch, stream
+    "crdt_serve_macro": [_P] * 11 + [_I] * 5 + [_P] * 2 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,18 +1,28 @@
 """Headline benchmark of the port — prints ONE JSON line.
 
     python -m crdt_benches_tpu_torch.bench [--trace automerge-paper]
-        [--group replay|downstream] [--replicas N] [--batch B]
+        [--group replay|downstream|serve] [--replicas N] [--batch B]
         [--samples 5] [--device cuda]
         [--layout auto|range|unit] [--unit-engine v4|v3|v2]   (replay)
         [--engine v5|v3|v1]                                  (downstream)
+        [--serve-docs 4096] [--serve-mix mixed] [--serve-batch 64]
+        [--serve-macro 8] [--serve-batch-chars 256]
+        [--serve-classes 256,...] [--serve-slots 2048,...]
+        [--serve-arrival-span 8] [--serve-verify-sample 0] [--seed 0]
+                                                             (serve)
 
 The default is the headline range replay (1024 replicas, batch 1536);
 ``--layout unit --batch 256`` is the unit-op engine (the JAX package's
 ``jax-unit`` bench column).  ``--group downstream`` is the remote-update
 apply (64 replicas, batch 256 unless given; ``--engine`` picks v5, v3 or
 v1): its timed region is fresh replicas, the full apply and the length
-fetch, with the updates generated untimed.  A flag of the other group is
-an error.
+fetch, with the updates generated untimed.  ``--group serve`` drains the
+document fleet once (``serve/mixed/4096`` by default: 4096 documents of
+the ``mixed`` band table, macro depth 8) and verifies every document
+against the oracle (``--serve-verify-sample N``: a seeded sample of about
+N spread over the classes); its metric is fleet patches/sec over the
+drain's wall time, and it exits non-zero when verification fails.  A flag
+of another group is an error.
 
 Metric: aggregate throughput of the trace across many replicas on one GPU,
 in elements/sec (element = one trace patch, times replicas).
@@ -105,10 +115,43 @@ def _downstream_metric(args, backend, kind, rates):
     return text, base, {}
 
 
+def _ints(text: str) -> tuple[int, ...]:
+    return tuple(int(x) for x in text.split(",") if x.strip())
+
+
+def _serve(args) -> int:
+    """Drain the serving fleet once; one JSON line; 1 if verify fails."""
+    from ..serve.bench import run_serve_bench
+
+    try:
+        rep = run_serve_bench(
+            mix=args.serve_mix, n_docs=args.serve_docs,
+            batch=args.serve_batch, classes=_ints(args.serve_classes),
+            slots=_ints(args.serve_slots), seed=args.seed,
+            arrival_span=args.serve_arrival_span, macro_k=args.serve_macro,
+            batch_chars=args.serve_batch_chars,
+            verify_sample=args.serve_verify_sample, device=args.device,
+            log=lambda m: print(m, file=sys.stderr),
+        )
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    out = {
+        "metric": (f"serve/{args.serve_mix}/{args.serve_docs} fleet "
+                   f"patches/sec, K={args.serve_macro}, torch-"
+                   f"{torch.device(args.device).type} ({rep['device']})"),
+        "value": round(rep["patches_per_sec"], 1),
+        "unit": "elements/sec",
+    }
+    out.update(rep)
+    print(json.dumps(out))
+    return 0 if rep["verify_ok"] else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", default="automerge-paper")
-    ap.add_argument("--group", choices=("replay", "downstream"),
+    ap.add_argument("--group", choices=("replay", "downstream", "serve"),
                     default="replay")
     ap.add_argument("--replicas", type=int, default=None,
                     help="default 1024 (replay), 64 (downstream)")
@@ -122,7 +165,32 @@ def main(argv=None) -> int:
                     help="replay unit engine (default v4)")
     ap.add_argument("--engine", choices=("v5", "v3", "v1"),
                     help="downstream apply engine (default v5)")
+    serve_flags = (
+        ("--serve-docs", int, 4096), ("--serve-mix", str, "mixed"),
+        ("--serve-batch", int, 64), ("--serve-macro", int, 8),
+        ("--serve-batch-chars", int, 256),
+        ("--serve-classes", str, "256,1024,4096,8192,49152"),
+        ("--serve-slots", str, "2048,512,128,32,16"),
+        ("--serve-arrival-span", int, 8),
+        ("--serve-verify-sample", int, 0), ("--seed", int, 0),
+    )
+    for flag, typ, default in serve_flags:
+        ap.add_argument(flag, type=typ, help=f"serve (default {default})")
     args = ap.parse_args(argv)
+    given = [f for f, _, _ in serve_flags
+             if getattr(args, f[2:].replace("-", "_")) is not None]
+    if args.group == "serve":
+        if (args.replicas, args.batch, args.layout, args.unit_engine,
+                args.engine) != (None,) * 5:
+            ap.error("--replicas, --batch, --layout, --unit-engine and "
+                     "--engine do not belong to --group serve")
+        for flag, _, default in serve_flags:
+            key = flag[2:].replace("-", "_")
+            if getattr(args, key) is None:
+                setattr(args, key, default)
+        return _serve(args)
+    if given:
+        ap.error(f"{', '.join(given)} belong to --group serve")
     down = args.group == "downstream"
     if down and (args.layout or args.unit_engine):
         ap.error("--layout and --unit-engine belong to --group replay")

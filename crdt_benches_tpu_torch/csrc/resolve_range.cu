@@ -25,6 +25,15 @@
 // reduced with shared-memory atomics into per-op slots (only the few
 // tokens a delete overlaps take part), and written out once at the end.
 // Shared memory: (6T + 3B) * 4 bytes (95,232 at B = 1536, T = 3200).
+//
+// Per-row form (resolve_rows_kernel, the serving fleet's resolve): each row
+// is a different document with its own ops, K rounds of B ops as
+// int32[K, R, B].  It replaces the JAX package's vmapped scan
+// ops/resolve_range_scan.py resolve_ranges_rows (the vmappable twin of the
+// Pallas kernel, the same step) and ops/serve_fused.py round_starts: one
+// block per row resolves its K rounds in order with the same body,
+// resetting the token list each round and carrying the visible total
+// across rounds; the total before each round is that round's start.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,25 +51,24 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 
-__global__ void __launch_bounds__(kThreads)
-resolve_range_kernel(const int* __restrict__ kind,
-                     const int* __restrict__ pos,
-                     const int* __restrict__ rlen,
-                     const int* __restrict__ slot0,
-                     const int* __restrict__ v0, int B, int T,
-                     int* __restrict__ ttype_o, int* __restrict__ ta_o,
-                     int* __restrict__ tch_o, int* __restrict__ tlen_o,
-                     int* __restrict__ dlo_o, int* __restrict__ dhi_o,
-                     int* __restrict__ dn_o, int* __restrict__ nused_o) {
+// One batch of B ops (uniform across the block) resolved against a
+// document of total0 visible chars; the outputs are this row's slices.
+// Returns the visible total after the batch.  Ends with a barrier, so the
+// caller may run it again on the same shared memory.
+__device__ __forceinline__ int resolve_one(
+    const int* __restrict__ kind, const int* __restrict__ pos,
+    const int* __restrict__ rlen, const int* __restrict__ slot0,
+    const int total0, const int B, const int T, int* smem,
+    int* __restrict__ ttype_o, int* __restrict__ ta_o,
+    int* __restrict__ tch_o, int* __restrict__ tlen_o,
+    int* __restrict__ dlo_o, int* __restrict__ dhi_o,
+    int* __restrict__ dn_o, int* __restrict__ nused_o) {
   // buffer c of field f (tta 0, tch 1, cum 2) at smem + (2 * f + c) * T
-  extern __shared__ int smem[];
   int* dlo_s = smem + 6 * T;
   int* dhi_s = dlo_s + B;
   int* dn_s = dhi_s + B;
 
-  const int r = blockIdx.x;
   const int tid = threadIdx.x;
-  const int total0 = v0[r];
   for (int i = tid; i < T; i += kThreads) {
     smem[i] = i == 0 ? kRun : kFree;  // tta; ta = 0 everywhere
     smem[2 * T + i] = 0;               // tch
@@ -196,20 +204,66 @@ resolve_range_kernel(const int* __restrict__ kind,
   const int* tta = smem + cur * T;
   const int* tch = smem + (2 + cur) * T;
   const int* cum = smem + (4 + cur) * T;
-  const size_t ro = static_cast<size_t>(r) * T;
   for (int i = tid; i < T; i += kThreads) {
-    ttype_o[ro + i] = tta[i] & 3;
-    ta_o[ro + i] = tta[i] >> 2;
-    tch_o[ro + i] = tch[i];
-    tlen_o[ro + i] = cum[i] - (i > 0 ? cum[i - 1] : 0);
+    ttype_o[i] = tta[i] & 3;
+    ta_o[i] = tta[i] >> 2;
+    tch_o[i] = tch[i];
+    tlen_o[i] = cum[i] - (i > 0 ? cum[i - 1] : 0);
   }
-  const size_t rb = static_cast<size_t>(r) * B;
   for (int j = tid; j < B; j += kThreads) {
-    dlo_o[rb + j] = dlo_s[j] >= kBig ? -1 : dlo_s[j];
-    dhi_o[rb + j] = dhi_s[j];
-    dn_o[rb + j] = dn_s[j];
+    dlo_o[j] = dlo_s[j] >= kBig ? -1 : dlo_s[j];
+    dhi_o[j] = dhi_s[j];
+    dn_o[j] = dn_s[j];
   }
-  if (tid == 0) nused_o[r] = nused;
+  if (tid == 0 && nused_o != nullptr) *nused_o = nused;
+  __syncthreads();  // the token buffers are free for the next batch
+  return total;
+}
+
+__global__ void __launch_bounds__(kThreads)
+resolve_range_kernel(const int* __restrict__ kind,
+                     const int* __restrict__ pos,
+                     const int* __restrict__ rlen,
+                     const int* __restrict__ slot0,
+                     const int* __restrict__ v0, int B, int T,
+                     int* __restrict__ ttype_o, int* __restrict__ ta_o,
+                     int* __restrict__ tch_o, int* __restrict__ tlen_o,
+                     int* __restrict__ dlo_o, int* __restrict__ dhi_o,
+                     int* __restrict__ dn_o, int* __restrict__ nused_o) {
+  extern __shared__ int smem[];
+  const int r = blockIdx.x;
+  const size_t ro = static_cast<size_t>(r) * T;
+  const size_t rb = static_cast<size_t>(r) * B;
+  resolve_one(kind, pos, rlen, slot0, v0[r], B, T, smem, ttype_o + ro,
+              ta_o + ro, tch_o + ro, tlen_o + ro, dlo_o + rb, dhi_o + rb,
+              dn_o + rb, nused_o + r);
+}
+
+// Per-row form: ops int32[K, R, B]; outputs (K, R, T), (K, R, B) and the
+// visible total before each round, starts int32[K, R].
+__global__ void __launch_bounds__(kThreads)
+resolve_rows_kernel(const int* __restrict__ kind,
+                    const int* __restrict__ pos,
+                    const int* __restrict__ rlen,
+                    const int* __restrict__ slot0,
+                    const int* __restrict__ v0, int K, int R, int B, int T,
+                    int* __restrict__ ttype_o, int* __restrict__ ta_o,
+                    int* __restrict__ tch_o, int* __restrict__ tlen_o,
+                    int* __restrict__ dlo_o, int* __restrict__ dhi_o,
+                    int* __restrict__ dn_o, int* __restrict__ starts) {
+  extern __shared__ int smem[];
+  const int r = blockIdx.x;
+  int total = v0[r];
+  for (int k = 0; k < K; ++k) {
+    const size_t kr = static_cast<size_t>(k) * R + r;
+    const size_t ro = kr * T;
+    const size_t rb = kr * B;
+    if (threadIdx.x == 0) starts[kr] = total;
+    total = resolve_one(kind + rb, pos + rb, rlen + rb, slot0 + rb, total, B,
+                        T, smem, ttype_o + ro, ta_o + ro, tch_o + ro,
+                        tlen_o + ro, dlo_o + rb, dhi_o + rb, dn_o + rb,
+                        nullptr);
+  }
 }
 
 }  // namespace
@@ -229,5 +283,24 @@ extern "C" int crdt_resolve_range(const int* kind, const int* pos,
                          static_cast<cudaStream_t>(stream)>>>(
       kind, pos, rlen, slot0, v0, B, T, ttype, ta, tch, tlen, dlo, dhi,
       dcount, nused);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int crdt_resolve_range_rows(const int* kind, const int* pos,
+                                       const int* rlen, const int* slot0,
+                                       const int* v0, int K, int R, int B,
+                                       int T, int* ttype, int* ta, int* tch,
+                                       int* tlen, int* dlo, int* dhi,
+                                       int* dcount, int* starts,
+                                       void* stream) {
+  const int smem = (6 * T + 3 * B) * static_cast<int>(sizeof(int));
+  cudaError_t e = cudaFuncSetAttribute(
+      resolve_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  resolve_rows_kernel<<<R, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      kind, pos, rlen, slot0, v0, K, R, B, T, ttype, ta, tch, tlen, dlo, dhi,
+      dcount, starts);
   return static_cast<int>(cudaGetLastError());
 }

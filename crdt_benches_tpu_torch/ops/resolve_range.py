@@ -16,6 +16,13 @@ surviving pre-batch chars as one rank interval [dlo, dhi] plus their
 count.  :func:`resolve_range` launches the CUDA kernel
 (``csrc/resolve_range.cu``) on a CUDA tensor; :func:`resolve_range_plain`
 is its plain PyTorch version.
+
+:func:`resolve_range_rows` is K1's per-row form, the serving fleet's
+resolve (the JAX package's vmapped scan ``resolve_ranges_rows`` with
+``ops/serve_fused.py round_starts``): every row is a different document
+with its own K rounds of ops; each round starts from the visible total
+the previous one left.  :func:`resolve_range_rows_plain` is its plain
+version.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from .._build import check, kernels
-from ..traces.tensorize import DELETE, INSERT
+from ..traces.tensorize import DELETE, INSERT, PAD
 from .resolve import FREE, RUN, TINS
 
 I32 = torch.int32
@@ -240,3 +247,198 @@ def resolve_range(kind, pos, rlen, slot0, v0, *,
 
 
 resolve_range.launches = 0
+
+
+def _check_rows_operands(kind, pos, rlen, slot0, v0):
+    if kind.dim() != 3:
+        raise ValueError(f"kind: want int32[K, R, B], got {list(kind.shape)}")
+    K, R, B = kind.shape
+    for name, t, shape in (("kind", kind, (K, R, B)), ("pos", pos, (K, R, B)),
+                           ("rlen", rlen, (K, R, B)),
+                           ("slot0", slot0, (K, R, B)), ("v0", v0, (R,))):
+        if t.device != v0.device:
+            raise ValueError(f"{name} on {t.device}, v0 on {v0.device}")
+        if t.dtype != I32 or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: want int32{list(shape)}, got {t.dtype}"
+                f"{list(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    return K, R, B
+
+
+def resolve_range_rows_plain(kind, pos, rlen, slot0, v0):
+    """Plain PyTorch version of K1's per-row form (any device): per round,
+    a loop over the B op columns with tensor passes over every row's
+    (R, T) token list — the JAX package's ``res_step`` applied to all rows
+    at once.  Same arguments and results as :func:`resolve_range_rows`."""
+    resolve_range_rows_plain.calls += 1
+    K, R, B = _check_rows_operands(kind, pos, rlen, slot0, v0)
+    T = effective_token_list_size(B, None)
+    dev = v0.device
+    lane = torch.arange(T, dtype=I32, device=dev)[None, :]
+    zero = torch.zeros((R, 1), dtype=I32, device=dev)
+    toks = [torch.empty((K, R, T), dtype=I32, device=dev) for _ in range(4)]
+    dints = [torch.full((K, R, B), v, dtype=I32, device=dev)
+             for v in (-1, -1, 0)]
+    starts = torch.empty((K, R), dtype=I32, device=dev)
+
+    def tsum(x):
+        return x.sum(dim=1, keepdim=True, dtype=I32)
+
+    total = v0.to(I32)[:, None]
+    for r in range(K):
+        starts[r] = total[:, 0]
+        tta = torch.where(lane == 0, RUN, FREE).to(I32).expand(R, T)
+        tch = torch.zeros((R, T), dtype=I32, device=dev)
+        cum = total.expand(R, T)
+        nused = torch.ones((R, 1), dtype=I32, device=dev)
+        live_cols = (kind[r] != PAD).any(dim=0).nonzero().flatten().tolist()
+        for j in live_cols:  # a PAD op leaves the token list as it is
+            k = kind[r, :, j:j + 1]
+            p0 = pos[r, :, j:j + 1]
+            L0 = rlen[r, :, j:j + 1]
+            s0 = slot0[r, :, j:j + 1]
+            is_ins = (k == INSERT) & (L0 > 0)
+            p = torch.minimum(p0.clamp(min=0), total)
+            D = torch.where(
+                k == DELETE, torch.minimum(L0.clamp(min=0), total - p), zero
+            )
+            is_del = (k == DELETE) & (D > 0)
+            L = torch.where(is_ins, L0, zero)
+
+            pre_all = torch.cat([zero, cum[:, :-1]], 1)
+            ttok = tta & 3
+            is_run_tok = ttok == RUN
+            # delete rank interval outputs (pre-clamp coordinates)
+            pD = p + D
+            ov_lo = torch.maximum(pre_all, p)
+            ov_hi = torch.minimum(cum, pD)
+            has_ov = is_del & is_run_tok & (ov_hi > ov_lo)
+            ta_all = tta >> 2
+            dlo = torch.where(has_ov, ta_all + (ov_lo - pre_all), _BIG).amin(
+                dim=1, keepdim=True)
+            dhi = torch.where(has_ov, ta_all + (ov_hi - pre_all) - 1, -1).amax(
+                dim=1, keepdim=True)
+            dn = tsum(torch.where(has_ov, ov_hi - ov_lo, 0))
+            dints[0][r, :, j] = torch.where(is_del & (dlo < _BIG), dlo, -1)[:, 0]
+            dints[1][r, :, j] = torch.where(is_del, dhi, -1)[:, 0]
+            dints[2][r, :, j] = torch.where(is_del, dn, 0)[:, 0]
+
+            # vector clamp: the delete's effect on every token
+            consumed = (torch.minimum(cum, pD)
+                        - torch.maximum(pre_all, p)).clamp(min=0)
+            adv = torch.where(is_del & (cum > pD), consumed, 0)
+            cum_c = torch.where(
+                is_del, torch.minimum(cum, p) + (cum - pD).clamp(min=0), cum
+            )
+            tta_c = tta + torch.where(is_run_tok, adv * 4, 0)
+            tch_c = tch + torch.where(ttok == TINS, adv, 0)
+
+            # the token holding p (pre-clamp coordinates); t < T always
+            t = torch.minimum(tsum((cum <= p).to(I32)), nused)
+            ti = t.long()
+            c_t = cum.gather(1, ti)
+            pre = pre_all.gather(1, ti)
+            tta_t = tta.gather(1, ti)
+            ch = tch.gather(1, ti)
+            tt = tta_t & 3
+            off = p - pre
+            is_run_t = tt == RUN
+            split_ins = is_ins & (off > 0)
+            split_del = is_del & (off > 0) & (pD < c_t)
+            m = torch.where(is_ins, torch.where(split_ins, 3, 2),
+                            torch.where(split_del, 2, 1)).to(I32)
+
+            c_t_cl = torch.where(
+                is_del, torch.minimum(c_t, p) + (c_t - pD).clamp(min=0), c_t
+            )
+            adv_t = torch.where(
+                is_del & (c_t > pD),
+                (torch.minimum(c_t, pD) - torch.maximum(pre, p)).clamp(min=0),
+                0,
+            )
+            tta_cl = tta_t + torch.where(is_run_t, adv_t * 4, 0)
+            ch_cl = ch + torch.where(tt == TINS, adv_t, 0)
+            jj_tins = s0 * 4 + TINS
+            n0ta = torch.where(is_ins & ~split_ins, jj_tins,
+                               torch.where(split_del, tta_t, tta_cl))
+            n0c = torch.where(is_ins & ~split_ins, 0,
+                              torch.where(split_del, ch, ch_cl))
+            n0cum = torch.where(is_ins, torch.where(split_ins, p, pre + L),
+                                torch.where(split_del, p, c_t_cl))
+            n1ta = torch.where(
+                is_ins, torch.where(split_ins, jj_tins, tta_t),
+                tta_t + torch.where(is_run_t, (pD - pre) * 4, 0))
+            n1c = torch.where(is_ins, torch.where(split_ins, 0, ch),
+                              torch.where(is_run_t, ch, ch + (pD - pre)))
+            n1cum = torch.where(is_ins, torch.where(split_ins, p + L, c_t + L),
+                                c_t - D)
+            n2ta = tta_t + torch.where(is_run_t, off * 4, 0)
+            n2c = torch.where(is_run_t, ch, ch + off)
+            n2cum = c_t + L
+            src = (lane - (m - 1)).clamp(0, T - 1).long()
+
+            def place(x, x0, x1, x2, dlt):
+                out = torch.where(lane < t, x, x.gather(1, src) + dlt)
+                out = torch.where(lane == t, x0, out)
+                out = torch.where((m >= 2) & (lane == t + 1), x1, out)
+                return torch.where((m == 3) & (lane == t + 2), x2, out)
+
+            tta = place(tta_c, n0ta, n1ta, n2ta, 0)
+            tch = place(tch_c, n0c, n1c, n2c, 0)
+            cum = place(cum_c, n0cum, n1cum, n2cum, L)
+            total = total + L - D
+            nused = nused + (m - 1)
+        toks[0][r] = tta & 3
+        toks[1][r] = tta >> 2
+        toks[2][r] = tch
+        toks[3][r] = cum - torch.cat([zero, cum[:, :-1]], 1)
+    return tuple(toks), tuple(dints), starts
+
+
+resolve_range_rows_plain.calls = 0
+
+
+def resolve_range_rows(kind, pos, rlen, slot0, v0):
+    """Resolve K rounds of per-row range ops (K1's per-row form).
+
+    kind/pos/rlen/slot0: int32[K, R, B], row r of round k the ops of the
+    document in row r; v0: int32[R] the visible lengths before round 0.
+    Returns ((ttype, ta, tch, tlen) int32[K, R, T], (dlo, dhi, dcount)
+    int32[K, R, B], starts int32[K, R]) with T = round_up(2B + 2, 128)
+    (the list never overflows: B ops need at most 2B + 1 tokens; tokens
+    past 2B + 2 are FREE with zero length).  ``starts[k]`` is the visible
+    total before round k, clamped as the resolve clamps.  On a CUDA tensor
+    this launches the kernel (or raises); on a CPU tensor it runs
+    :func:`resolve_range_rows_plain`."""
+    K, R, B = _check_rows_operands(kind, pos, rlen, slot0, v0)
+    if v0.device.type == "cpu":
+        return resolve_range_rows_plain(kind, pos, rlen, slot0, v0)
+    if v0.device.type != "cuda":
+        raise ValueError(f"resolve_range_rows: unsupported device {v0.device}")
+    T = effective_token_list_size(B, None)
+    if B < 1 or (6 * T + 3 * B) * 4 > _MAX_SMEM:
+        raise ValueError(
+            f"resolve_range_rows: batch {B} (token list {T}) outside the "
+            "kernel's shared-memory range"
+        )
+    mk = lambda n: torch.empty((K, R, n), dtype=I32, device=v0.device)
+    ttype, ta, tch, tlen = mk(T), mk(T), mk(T), mk(T)
+    dlo, dhi, dn = mk(B), mk(B), mk(B)
+    starts = torch.empty((K, R), dtype=I32, device=v0.device)
+    if K and R:
+        err = kernels().crdt_resolve_range_rows(
+            kind.data_ptr(), pos.data_ptr(), rlen.data_ptr(),
+            slot0.data_ptr(), v0.data_ptr(), K, R, B, T,
+            ttype.data_ptr(), ta.data_ptr(), tch.data_ptr(), tlen.data_ptr(),
+            dlo.data_ptr(), dhi.data_ptr(), dn.data_ptr(), starts.data_ptr(),
+            torch.cuda.current_stream(v0.device).cuda_stream,
+        )
+        check(err, "crdt_resolve_range_rows")
+        resolve_range_rows.launches += 1
+    return (ttype, ta, tch, tlen), (dlo, dhi, dn), starts
+
+
+resolve_range_rows.launches = 0

@@ -2,6 +2,10 @@
 the port, as numpy arrays, so both sides can start a batch from the same
 state and the same ``ResolvedBatch``.
 
+The serving fleet's carriers: :func:`rounds_from_jax` for a macro
+dispatch's K resolved rounds, :func:`buckets_from_jax` for a pool's
+bucket stacks.
+
 The JAX side holds ``cv_intile`` as bf16; its caller casts it to int32
 before ``np.asarray``.  The port holds it as int16 (values are at most
 128); :func:`state4_to_numpy` hands it back as int32 for comparison by
@@ -112,3 +116,35 @@ def resolved_from_jax(
         ResolvedBatch, arrays, ResolvedBatch._fields,
         {"ins_alive": torch.bool}, device,
     )
+
+
+def rounds_from_jax(tokens, dints, device: str | torch.device = "cuda"):
+    """K resolved rounds as port tensors: tokens (ttype, ta, tch, tlen)
+    int32[K, R, T] and dints (dlo, dhi, dcount) int32[K, R, B], from numpy
+    (or any array numpy converts)."""
+    dev = resolve_device(device)
+    t = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
+    tokens, dints = tuple(map(t, tokens)), tuple(map(t, dints))
+    K, R, T = tokens[0].shape
+    B = dints[0].shape[2]
+    for name, group, shape in (("tokens", tokens, (K, R, T)),
+                               ("dints", dints, (K, R, B))):
+        if any(tuple(x.shape) != shape for x in group):
+            raise ValueError(f"{name}: shapes "
+                             f"{[tuple(x.shape) for x in group]}, want {shape}")
+    return tokens, dints
+
+
+def buckets_from_jax(
+    buckets: dict[int, dict[str, np.ndarray]],
+    device: str | torch.device = "cuda",
+) -> dict[int, PackedState]:
+    """A pool's bucket stacks {class: PackedState} from the JAX pool's
+    {class: {doc, length, nvis}} arrays."""
+    out = {}
+    for cls, arrays in buckets.items():
+        st = state3_from_jax(arrays, device)
+        if st.doc.shape[1] != cls:
+            raise ValueError(f"bucket c{cls}: rows of {st.doc.shape[1]} slots")
+        out[cls] = st
+    return out

@@ -38,6 +38,8 @@ from crdt_benches_tpu_torch.ops.apply2 import (
     init_state3,
     init_state4,
 )
+from crdt_benches_tpu_torch.serve.bench import run_serve_bench
+from crdt_benches_tpu_torch.serve.pool import DocPool
 from crdt_benches_tpu_torch.traces.tensorize import (
     tensorize,
     tensorize_ranges,
@@ -72,9 +74,12 @@ def test_port_imports_no_jax_and_no_reference_module():
     )
     assert done.returncode == 0, done.stderr
     n, old = done.stdout.split(" ", 1)
-    assert int(n) >= 19  # every module of slices 1 to 3 was imported
+    assert int(n) >= 41  # every module of the port was imported
     assert old.strip() == "[]"
-    for mod in ("ops.idpos", "ops.apply", "engine.downstream"):
+    for mod in ("ops.idpos", "ops.apply", "engine.downstream",
+                "ops.packing", "ops.serve_fused", "oracle.text_oracle",
+                "traces.synth", "utils.checkpoint", "serve.workload",
+                "serve.pool", "serve.scheduler", "serve.bench"):
         assert os.path.exists(os.path.join(
             REPO, "crdt_benches_tpu_torch", *mod.split(".")) + ".py"), mod
 
@@ -109,6 +114,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: DownstreamEngine(tt),
         lambda: TorchDownstreamBackend(),
         lambda: flagship.downstream("sveltecomponent"),
+        lambda: DocPool(),
+        lambda: run_serve_bench(n_docs=2),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -131,6 +138,18 @@ def test_downstream_bench_entry_without_cuda_exits_with_error():
     done = subprocess.run(
         [sys.executable, "-m", "crdt_benches_tpu_torch.bench", "--group",
          "downstream", "--trace", "sveltecomponent", "--samples", "1"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert done.returncode != 0
+    assert "CUDA is not available" in done.stderr
+    assert done.stdout.strip() == ""
+
+
+def test_serve_bench_entry_without_cuda_exits_with_error():
+    _no_cuda()
+    done = subprocess.run(
+        [sys.executable, "-m", "crdt_benches_tpu_torch.bench", "--group",
+         "serve", "--serve-docs", "2"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert done.returncode != 0
@@ -262,5 +281,6 @@ def test_every_c_entry_is_defined_in_a_source():
         assert defs.get(name) == len(argtypes), name
     assert {"crdt_resolve_range", "crdt_range_apply", "crdt_resolve_unit",
             "crdt_unit_apply", "crdt_expand_packed",
-            "crdt_expand_fill_zero", "crdt_apply_blocked"} <= set(
+            "crdt_expand_fill_zero", "crdt_apply_blocked",
+            "crdt_resolve_range_rows", "crdt_serve_macro"} <= set(
                 _build.SIGNATURES)
