@@ -22,8 +22,10 @@ Phases (one line each; any failure exits non-zero):
    K2 once per batch and call no plain version;
 6. K5 (unit resolver) against ``resolve_batch_plain``, with
    ``emit_origin`` off and on, on every batch of sveltecomponent at 8
-   replicas (the plain versions run on the CPU, in worker processes) —
-   all six outputs equal;
+   replicas (the plain versions run on the CPU, in worker processes), and
+   on the worst-case batches (inserts at 0, deletes at 0, inserts at
+   alternating ends, a late automerge-paper batch) at 1, 5 and 1024
+   replicas — all six outputs equal;
 7. K6 (fused unit apply) against ``apply_fused2_plain``, with ``emit_cv``
    on and off, on the v4 producer's operands for every batch of
    automerge-paper at 8 replicas (staged capacities up to 182,400) and at
@@ -413,6 +415,79 @@ def serve_phases(dev, bound) -> list[dict]:
     ]
 
 
+#: The K5 worst cases (each also in ``tests/test_torch_resolve_unit.py``):
+#: inserts at 0 move the whole live list every op; deletes at 0 grow a run
+#: of zero-length tokens at the head and run past the end of a short
+#: document; alternating ends land on the FREE sentinel every other op.
+K5_WORST = ("ins_at_0", "del_at_0", "alternate")
+
+
+def k5_worst_cases(dev, tt, late) -> tuple[int, dict[str, float]]:
+    """K5 held against ``resolve_batch_plain`` (both on the card, emit_origin
+    off and on) on the worst-case batches and ``tt``'s batch ``late`` (v0
+    its true length before the batch), at R = 1, 5 and 1024.  Replica 0
+    starts at 1000 chars (the trace batch: its true length), then 0, 7, 300,
+    then seeded lengths below twice that.  Returns the max abs error (0;
+    any other fails) and K5's ms per launch on each batch at R = 1024
+    (emit_origin off)."""
+    import numpy as np
+    import torch
+
+    from crdt_benches_tpu_torch.ops import resolve as rs
+    from crdt_benches_tpu_torch.traces.tensorize import DELETE, INSERT
+
+    kind_b, pos_b = tt.batched()[:2]
+    B = tt.batch
+    step = np.where(kind_b == INSERT, 1, np.where(kind_b == DELETE, -1, 0))
+    batches = {"trace": (kind_b[late], pos_b[late],
+                         len(tt.init_chars) + int(step[:late].sum()))}
+    for name in K5_WORST:
+        kind = np.full(B, DELETE if name == "del_at_0" else INSERT, np.int32)
+        pos = np.zeros(B, np.int32)
+        if name == "alternate":
+            pos[1::2] = 10**6  # clamps to the end
+        batches[name] = (kind, pos, 1000)
+    rng = np.random.default_rng(0)
+    worst = 0
+    ms = {}
+    for name, (kind, pos, v_first) in batches.items():
+        for R in (1, 5, 1024):
+            v0 = np.concatenate([[v_first, 0, 7, 300],
+                                 rng.integers(0, 2 * v_first, max(R - 4, 0))])
+            args = [torch.as_tensor(a, dtype=torch.int32, device=dev)
+                    for a in (kind, pos, v0[:R])]
+            for eo in (False, True):
+                e = max_err(tuple(rs.resolve_batch(*args, emit_origin=eo)),
+                            tuple(rs.resolve_batch_plain(*args,
+                                                         emit_origin=eo)))
+                if e:
+                    fail(f"K5 != plain on the {name} batch at R={R}, "
+                         f"emit_origin {eo}: {e}")
+                worst = max(worst, e)
+            if R == 1024:
+                ms[name] = elapsed_ms(
+                    lambda: rs.resolve_batch(*args, emit_origin=False), 10)
+    return worst, ms
+
+
+def k5_ops(kind, pos, v0) -> int:
+    """The int32 operations K5 needs on these inputs: per op that acts, its
+    live tail moved (two fields for each of the tokens after its token) and
+    its search steps (ceil(log2(nused + 1)) compares), from the plain token
+    walk of replica 0 on the CPU, times R (every replica of a replay has the
+    same v0)."""
+    import torch
+
+    from crdt_benches_tpu_torch.ops import resolve as rs
+
+    w = rs.resolve_tokens_plain(kind.cpu(), pos.cpu(), v0[:1].cpu(),
+                                emit_origin=False)
+    acts = w.t[0] >= 0
+    nused, t = w.nused[0][acts], w.t[0][acts]
+    steps = torch.ceil(torch.log2(nused.double() + 1)).long()
+    return int(2 * (nused - t).sum() + steps.sum()) * v0.shape[0]
+
+
 def k5_plain_on_cpu(task):
     """Worker process: K5's plain version on CPU tensors from numpy
     operands (kind, pos, v0, emit_origin); returns its outputs as numpy."""
@@ -483,6 +558,10 @@ def main() -> int:
           f"({torch.cuda.get_device_properties(0).multi_processor_count} "
           f"SMs x {INT32_LANES_PER_SM} lanes x "
           f"{clk.stdout.strip()})", flush=True)
+
+    def bound(nbytes, nops):
+        tb, to = nbytes / HBM_BYTES_PER_S, nops / int32_ops_per_s
+        return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
     t0 = time.perf_counter()
     _build.kernels()
@@ -728,6 +807,7 @@ def main() -> int:
                 lambda: rs.resolve_batch_plain(*args, emit_origin=False), 1)
             times["k5_shape"] = (R, args[0].shape[0],
                                  rs.token_list_size(args[0].shape[0]))
+            times["k5_ops"] = k5_ops(*args)
             # doc and combo matter only below new_len (2 is written past it)
             times["k6_rows"] = int(ops[2].clamp(max=C).sum())
         col = torch.arange(C, device=dev)
@@ -839,6 +919,14 @@ def main() -> int:
           f"emit_origin off and on (plain on {workers} CPU workers; "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     del k5_log, tasks, got, wants
+    t0 = time.perf_counter()
+    e, wms = k5_worst_cases(dev, am, late)
+    uerr["k5"] = max(uerr["k5"], e)
+    print(f"[k5 worst] {', '.join(K5_WORST)} and automerge-paper batch "
+          f"{late}: equal at R = 1, 5 and 1024 with emit_origin off and on; "
+          "K5 ms at R = 1024: " + ", ".join(f"{k} {v:.4f}"
+                                            for k, v in wms.items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # K6 on every automerge-paper batch: R = 8 at the staged capacities,
     # R = 2 at a capacity past the TPU kernel's ~1.09M-position gate
@@ -931,10 +1019,17 @@ def main() -> int:
           + f"; sum {sum(ustages.values()):.2f} of {wall:.2f} ms wall "
           f"(wall includes state init and capacity growth, not the check)",
           flush=True)
+    R5, B5, T5 = times["k5_shape"]
+    # kind/pos and v0 read; five int32 and one bool output per (R, B)
+    k5_bytes = 2 * B5 * 4 + R5 * 4 + R5 * B5 * (5 * 4 + 1)
+    k5_bound = bound(k5_bytes, times["k5_ops"])
     print(f"[k5+k6 R=1024] automerge-paper batch {late} equal (K5 with "
           f"emit_origin off and on, K6 with emit_cv on and off); "
-          f"K5 {times['k5_ms']:.3f} ms, plain {times['k5_plain_ms']:.1f} ms "
-          f"at (R, B, T) = {times['k5_shape']}; K6 {times['k6_ms']:.3f} ms, "
+          f"K5 {times['k5_ms']:.4f} ms, plain {times['k5_plain_ms']:.1f} ms "
+          f"at (R, B, T) = {times['k5_shape']}, bound {k5_bound[0]:.5f} ms "
+          f"by {k5_bound[1]} ({k5_bytes} bytes; {times['k5_ops']} int32 "
+          f"operations: live tails moved and search steps); "
+          f"K6 {times['k6_ms']:.3f} ms, "
           f"plain {times['k6_plain_ms']:.3f} ms at (R, C) = "
           f"{times['k6_shape']}, {times['k6_rows']} positions below "
           f"new_len ({aside:.1f} s)", flush=True)
@@ -1242,10 +1337,6 @@ def main() -> int:
     # per position: depth-field decode (3), four prefix adds, vis clear
     # (2), fill arithmetic (3) — 12 int32 operations
     k2_ops = R2 * C2 * 12
-    R5, B5, T5 = times["k5_shape"]
-    # kind/pos and v0 read; five int32 and one bool output per (R, B)
-    k5_bytes = 2 * B5 * 4 + R5 * 4 + R5 * B5 * (5 * 4 + 1)
-    k5_ops = R5 * B5 * T5 * 2  # two token fields (tta, cum) per op
     R6, C6 = times["k6_shape"]
     # doc_predel and combo read below new_len; doc (int32), cv_intile
     # (int16) and vis_tile written everywhere; new_len read
@@ -1261,10 +1352,6 @@ def main() -> int:
                 + R7 * (C7 // 128) * 4 + R7 * 4)
     k7_ops = R7 * C7 * 6  # in-tile prefix, source, length test, selects
 
-    def bound(nbytes, nops):
-        tb, to = nbytes / HBM_BYTES_PER_S, nops / int32_ops_per_s
-        return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
-
     src = "crdt_benches_tpu_torch/csrc/"
     tpu = "crdt_benches_tpu/ops/"
     rows = []
@@ -1277,7 +1364,7 @@ def main() -> int:
          k2_bytes(R2, C2), k2_ops, None),
         ("k5", "resolve_batch", "resolve_unit.cu",
          "resolve_pallas.py:282", unit_launches["resolve_batch"],
-         uerr["k5"], k5_bytes, k5_ops, None),
+         uerr["k5"], k5_bytes, times["k5_ops"], None),
         ("k6", "apply_fused2", "unit_apply.cu", "apply_range_fused.py:167",
          unit_launches["apply_fused2"], uerr["k6"], k6_bytes, k6_ops, None),
         ("k8", "expand_packed", "expand.cu", "expand_pallas.py:114",

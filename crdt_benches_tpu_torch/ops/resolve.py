@@ -23,6 +23,11 @@ of batch op k; -2 for non-inserts) and ``del_batch`` (the batch op whose
 insert a DELETE kills, -1).  With ``emit_origin=False`` an insert's origin
 is -1 and a non-insert's -2, as in the JAX Pallas resolver.
 
+Each insert j leaves exactly one TINS(j) or TDEAD(j) token in the final
+list (TDEAD exactly when a later delete of the batch killed it), so
+``ins_gvis``, ``ins_seq`` and ``ins_alive`` are read off the final list
+(:func:`extract_from_tokens`) with no per-op bookkeeping during the walk.
+
 :func:`resolve_batch` launches the CUDA kernel (``csrc/resolve_unit.cu``)
 on a CUDA tensor; :func:`resolve_batch_plain` is its plain PyTorch version.
 """
@@ -46,6 +51,9 @@ _BIG = 1 << 30
 I32 = torch.int32
 #: Shared memory a block may use on Hopper (227 KB).
 _MAX_SMEM = 232448
+#: Replicas per block of the kernel (one warp each; ``kWarps`` in
+#: ``csrc/resolve_unit.cu``).
+UNIT_WARPS = 4
 
 
 class ResolvedBatch(NamedTuple):
@@ -61,6 +69,12 @@ def token_list_size(B: int) -> int:
     """The resolver's token-list size: 2B+2 bounds the tokens any batch of
     B unit ops can create, rounded up to 128."""
     return -(-(2 * B + 2) // 128) * 128
+
+
+def unit_smem_bytes(B: int) -> int:
+    """Shared memory of one K5 block at batch B: kind/pos staged once, and
+    each warp's (tta, cum) list of T + 1 ints per field."""
+    return (UNIT_WARPS * 2 * (token_list_size(B) + 1) + 2 * B) * 4
 
 
 def extract_from_tokens(ttype, ta, tlen, v0, B: int):
@@ -101,11 +115,24 @@ def extract_from_tokens(ttype, ta, tlen, v0, B: int):
     )
 
 
-def resolve_batch_plain(kind, pos, v0, *, emit_origin: bool = True):
-    """Plain PyTorch version of K5 (any device): a Python loop over the ops
-    with tensor passes over the (R, T) token list.  Same arguments and
-    results as :func:`resolve_batch`."""
-    resolve_batch_plain.calls += 1
+class TokenWalk(NamedTuple):
+    """The sequential part of K5's plain version: the final token list and
+    the per-op results that do not need it, plus where each op acted."""
+    tta: torch.Tensor  # int64[R, T]  ta*4 + ttype of the final list
+    cum: torch.Tensor  # int64[R, T]  inclusive prefix of token lengths
+    del_rank: torch.Tensor  # int64[R, B]
+    origin: torch.Tensor  # int64[R, B]
+    del_batch: torch.Tensor  # int64[R, B]
+    t: torch.Tensor  # int64[R, B]  the op's token index (-1 for PAD)
+    nused: torch.Tensor  # int64[R, B]  tokens in use before the op
+
+
+def resolve_tokens_plain(kind, pos, v0, *, emit_origin: bool = True):
+    """Run a batch of unit ops over each replica's token list (a Python
+    loop over the ops with tensor passes over the (R, T) list) and return a
+    :class:`TokenWalk`.  Token ``nused`` (after the last op) stays FREE
+    with ``cum`` equal to the visible total: an insert at the end lands on
+    it."""
     B = kind.shape[0]
     R = v0.shape[0]
     T = token_list_size(B)
@@ -122,6 +149,8 @@ def resolve_batch_plain(kind, pos, v0, *, emit_origin: bool = True):
     del_rank = torch.full((R, B), -1, dtype=i64, device=dev)
     origin = torch.full((R, B), -2, dtype=i64, device=dev)
     del_batch = torch.full((R, B), -1, dtype=i64, device=dev)
+    op_t = torch.full((R, B), -1, dtype=i64, device=dev)
+    op_nused = torch.zeros((R, B), dtype=i64, device=dev)
     pair = torch.tensor([0, 1], device=dev)
 
     def at(t):
@@ -144,11 +173,13 @@ def resolve_batch_plain(kind, pos, v0, *, emit_origin: bool = True):
         X = Y
 
     for j, (k, p0) in enumerate(zip(kind.tolist(), pos.tolist())):
+        op_nused[:, j:j + 1] = nused
         if k not in (INSERT, DELETE):
             continue  # PAD: no-op
         p = total.clamp(max=max(p0, 0))
         cum = X[:, 1, 1:]
         t = torch.minimum((cum <= p).sum(1, keepdim=True), nused)
+        op_t[:, j:j + 1] = t
         tta_t, pre, c_t = at(t)
         a = tta_t >> 2
         off = p - pre
@@ -192,14 +223,27 @@ def resolve_batch_plain(kind, pos, v0, *, emit_origin: bool = True):
             total = total + delta
         nused = nused + (m - 1)
 
-    tta = X[:, 0, 1:]
-    tlen = X[:, 1, 1:] - X[:, 1, :-1]
+    return TokenWalk(
+        tta=X[:, 0, 1:], cum=X[:, 1, 1:], del_rank=del_rank, origin=origin,
+        del_batch=del_batch, t=op_t, nused=op_nused,
+    )
+
+
+def resolve_batch_plain(kind, pos, v0, *, emit_origin: bool = True):
+    """Plain PyTorch version of K5 (any device): :func:`resolve_tokens_plain`
+    then :func:`extract_from_tokens` on its final list.  Same arguments and
+    results as :func:`resolve_batch`."""
+    resolve_batch_plain.calls += 1
+    w = resolve_tokens_plain(kind, pos, v0, emit_origin=emit_origin)
+    tlen = torch.diff(w.cum, dim=1, prepend=w.cum.new_zeros(len(v0), 1))
     gvis, seq, alive = extract_from_tokens(
-        (tta & 3).to(I32), (tta >> 2).to(I32), tlen.to(I32), v0, B
+        (w.tta & 3).to(I32), (w.tta >> 2).to(I32), tlen.to(I32), v0,
+        kind.shape[0],
     )
     return ResolvedBatch(
-        del_rank=del_rank.to(I32), ins_gvis=gvis, ins_seq=seq,
-        ins_alive=alive, origin=origin.to(I32), del_batch=del_batch.to(I32),
+        del_rank=w.del_rank.to(I32), ins_gvis=gvis, ins_seq=seq,
+        ins_alive=alive, origin=w.origin.to(I32),
+        del_batch=w.del_batch.to(I32),
     )
 
 
@@ -230,7 +274,7 @@ def resolve_batch(kind, pos, v0, *, emit_origin: bool = True) -> ResolvedBatch:
     if v0.device.type != "cuda":
         raise ValueError(f"resolve_batch: unsupported device {v0.device}")
     T = token_list_size(B)
-    if B < 1 or (4 * T + 2 * B) * 4 > _MAX_SMEM:
+    if B < 1 or unit_smem_bytes(B) > _MAX_SMEM:
         raise ValueError(
             f"resolve_batch: batch {B} (token list {T}) outside the "
             "kernel's shared-memory range"
