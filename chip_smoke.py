@@ -9,8 +9,12 @@ Phases (one line each; any failure exits non-zero):
 2. build: compile ``crdt_benches_tpu_torch/csrc/*.cu`` (nvcc, sm_90a);
 3. K1 (range resolver) against ``resolve_range_plain``: every batch of
    sveltecomponent and automerge-paper at 8 replicas, one sveltecomponent
-   batch with the token list capped below its demand, and one
-   automerge-paper batch at 1024 replicas — all eight outputs equal;
+   batch with the token list capped below its demand, one
+   automerge-paper batch at 1024 replicas, and the worst cases (inserts
+   at 0, deletes at 0 past the end of a short document, inserts at
+   alternating ends, scattered inserts under one spanning delete, a PAD
+   tail, automerge-paper batch 3) at 1, 5 and 1024 replicas, timed at
+   1024 — all eight outputs equal;
 4. K2/K3 (fused range apply) against ``range_apply_plain`` on the
    producer's outputs: automerge-paper at 8 replicas (capacity 183,296),
    at 1024 replicas, and at 2 replicas with a capacity of 1,048,576 —
@@ -66,7 +70,8 @@ Phases (one line each; any failure exits non-zero):
     per-row resolve (K1's per-row form) equals its plain version and the
     round-starts recurrence, and every K4 (serve macro apply) launch
     equals ``serve_macro_plain`` — every class, tiers below the bucket
-    rows, all-PAD rows and PAD tails — with both kernels timed; then the
+    rows, all-PAD rows and PAD tails — with both kernels timed, and K1's
+    per-row form on rows of inserts at 0 in every round; then the
     timed drain through ``run_serve_bench``: both kernels once per
     dispatch, no plain version, evictions, restores and promotions, every
     document byte-identical to the oracle, its host phases and device
@@ -185,6 +190,7 @@ def serve_phases(dev, bound) -> list[dict]:
     under the profiler gives the device's idle share.  ``bound(bytes,
     ops)`` gives (ms, "bytes" or "operations").  Returns the two kernels'
     rows of the ``kernels`` line."""
+    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -202,7 +208,7 @@ def serve_phases(dev, bound) -> list[dict]:
         prepare_streams,
     )
     from crdt_benches_tpu_torch.serve.workload import build_fleet
-    from crdt_benches_tpu_torch.traces.tensorize import PAD
+    from crdt_benches_tpu_torch.traces.tensorize import INSERT, PAD
 
     cell = SERVE_CELL
     t0 = time.perf_counter()
@@ -297,10 +303,23 @@ def serve_phases(dev, bound) -> list[dict]:
     T1r = rr.effective_token_list_size(B1r, None)
     live = int((args[0] != PAD).sum())
     # ops, v0 read; four (K, R, T) and three (K, R, B) outputs and the
-    # starts written; three token fields rewritten per live op
+    # starts written; the live tails moved or clamped and the search steps
+    # of every row's rounds (the token walk, round by round)
     k1_bound = bound(4 * args[0].numel() * 4 + R1r * 4
                      + K1r * R1r * (4 * T1r + 3 * B1r + 1) * 4,
-                     live * T1r * 3)
+                     k1_rows_ops(*args))
+    # rows of inserts at 0 in every round: each op moves the whole list
+    rng = np.random.default_rng(1)
+    shape = (K1r, R1r, B1r)
+    rlen = rng.integers(1, 9, shape)
+    flat = rlen.transpose(1, 0, 2).reshape(R1r, -1)  # each row's ops
+    slot0 = (np.cumsum(flat, 1) - flat).reshape(R1r, K1r, B1r)
+    wargs = [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                             device=dev)
+             for a in (np.full(shape, INSERT), np.zeros(shape), rlen,
+                       slot0.transpose(1, 0, 2), rng.integers(0, 1000, R1r))]
+    k1_checked(*wargs)
+    k1w_ms = elapsed_ms(lambda: rr.resolve_range_rows(*wargs), 10)
     st, tokens, dints = keep["k4"]
     inputs = sf.serve_round_inputs(tokens, dints, st.length, st.nvis)
     K4, Rt, T = tokens[0].shape
@@ -323,7 +342,9 @@ def serve_phases(dev, bound) -> list[dict]:
           f"bound {k4_bound[0]:.4f} ms ({k4_bound[1]}); K1 rows at (K, R, B, "
           f"T) = {(K1r, R1r, B1r, T1r)} ({live} live ops): {k1_ms:.4f} ms, "
           f"plain {k1_plain_ms:.1f} ms, bound {k1_bound[0]:.4f} ms "
-          f"({k1_bound[1]})", flush=True)
+          f"({k1_bound[1]}); rows of inserts at 0 in every round, equal to "
+          f"the plain version and the round starts: {k1w_ms:.4f} ms",
+          flush=True)
     del keep, args, st, tokens, dints, inputs
 
     # ---- [serve]: the timed drain through the bench's entry point ----
@@ -488,6 +509,110 @@ def k5_ops(kind, pos, v0) -> int:
     return int(2 * (nused - t).sum() + steps.sum()) * v0.shape[0]
 
 
+def k1_ops(walk) -> int:
+    """The int32 operations K1 needs for one token walk
+    (``range_token_walk``): per op that acts, three fields of each tail
+    token it moves or clamps, and its search steps (ceil(log2(nused + 1))
+    compares), summed over the replicas (rows)."""
+    import torch
+
+    steps = torch.ceil(torch.log2(walk.nused[:, :-1].double() + 1)).long()
+    return int((3 * walk.tail + torch.where(walk.t >= 0, steps, 0)).sum())
+
+
+def k1_rows_ops(kind, pos, rlen, slot0, v0) -> int:
+    """:func:`k1_ops` of K1's per-row form: every row's rounds walked in
+    order, each from the visible total the round before left."""
+    from crdt_benches_tpu_torch.ops.resolve_range import range_token_walk
+
+    n = 0
+    for k in range(kind.shape[0]):
+        w = range_token_walk(kind[k], pos[k], rlen[k], v0)
+        n += k1_ops(w)
+        v0 = w.total.to(v0.dtype)
+    return n
+
+
+#: K1's worst cases (each also in ``tests/test_torch_resolve_range_worst.py``,
+#: at B = 32 and 64 there): inserts at 0 move the whole live list every
+#: op; deletes at 0 clamp the whole tail and run past the end of a short
+#: document; inserts at alternating ends land on the FREE sentinel every
+#: other op; scattered inserts split the document into ~B runs that one
+#: final delete spans (the longest reduction); a PAD tail (the first
+#: quarter of automerge-paper's batch 3); automerge-paper's batch 3.
+K1_WORST = ("ins_at_0", "del_at_0", "alternate", "span", "pad_tail", "trace")
+
+
+def k1_worst_cases(dev, rt, bound) -> tuple[int, dict[str, tuple]]:
+    """K1 held against ``resolve_range_plain`` (both on the card, all eight
+    outputs) on the worst-case batches at B = ``rt.batch``, at R = 1, 5
+    and 1024.  Replica 0 starts at the case's own length (1000, or
+    automerge-paper's before batch 3), then 0, 7, 300, then seeded lengths
+    below twice that.  Returns the max abs error (0; any other fails) and,
+    per case at R = 1024, K1's ms per launch and its bound (``bound(bytes,
+    ops)``, ops from the token walk of all 1024 replicas)."""
+    import numpy as np
+    import torch
+
+    from crdt_benches_tpu_torch.ops import resolve_range as rr
+    from crdt_benches_tpu_torch.traces.tensorize import DELETE, INSERT, PAD
+
+    B = rt.batch
+    kind_b, pos_b, rlen_b, slot_b = rt.batched()
+    delta = (np.where(kind_b == INSERT, rlen_b, 0).sum(1)
+             - np.where(kind_b == DELETE, rlen_b, 0).sum(1))
+    v_trace = len(rt.init_chars) + int(delta[:3].sum())
+    rng = np.random.default_rng(B)
+    batches = {}
+    for name in K1_WORST:
+        kind = np.full(B, INSERT)
+        pos = np.zeros(B)
+        rlen = rng.integers(1, 9, B)
+        v = 1000
+        if name in ("trace", "pad_tail"):
+            kind, pos, rlen, slot0 = (np.array(a[3]) for a in
+                                      (kind_b, pos_b, rlen_b, slot_b))
+            v = v_trace
+            if name == "pad_tail":
+                for a in (pos, rlen, slot0):
+                    a[B // 4:] = 0
+                kind[B // 4:] = PAD
+        elif name == "del_at_0":
+            kind[:] = DELETE
+            rlen = rng.integers(1, 5, B)
+        elif name == "alternate":
+            pos[1::2] = 10**6  # clamps to the end: the sentinel
+        elif name == "span":
+            pos = rng.integers(1, v, B)
+            kind[-1], pos[-1], rlen[-1] = DELETE, 0, 10**6
+        if name not in ("trace", "pad_tail"):
+            slot0 = v + np.cumsum(rlen) - rlen
+        batches[name] = (kind, pos, rlen, slot0, v)
+    worst = 0
+    out = {}
+    for name, (kind, pos, rlen, slot0, v_first) in batches.items():
+        for R in (1, 5, 1024):
+            v0 = np.concatenate([[v_first, 0, 7, 300],
+                                 rng.integers(0, 2 * v_first, max(R - 4, 0))])
+            args = [torch.as_tensor(a, dtype=torch.int32, device=dev)
+                    for a in (kind, pos, rlen, slot0, v0[:R])]
+            got = rr.resolve_range(*args)
+            want = rr.resolve_range_plain(*args)
+            e = max_err((*got[0], *got[1], got[2]),
+                        (*want[0], *want[1], want[2]))
+            if e:
+                fail(f"K1 != plain on the {name} batch at R={R}: {e}")
+            worst = max(worst, e)
+            if R == 1024:
+                T = got[0][0].shape[1]
+                ms = elapsed_ms(lambda: rr.resolve_range(*args), 3)
+                ops = k1_ops(rr.range_token_walk(*args[:3], args[4]))
+                out[name] = (ms, bound(4 * B * 4 + R * 4
+                                       + R * (4 * T + 3 * B + 1) * 4, ops),
+                             int(got[2].max()))
+    return worst, out
+
+
 def k5_plain_on_cpu(task):
     """Worker process: K5's plain version on CPU tensors from numpy
     operands (kind, pos, v0, emit_origin); returns its outputs as numpy."""
@@ -609,6 +734,8 @@ def main() -> int:
             if i == time_at:
                 times[f"k1{tag}_ms"] = elapsed_ms(
                     lambda: rr.resolve_range(*args), 3)
+                times[f"k1{tag}_ops"] = k1_ops(rr.range_token_walk(
+                    *args[:3], args[4]))
                 times[f"k1{tag}_plain_ms"] = elapsed_ms(
                     lambda: rr.resolve_range_plain(*args), 1)
                 times[f"k1{tag}_shape"] = (R, kb.shape[1], tok[0].shape[1])
@@ -669,12 +796,24 @@ def main() -> int:
     walk("automerge-paper", 1024, cap_am, lambda i: i == 3,
          lambda i: i == 3, until=3, time_at=3)
     print(f"[k1 R=1024] automerge-paper batch 3 equal; kernel "
-          f"{times['k1_ms']:.3f} ms, plain {times['k1_plain_ms']:.1f} ms "
-          f"at (R, B, T) = {times['k1_shape']}", flush=True)
+          f"{times['k1_ms']:.4f} ms, plain {times['k1_plain_ms']:.1f} ms "
+          f"at (R, B, T) = {times['k1_shape']}; {times['k1_ops']} int32 "
+          "operations (live tails moved or clamped, search steps)",
+          flush=True)
     print(f"[k2 R=1024] automerge-paper batch 3 equal; kernel "
           f"{times['k2_ms']:.3f} ms, plain {times['k2_plain_ms']:.3f} ms "
           f"at (R, C) = {times['k2_shape']}  "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    e, k1w = k1_worst_cases(dev, rts["automerge-paper"], bound)
+    err["k1"] = max(err["k1"], e)
+    print("[k1 worst] " + ", ".join(K1_WORST) + " at B = 1536: all eight "
+          "outputs equal at R = 1, 5 and 1024; at R = 1024, K1 ms, bound ms "
+          "(by; from the token walk) and max nused: " + "; ".join(
+              f"{k} {ms:.4f}, {b[0]:.4f} ({b[1]}), {n}"
+              for k, (ms, b, n) in k1w.items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
     st = walk("automerge-paper", 2, 1 << 20, never, every, time_at=6,
@@ -1332,7 +1471,7 @@ def main() -> int:
 
     R1, B1, T1 = times["k1_shape"]
     k1_bytes = 4 * B1 * 4 + R1 * 4 + R1 * (4 * T1 + 3 * B1 + 1) * 4
-    k1_ops = R1 * B1 * T1 * 3  # three token fields rewritten per op
+    k1_nops = times["k1_ops"]  # live tails moved or clamped, searches
     R2, C2 = times["k2_shape"]
     # per position: depth-field decode (3), four prefix adds, vis clear
     # (2), fill arithmetic (3) — 12 int32 operations
@@ -1358,7 +1497,7 @@ def main() -> int:
     for key, kname, cu, rep, n_launch, e, nbytes, nops, lib in (
         ("k1", "resolve_range", "resolve_range.cu",
          "resolve_range_pallas.py:255", launches["resolve_range"],
-         err["k1"], k1_bytes, k1_ops, None),
+         err["k1"], k1_bytes, k1_nops, None),
         ("k2", "range_apply", "range_apply.cu",
          "apply_range_fused.py:388", launches["range_apply"], err["k2"],
          k2_bytes(R2, C2), k2_ops, None),

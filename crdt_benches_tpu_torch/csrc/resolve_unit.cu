@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_list.cuh"
+
 namespace {
 
 constexpr int kFree = 0;
@@ -62,24 +64,6 @@ constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
-
-// #(cum[i] <= p) over the nondecreasing cum[0..n), warp-uniform result.
-// Each level probes the last token of 32 equal chunks and keeps the chunk
-// holding the first cum > p; the last level probes up to 32 tokens.
-__device__ __forceinline__ int warp_count_le(const int* cum, int n, int p,
-                                             int lane) {
-  int lo = 0, hi = n;  // the count lies in [lo, hi]
-  while (hi - lo > 32) {
-    const int s = (hi - lo + 31) >> 5;
-    const int i = lo + lane * s + s - 1;
-    const bool le = i < hi && cum[i] <= p;
-    lo += __popc(__ballot_sync(kAll, le)) * s;
-    hi = imin(hi, lo + s - 1);
-  }
-  const int i = lo + lane;
-  const bool le = i < hi && cum[i] <= p;
-  return lo + __popc(__ballot_sync(kAll, le));
-}
 
 __global__ void __launch_bounds__(kWarps * 32)
 resolve_unit_kernel(const int* __restrict__ kind, const int* __restrict__ pos,

@@ -15,7 +15,9 @@ cum and splits at most one token; per delete op it reports the covered
 surviving pre-batch chars as one rank interval [dlo, dhi] plus their
 count.  :func:`resolve_range` launches the CUDA kernel
 (``csrc/resolve_range.cu``) on a CUDA tensor; :func:`resolve_range_plain`
-is its plain PyTorch version.
+is its plain PyTorch version.  :func:`range_token_walk` records where
+each op acts on the list (its token, the tail it moves or clamps, the
+tokens in use), the work the kernel does.
 
 :func:`resolve_range_rows` is K1's per-row form, the serving fleet's
 resolve (the JAX package's vmapped scan ``resolve_ranges_rows`` with
@@ -27,6 +29,8 @@ version.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .._build import check, kernels
@@ -37,6 +41,27 @@ I32 = torch.int32
 _BIG = 1 << 30
 #: Shared memory a block may use on Hopper (227 KB).
 _MAX_SMEM = 232448
+#: Most replicas (rows) a block of the kernel resolves, one warp each
+#: (``kMaxWarps`` in ``csrc/resolve_range.cu``).
+RANGE_MAX_WARPS = 4
+
+
+def range_smem_bytes(T: int) -> int:
+    """Shared memory of one K1 block at token list T: one (tta, tch, cum)
+    list of T + 1 ints per field for each warp, as many warps as 227 KB
+    hold, at most :data:`RANGE_MAX_WARPS` and at least one."""
+    per_warp = 3 * (T + 1) * 4
+    return max(1, min(RANGE_MAX_WARPS, _MAX_SMEM // per_warp)) * per_warp
+
+
+def _check_smem(T: int, B: int, name: str) -> None:
+    """Refuse, on every device, a batch the kernel could not hold: a call
+    that runs on the CPU then runs on the card too."""
+    if range_smem_bytes(T) > _MAX_SMEM:
+        raise ValueError(
+            f"{name}: batch {B} (token list {T}) outside the kernel's "
+            "shared-memory range"
+        )
 
 
 def _round_up(x: int, m: int) -> int:
@@ -190,6 +215,80 @@ def resolve_range_plain(kind, pos, rlen, slot0, v0, *,
 resolve_range_plain.calls = 0
 
 
+class RangeWalk(NamedTuple):
+    """Where each op of a batch acted on K1's token list (uncapped), and
+    the final list's cum."""
+    cum: torch.Tensor  # int64[R, T]  inclusive prefix of token lengths
+    total: torch.Tensor  # int64[R]  visible total after the batch
+    t: torch.Tensor  # int64[R, B]  the op's token (-1: it changes nothing)
+    tail: torch.Tensor  # int64[R, B]  tokens after t it moved or clamped
+    nused: torch.Tensor  # int64[R, B + 1]  in use before each op, then after
+
+
+def range_token_walk(kind, pos, rlen, v0) -> RangeWalk:
+    """Walk a batch of range ops over each replica's token list with the
+    resolver's step, keeping cum alone (where an op acts and how many
+    pieces its token becomes depend on positions only): a Python loop over
+    the ops with tensor passes over the (R, T) list, as
+    ``ops/resolve.py resolve_tokens_plain`` does for K5.
+
+    kind/pos/rlen: int32[B] (shared by every replica) or int32[R, B] (a
+    batch per row, as one round of the per-row form); v0: int32[R].  An op
+    that acts moves or clamps the tail [t + 1, nused] (the FREE sentinel
+    included): ``tail = nused - t``."""
+    R = v0.shape[0]
+    if kind.dim() == 1:
+        kind, pos, rlen = (x.expand(R, -1) for x in (kind, pos, rlen))
+    B = kind.shape[1]
+    T = effective_token_list_size(B, None)
+    dev = v0.device
+    i64 = torch.int64
+    kind, pos, rlen = (x.to(i64) for x in (kind, pos, rlen))
+    col = torch.arange(T + 1, device=dev)[None, :]
+    # C[:, i + 1] is token i's cum; column 0 is 0 "before" the first token
+    C = torch.zeros((R, T + 1), dtype=i64, device=dev)
+    C[:, 1:] = v0.to(i64)[:, None]
+    total = v0.to(i64)[:, None]
+    nused = torch.ones((R, 1), dtype=i64, device=dev)
+    op_t = torch.full((R, B), -1, dtype=i64, device=dev)
+    op_nused = torch.empty((R, B + 1), dtype=i64, device=dev)
+    for j in range(B):
+        op_nused[:, j:j + 1] = nused
+        k, p0, L0 = kind[:, j:j + 1], pos[:, j:j + 1], rlen[:, j:j + 1]
+        p = torch.minimum(p0.clamp(min=0), total)
+        D = torch.where(k == DELETE,
+                        torch.minimum(L0.clamp(min=0), total - p), 0)
+        is_ins = (k == INSERT) & (L0 > 0)
+        act = is_ins | (D > 0)
+        L = torch.where(is_ins, L0, 0)
+        pD = p + D
+        t = torch.minimum((C[:, 1:] <= p).sum(1, keepdim=True), nused)
+        pre, c_t = C.gather(1, t), C.gather(1, t + 1)
+        split = (p > pre) & (is_ins | (pD < c_t))
+        m = torch.where(act, torch.where(is_ins, 2, 1) + split, 1)
+        # the tail moved by m - 1 with cum + L (an insert) or clamped (a
+        # delete); token t becomes its m pieces
+        clamped = torch.minimum(C, p) + (C - pD).clamp(min=0)
+        moved = torch.where(D > 0, clamped, C + L)
+        Y = moved.gather(1, (col - (m - 1)).clamp(min=0))
+        Y = torch.where(col <= t, C, Y)
+        pieces = (
+            torch.where(is_ins, torch.where(split, p, pre + L),
+                        torch.where(split, p, clamped.gather(1, t + 1))),
+            torch.where(is_ins, torch.where(split, p + L, c_t + L), c_t - D),
+            c_t + L,
+        )
+        for q, v in enumerate(pieces):
+            Y = torch.where((col == t + 1 + q) & (m > q), v, Y)
+        C = torch.where(act, Y, C)
+        op_t[:, j:j + 1] = torch.where(act, t, -1)
+        total = total + L - D
+        nused = nused + (m - 1)
+    op_nused[:, B:] = nused
+    tail = torch.where(op_t >= 0, op_nused[:, :B] - op_t, 0)
+    return RangeWalk(C[:, 1:], total[:, 0], op_t, tail, op_nused)
+
+
 def resolve_range(kind, pos, rlen, slot0, v0, *,
                   token_cap: int | None = None):
     """Resolve one batch of range ops for R replicas (K1).
@@ -216,18 +315,14 @@ def resolve_range(kind, pos, rlen, slot0, v0, *,
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+    T = effective_token_list_size(B, token_cap)
+    _check_smem(T, B, "resolve_range")
     if v0.device.type == "cpu":
         return resolve_range_plain(
             kind, pos, rlen, slot0, v0, token_cap=token_cap
         )
     if v0.device.type != "cuda":
         raise ValueError(f"resolve_range: unsupported device {v0.device}")
-    T = effective_token_list_size(B, token_cap)
-    if B < 1 or (6 * T + 3 * B) * 4 > _MAX_SMEM:
-        raise ValueError(
-            f"resolve_range: batch {B} (token list {T}) outside the "
-            "kernel's shared-memory range"
-        )
     mk = lambda n: torch.empty((R, n), dtype=I32, device=v0.device)
     ttype, ta, tch, tlen = mk(T), mk(T), mk(T), mk(T)
     dlo, dhi, dn, nused = mk(B), mk(B), mk(B), mk(1)
@@ -414,16 +509,12 @@ def resolve_range_rows(kind, pos, rlen, slot0, v0):
     this launches the kernel (or raises); on a CPU tensor it runs
     :func:`resolve_range_rows_plain`."""
     K, R, B = _check_rows_operands(kind, pos, rlen, slot0, v0)
+    T = effective_token_list_size(B, None)
+    _check_smem(T, B, "resolve_range_rows")
     if v0.device.type == "cpu":
         return resolve_range_rows_plain(kind, pos, rlen, slot0, v0)
     if v0.device.type != "cuda":
         raise ValueError(f"resolve_range_rows: unsupported device {v0.device}")
-    T = effective_token_list_size(B, None)
-    if B < 1 or (6 * T + 3 * B) * 4 > _MAX_SMEM:
-        raise ValueError(
-            f"resolve_range_rows: batch {B} (token list {T}) outside the "
-            "kernel's shared-memory range"
-        )
     mk = lambda n: torch.empty((K, R, n), dtype=I32, device=v0.device)
     ttype, ta, tch, tlen = mk(T), mk(T), mk(T), mk(T)
     dlo, dhi, dn = mk(B), mk(B), mk(B)
