@@ -15,6 +15,10 @@ Phases (one line each; any failure exits non-zero):
    alternating ends, scattered inserts under one spanning delete, a PAD
    tail, automerge-paper batch 3) at 1, 5 and 1024 replicas, timed at
    1024 — all eight outputs equal;
+   Then K4 (the serve macro apply) against ``serve_macro_plain`` on its
+   worst cases (inserts at 0 in every round, one delete spanning the row,
+   rows ending exactly at capacity, one row, C = 1152, and a capacity past
+   the shared-memory reach), resolved by K1's per-row form, each timed;
 4. K2/K3 (fused range apply) against ``range_apply_plain`` on the
    producer's outputs: automerge-paper at 8 replicas (capacity 183,296),
    at 1024 replicas, and at 2 replicas with a capacity of 1,048,576 —
@@ -70,8 +74,10 @@ Phases (one line each; any failure exits non-zero):
     per-row resolve (K1's per-row form) equals its plain version and the
     round-starts recurrence, and every K4 (serve macro apply) launch
     equals ``serve_macro_plain`` — every class, tiers below the bucket
-    rows, all-PAD rows and PAD tails — with both kernels timed, and K1's
-    per-row form on rows of inserts at 0 in every round; then the
+    rows, all-PAD rows and PAD tails — with K1's per-row form timed, K4
+    timed at every (class, tier) the drain launched it at (its launches,
+    bound and cluster geometry beside each), and K1's per-row form on rows
+    of inserts at 0 in every round; then the
     timed drain through ``run_serve_bench``: both kernels once per
     dispatch, no plain version, evictions, restores and promotions, every
     document byte-identical to the oracle, its host phases and device
@@ -183,10 +189,12 @@ def serve_phases(dev, bound) -> list[dict]:
     resolve (K1's per-row form) is held against its plain version and the
     round-starts recurrence, and every K4 launch against
     ``serve_macro_plain`` on the same operands; K1's per-row form is timed
-    at the dispatch with the most rows, K4 at the largest class's widest
-    tier.  ``[serve]``: the drain through ``run_serve_bench`` with every
-    count set to 0 just before and read just after, every document
-    verified against the oracle, and CUDA-event stage spans; a third drain
+    at the dispatch with the most rows, K4 at every (class, tier) the drain
+    launched it at, on that pair's first operands (the ``kernels`` line
+    holds the largest class's widest tier).  ``[serve]``: the drain
+    through ``run_serve_bench`` with every count set to 0 just before and
+    read just after, every document verified against the oracle, and
+    CUDA-event stage spans; a third drain
     under the profiler gives the device's idle share.  ``bound(bytes,
     ops)`` gives (ms, "bytes" or "operations").  Returns the two kernels'
     rows of the ``kernels`` line."""
@@ -231,6 +239,8 @@ def serve_phases(dev, bound) -> list[dict]:
     seen = {"dispatches": 0, "pad_rows": 0, "pad_tails": 0, "below": set(),
             "classes": set()}
     keep: dict[str, tuple] = {}
+    k4_keep: dict[tuple[int, int], tuple] = {}
+    k4_launches: dict[tuple[int, int], int] = {}
     pool, sched = fresh_drain()
 
     def k1_checked(kind, pos, rlen, slot0, v0):
@@ -252,10 +262,11 @@ def serve_phases(dev, bound) -> list[dict]:
     def k4_checked(sub, tokens, dints, *, inputs=None, out=None):
         want = sf.serve_macro_plain(sub, tokens, dints)  # before the update
         Rt, C = sub.doc.shape
-        if C == max(cell["classes"]) and (
-                "k4" not in keep or Rt > keep["k4"][0].doc.shape[0]):
-            keep["k4"] = (PackedState(sub.doc.clone(), sub.length.clone(),
-                                      sub.nvis.clone()), tokens, dints)
+        k4_launches[C, Rt] = k4_launches.get((C, Rt), 0) + 1
+        if (C, Rt) not in k4_keep:  # each (class, tier)'s first operands
+            k4_keep[C, Rt] = (PackedState(sub.doc.clone(),
+                                          sub.length.clone(),
+                                          sub.nvis.clone()), tokens, dints)
         got = sf.serve_macro_fused(sub, tokens, dints, inputs=inputs, out=out)
         e = max_err((got.doc, got.length, got.nvis),
                     (want.doc, want.length, want.nvis))
@@ -320,32 +331,46 @@ def serve_phases(dev, bound) -> list[dict]:
                        slot0.transpose(1, 0, 2), rng.integers(0, 1000, R1r))]
     k1_checked(*wargs)
     k1w_ms = elapsed_ms(lambda: rr.resolve_range_rows(*wargs), 10)
-    st, tokens, dints = keep["k4"]
-    inputs = sf.serve_round_inputs(tokens, dints, st.length, st.nvis)
-    K4, Rt, T = tokens[0].shape
-    B, C = dints[0].shape[2], st.doc.shape[1]
-    k4_ms = elapsed_ms(lambda: sf.serve_macro_fused(st, tokens, dints,
-                                                    inputs=inputs), 20)
+    # K4 at every (class, tier) the drain launched, on its first operands
+    k4_at = {}
+    for (C, Rt), (st, tokens, dints) in sorted(k4_keep.items()):
+        inputs = sf.serve_round_inputs(tokens, dints, st.length, st.nvis)
+        K4, _, T = tokens[0].shape
+        sf.serve_macro_fused(st, tokens, dints, inputs=inputs)  # warm-up:
+        # a first call may wait on the host (allocation), which the events
+        # would count
+        ms = elapsed_ms(lambda: sf.serve_macro_fused(st, tokens, dints,
+                                                     inputs=inputs), 20)
+        k4_at[C, Rt] = (K4, ms, k4_bound(bound, st.length, inputs[5],
+                                         dints[0].shape[2], T, C),
+                        sf.serve_macro_launch_geometry(Rt, C))
+    widest = {C: max(Rt for c, Rt in k4_at if c == C) for C, _ in k4_at}
+    top = max(widest)
+    st, tokens, dints = k4_keep[top, widest[top]]
     k4_plain_ms = elapsed_ms(lambda: sf.serve_macro_plain(st, tokens, dints),
                              3)
-    # doc read and written once (8 B/pos) and the K rounds' operands read
-    # once; about 16 int32 operations per position below the round's new
-    # length (visible prefix, three boundary prefixes, clear, hole count,
-    # source, selects, fill)
-    k4_bound = bound(8 * Rt * C + K4 * Rt * (2 * B + 5 * T + 3) * 4,
-                     16 * int(inputs[5].clamp(max=C).sum()))
+    K4, k4_ms, k4_bnd, _ = k4_at[top, widest[top]]
+    per_launch = sum(n * k4_at[key][1] for key, n in k4_launches.items())
     print(f"[k4] serve/{cell['mix']}/{cell['n_docs']}: all "
           f"{stats.dispatches} K4 launches equal serve_macro_plain (max abs "
           f"error {err['k4']}) over classes {sorted(seen['classes'])}, tiers "
-          f"below the bucket rows {sorted(seen['below'])}; at (K, Rt, C) = "
-          f"{(K4, Rt, C)}: K4 {k4_ms:.4f} ms, plain {k4_plain_ms:.3f} ms, "
-          f"bound {k4_bound[0]:.4f} ms ({k4_bound[1]}); K1 rows at (K, R, B, "
-          f"T) = {(K1r, R1r, B1r, T1r)} ({live} live ops): {k1_ms:.4f} ms, "
-          f"plain {k1_plain_ms:.1f} ms, bound {k1_bound[0]:.4f} ms "
-          f"({k1_bound[1]}); rows of inserts at 0 in every round, equal to "
-          f"the plain version and the round starts: {k1w_ms:.4f} ms",
+          f"below the bucket rows {sorted(seen['below'])}; launches per "
+          f"(class, tier) {dict(sorted(k4_launches.items()))}; sum of "
+          f"launches x K4 ms {per_launch:.4f} ms; at (K, Rt, C) = "
+          f"{(K4, widest[top], top)}: K4 {k4_ms:.4f} ms, plain "
+          f"{k4_plain_ms:.3f} ms, bound {k4_bnd[0]:.4f} ms ({k4_bnd[1]})",
           flush=True)
-    del keep, args, st, tokens, dints, inputs
+    for (C, Rt), (K, ms, b, geo) in k4_at.items():
+        tag = " (widest)" if widest[C] == Rt else ""
+        print(f"[k4 class] C={C} Rt={Rt}{tag}: {k4_launches[C, Rt]} "
+              f"launches, K={K}, K4 {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), geometry (n, slice, smem bytes, "
+              f"resident, active clusters) {geo}", flush=True)
+    print(f"[k1 rows] at (K, R, B, T) = {(K1r, R1r, B1r, T1r)} ({live} live "
+          f"ops): {k1_ms:.4f} ms, plain {k1_plain_ms:.1f} ms, bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}); rows of inserts at 0 in "
+          f"every round, equal to the plain version and the round starts: "
+          f"{k1w_ms:.4f} ms", flush=True)
+    del keep, k4_keep, args, st, tokens, dints
 
     # ---- [serve]: the timed drain through the bench's entry point ----
     counted = (rr.resolve_range, arf.range_apply, rs.resolve_batch,
@@ -432,7 +457,7 @@ def serve_phases(dev, bound) -> list[dict]:
                    k1_plain_ms, k1_bound),
         kernel_row("serve_macro_fused", "serve_macro.cu", "serve_fused.py:685",
                    launches["serve_macro_fused"], err["k4"], k4_ms,
-                   k4_plain_ms, k4_bound),
+                   k4_plain_ms, k4_bnd),
     ]
 
 
@@ -610,6 +635,84 @@ def k1_worst_cases(dev, rt, bound) -> tuple[int, dict[str, tuple]]:
                 out[name] = (ms, bound(4 * B * 4 + R * 4
                                        + R * (4 * T + 3 * B + 1) * 4, ops),
                              int(got[2].max()))
+    return worst, out
+
+
+#: K4's worst cases (``crdt_benches_tpu_torch/bench/k4_cases.py``; each also
+#: in ``tests/test_torch_serve_macro_worst.py``, at CPU sizes there), as
+#: (label, case, K, Rt, B, C): inserts at 0 in
+#: every round (every gather source crosses slice boundaries: a round
+#: inserts more than a slice holds), one delete spanning the whole row,
+#: rows whose final new length is exactly C, one row (a single cluster),
+#: C = 1152 (slices of 640 and 512 columns), and two capacities above the
+#: shared-memory reach (the device-memory instantiation): 262,144 (slices
+#: of 16,384 columns) and 180,352 (slices of 11,392 columns, 89 groups of
+#: 128, so each block's scratch is padded to stay 16-byte aligned).
+K4_WORST = (
+    ("ins_at_0", "ins_at_0", 8, 16, 64, 49152),
+    ("span", "span", 8, 16, 64, 49152),
+    ("full", "full", 8, 16, 64, 49152),
+    ("one_row", "ins_at_0", 8, 1, 64, 49152),
+    ("c1152", "ins_at_0", 8, 4, 64, 1152),
+    ("beyond_reach", "mixed", 4, 2, 64, 262144),
+    ("beyond_reach_89_groups", "mixed", 4, 2, 64, 180352),
+)
+
+
+def k4_bound(bound, length0, newlen, B, T, C):
+    """K4's bound from the starting lengths int32[Rt] and the rounds' new
+    lengths int32[K, Rt]: each row's columns below its starting length read
+    once (the rest of the doc carries no data), every column written once,
+    and the K rounds' operands read once (dlo, dhi; gvis, live, cumlen, ta,
+    tch, tlen; len_k, nvis_k, newlen); about 16 int32 operations per
+    position below each round's new length (visible prefix, three boundary
+    prefixes, clear, hole count, source, selects, fill)."""
+    K, Rt = newlen.shape
+    read = int(length0.clamp(max=C).sum())
+    return bound(4 * read + 4 * Rt * C + K * Rt * (2 * B + 6 * T + 3) * 4,
+                 16 * int(newlen.clamp(max=C).sum()))
+
+
+def k4_worst_cases(dev, bound) -> tuple[int, list[tuple]]:
+    """K4 held against ``serve_macro_plain`` (both on the card) on
+    ``K4_WORST``, resolved by K1's per-row form.  Returns the max abs error
+    (0; any other fails) and per case (label, (K, Rt, C), launch geometry,
+    final new lengths' min and max, K4 ms, bound)."""
+    import torch
+
+    from crdt_benches_tpu_torch.bench.k4_cases import worst_rounds
+    from crdt_benches_tpu_torch.ops import resolve_range as rr
+    from crdt_benches_tpu_torch.ops import serve_fused as sf
+    from crdt_benches_tpu_torch.ops.apply2 import PackedState
+
+    worst = 0
+    out = []
+    for label, name, K, Rt, B, C in K4_WORST:
+        doc, length, nvis, *ops = worst_rounds(name, K, Rt, B, C, C + K)
+        t = [torch.as_tensor(a, dtype=torch.int32, device=dev)
+             for a in (doc, length, nvis, *ops)]
+        st = PackedState(*t[:3])
+        tokens, dints, _ = rr.resolve_range_rows(*t[3:], st.nvis)
+        inputs = sf.serve_round_inputs(tokens, dints, st.length, st.nvis)
+        newlen = inputs[5]
+        if int(newlen.max()) > C or (name == "full"
+                                     and int(newlen[-1].min()) != C):
+            fail(f"K4 worst {label}: new lengths {newlen[-1].tolist()} "
+                 f"against C = {C}")
+        want = sf.serve_macro_plain(st, tokens, dints)
+        got = sf.serve_macro_fused(st, tokens, dints, inputs=inputs)
+        e = max_err((got.doc, got.length, got.nvis),
+                    (want.doc, want.length, want.nvis))
+        if e:
+            fail(f"K4 != plain on the {label} case at (K, Rt, C) = "
+                 f"{(K, Rt, C)}: {e}")
+        worst = max(worst, e)
+        ms = elapsed_ms(lambda: sf.serve_macro_fused(st, tokens, dints,
+                                                     inputs=inputs), 10)
+        T = tokens[0].shape[2]
+        out.append((label, (K, Rt, C), sf.serve_macro_launch_geometry(Rt, C),
+                    (int(newlen[-1].min()), int(newlen[-1].max())), ms,
+                    k4_bound(bound, st.length, newlen, B, T, C)))
     return worst, out
 
 
@@ -813,6 +916,16 @@ def main() -> int:
           "(by; from the token walk) and max nused: " + "; ".join(
               f"{k} {ms:.4f}, {b[0]:.4f} ({b[1]}), {n}"
               for k, (ms, b, n) in k1w.items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    e, k4w = k4_worst_cases(dev, bound)
+    print("[k4 worst] K4 equals serve_macro_plain (max abs error "
+          f"{e}) on every case; (K, Rt, C), geometry (n, slice, smem bytes, "
+          "resident, active clusters), final new lengths, K4 ms, bound ms "
+          "(by): " + "; ".join(
+              f"{lb} {shape}, {geo}, {nl[0]}-{nl[1]}, {ms:.4f}, "
+              f"{b[0]:.4f} ({b[1]})" for lb, shape, geo, nl, ms, b in k4w)
           + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()

@@ -55,9 +55,13 @@ SIGNATURES = {
     "crdt_expand_fill_zero": [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P],
     # doc, combo, cnt_base, new_len, R, C, out, stream
     "crdt_apply_blocked": [_P] * 4 + [_I] * 2 + [_P] + [_P],
-    # doc_in, dlo, dhi, gvis, live, cumlen, atch, tlen, len_k, nvis_k,
-    # newlen, K, R, B, T, C, doc_out, scratch, stream
-    "crdt_serve_macro": [_P] * 11 + [_I] * 5 + [_P] * 2 + [_P],
+    # doc_in, dlo, dhi, gvis, live, cumlen, ta, tch, tlen, len_k, nvis_k,
+    # newlen, K, R, B, T, C, n, S, resident, doc_out, scratch, stream
+    "crdt_serve_macro": [_P] * 12 + [_I] * 8 + [_P] * 2 + [_P],
+    # R, n, S, resident, count (int32 out)
+    "crdt_serve_macro_clusters": [_I] * 4 + [_P],
+    # sms, smem_optin (int32 out)
+    "crdt_serve_macro_device": [_P] * 2,
 }
 
 _lib: ctypes.CDLL | None = None

@@ -9,7 +9,8 @@ count, JAX's :func:`round_starts`), and :func:`serve_round_inputs` derives
 every round's B/T-sized operands and its starting length and visible
 count from the resolve outputs alone.  :func:`serve_macro_fused` then
 applies all K rounds in ONE launch of K4 (``csrc/serve_macro.cu``), each
-document row resident in its block across the rounds.
+document row resident across the rounds in the shared memory of a
+thread-block cluster (:func:`serve_macro_geometry`).
 :func:`serve_macro_plain` is K4's plain version: the per-round apply
 :func:`serve_apply_round_plain` (JAX's ``serve_apply_round_xla``, the
 same contract as ``apply_range_batch``) looped over the rounds.
@@ -20,6 +21,8 @@ expansion is one gather and needs no ``nbits``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -176,9 +179,117 @@ def serve_macro_plain(state: PackedState, tokens, dints) -> PackedState:
 
 serve_macro_plain.calls = 0
 
-#: Scratch rows per document row that K4 keeps in device memory: the
-#: round's visible prefix, the delete-cleared doc and three spreads.
-_SCRATCH_ROWS = 5
+#: The H100's SM count and the shared memory one block may opt in to
+#: (227 KB): :func:`serve_macro_geometry`'s defaults.  A launch reads the
+#: card's own (:func:`serve_macro_launch_geometry`).
+SM_COUNT = 132
+SMEM_LIMIT = 232_448
+#: The most K4 keeps in static shared memory (scan scratch, one query
+#: chunk's deltas, the ranks' bases, the published total).
+STATIC_SMEM = 2048
+#: The narrowest slice a row is cut into to reach more SMs.
+MIN_SLICE = 512
+#: The largest cluster (16 needs the non-portable cluster size; 8 is
+#: portable).
+MAX_CLUSTER = 16
+
+
+def _slice_ints(width: int) -> int:
+    """int32 words of one K4 block's slices of ``width`` columns: two
+    rotating doc slices, three boundary spreads, one visible-bit word per
+    32 columns and one group count per 128, rounded up to 4 words so that
+    each block's part of a device-memory scratch is 16-byte aligned
+    (``slice_ints`` in the source)."""
+    return 5 * width + width // 32 + -(-(width // 128) // 4) * 4
+
+
+def _smem_bytes(n: int, width: int, resident: bool) -> int:
+    """Shared memory of one K4 block: the static part, the slices when
+    resident, and the group counts of all ``n`` ranks."""
+    return STATIC_SMEM + 4 * ((_slice_ints(width) if resident else 0)
+                              + n * (width // 128))
+
+
+def max_slice(smem_limit: int = SMEM_LIMIT) -> int:
+    """The widest slice a block holds in shared memory in a cluster of
+    ``MAX_CLUSTER`` (11,136 columns on the H100)."""
+    return max(w for w in range(128, smem_limit, 128)
+               if _smem_bytes(MAX_CLUSTER, w, True) <= smem_limit)
+
+
+MAX_SLICE = max_slice()
+
+
+def serve_macro_geometry(Rt: int, C: int, max_cluster: int = MAX_CLUSTER,
+                         sm_count: int = SM_COUNT,
+                         smem_limit: int = SMEM_LIMIT):
+    """K4's launch geometry for ``Rt`` rows of capacity ``C`` (a multiple
+    of 128) on a card of ``sm_count`` SMs and ``smem_limit`` bytes of
+    shared memory a block: ``(n, slice, smem_bytes, resident)``.  Each row
+    takes a cluster of ``n`` blocks, block j the columns [j * slice, j *
+    slice + slice) (the last may be shorter; none is empty).  n = 1 up to
+    C = 1024; past it n doubles while Rt * n is below the SM count and the
+    slices stay at least ``MIN_SLICE`` wide, and further until the row
+    fits ``n *`` :func:`max_slice`, never past ``max_cluster``.
+    ``resident``: the slices fit in shared memory (``smem_bytes`` a block,
+    its static part included); otherwise they live in a device-memory
+    scratch, above ``max_cluster * max_slice(smem_limit)`` columns."""
+    reach = max_slice(smem_limit)
+    n = 1
+    if C > 1024:
+        while (n < max_cluster and Rt * n < sm_count
+               and C >= 2 * n * MIN_SLICE):
+            n *= 2
+        while n < max_cluster and C > n * reach:
+            n *= 2
+        n = min(n, max_cluster)
+    width = -(-C // (128 * n)) * 128
+    n = -(-C // width)
+    resident = width <= reach
+    return n, width, _smem_bytes(n, width, resident), resident
+
+
+_launch_geometry: dict[tuple[int, int, int], tuple] = {}
+
+
+def serve_macro_launch_geometry(Rt: int, C: int, device=None):
+    """The geometry K4 launches with on ``device`` (the current CUDA
+    device by default): the first :func:`serve_macro_geometry` for the
+    card's SM count and shared memory, with a cluster of at most 16, 8, 4,
+    2 blocks in turn, of which the card holds all ``Rt`` clusters at once
+    (``cudaOccupancyMaxActiveClusters``), else the first it can schedule
+    at all.  Returns ``(n, slice, smem_bytes, resident,
+    active_clusters)`` (``active_clusters`` None at n = 1); cached per
+    device and shape."""
+    index = None if device is None else torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    key = (index, Rt, C)
+    if key not in _launch_geometry:
+        lib = kernels()
+        with torch.cuda.device(index):
+            sms, optin = ctypes.c_int(0), ctypes.c_int(0)
+            check(lib.crdt_serve_macro_device(ctypes.addressof(sms),
+                                              ctypes.addressof(optin)),
+                  "crdt_serve_macro_device")
+            chosen = None
+            for mc in (16, 8, 4, 2, 1):
+                geo = serve_macro_geometry(Rt, C, mc, sms.value, optin.value)
+                n, width, _, resident = geo
+                if n == 1:
+                    chosen = chosen or (*geo, None)
+                    break
+                count = ctypes.c_int(0)
+                err = lib.crdt_serve_macro_clusters(
+                    Rt, n, width, int(resident), ctypes.addressof(count))
+                if err or not count.value:
+                    continue
+                if count.value >= Rt:
+                    chosen = (*geo, count.value)
+                    break
+                chosen = chosen or (*geo, count.value)
+        _launch_geometry[key] = chosen
+    return _launch_geometry[key]
 
 
 def _check_operands(state: PackedState, tokens, dints, out):
@@ -237,15 +348,20 @@ def serve_macro_fused(state: PackedState, tokens, dints, *, inputs=None,
     if inputs is None:
         inputs = serve_round_inputs(tokens, dints, state.length, state.nvis)
     live, gvis, cumlen, len_k, nvis_k, newlen, length_K, nvis_K = inputs
-    atch = tokens[1] + tokens[2]
     doc_out = torch.empty_like(state.doc) if out is None else out
-    scratch = torch.empty((R, _SCRATCH_ROWS, C), dtype=I32, device=dev)
+    n, width, _, resident, _ = serve_macro_launch_geometry(R, C, dev)
+    scratch = None
+    if not resident:  # rows past the shared-memory reach
+        scratch = torch.empty(R * n * _slice_ints(width), dtype=I32,
+                              device=dev)
     err = kernels().crdt_serve_macro(
         state.doc.data_ptr(), dints[0].data_ptr(), dints[1].data_ptr(),
         gvis.data_ptr(), live.data_ptr(), cumlen.data_ptr(),
-        atch.data_ptr(), tokens[3].data_ptr(), len_k.data_ptr(),
-        nvis_k.data_ptr(), newlen.data_ptr(), K, R, B, T, C,
-        doc_out.data_ptr(), scratch.data_ptr(),
+        tokens[1].data_ptr(), tokens[2].data_ptr(), tokens[3].data_ptr(),
+        len_k.data_ptr(),
+        nvis_k.data_ptr(), newlen.data_ptr(), K, R, B, T, C, n, width,
+        int(resident), doc_out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "crdt_serve_macro")
