@@ -19,15 +19,29 @@ Phases (one line each; any failure exits non-zero):
    worst cases (inserts at 0 in every round, one delete spanning the row,
    rows ending exactly at capacity, one row, C = 1152, and a capacity past
    the shared-memory reach), resolved by K1's per-row form, each timed;
-4. K2/K3 (fused range apply) against ``range_apply_plain`` on the
-   producer's outputs: automerge-paper at 8 replicas (capacity 183,296),
-   at 1024 replicas, and at 2 replicas with a capacity of 1,048,576 —
-   all three outputs equal;
+4. K2 and K3 (the fused range apply, one block per row and each row
+   split across blocks) against ``range_apply_plain`` on the producer's
+   outputs: automerge-paper at 8 replicas (capacity 183,296) and at 1024
+   replicas — all three outputs equal; ``[k3]``: automerge-paper at 2
+   replicas with a capacity of 1,048,576 through the dispatch, which must
+   take K3 at every batch, each held against the plain version, batch 6
+   timed beside its bound; ``[k3 worst]``: K3 on ``bench/k3_cases.py``'s
+   cases at the card's size (a paste wider than a block at column 0, a
+   delete over many blocks, runs across block edges, new lengths on a
+   block edge, inside a tile, at 0 and at C, rows ending at C, 64 full
+   rows, ragged capacities, run depth 2, random operands), each checked
+   before and after ten timed launches; ``[k3 vs k2]``: both kernels on
+   automerge-paper batch 3's operands at R = 1, 2, 8, 64, 256 and 1024
+   (C = 183,296) and at R = 2, C = 1,048,576, timed in turns beside the
+   bound, with the kernel the dispatch takes there;
 5. the main path at full width: ``TorchReplayBackend(1024 replicas,
    batch 1536)`` replays automerge-paper (1 warm-up, 3 timed); every
    replica's length must be the trace's, replicas 0 and 1023 must decode
    byte-identical to its end content, and each replay must launch K1 and
-   K2 once per batch and call no plain version;
+   the apply the dispatch takes at R = 1024 once per batch, the other
+   never, and call no plain version; then ``[range R=1]``, the
+   reference's own configuration (one replica, ``layout="range"``), under
+   the same checks with K1 and K3 once per batch and K2 never;
 6. K5 (unit resolver) against ``resolve_batch_plain``, with
    ``emit_origin`` off and on, on every batch of sveltecomponent at 8
    replicas (the plain versions run on the CPU, in worker processes), and
@@ -118,10 +132,18 @@ def int32_rate(smi_max_sm_mhz: str) -> float:
     return sms * INT32_LANES_PER_SM * float(smi_max_sm_mhz.split()[0]) * 1e6
 
 
-def k2_bytes(R: int, C: int) -> int:
-    """Bytes the fused apply must move: four int32 inputs and new_len read
-    once; doc (int32), cv_intile (int16) and vis_tile written once."""
-    return R * C * (4 * 4 + 4 + 2) + R * (C // 128) * 4 + R * 4
+def range_apply_bound(bound, new_len, C: int):
+    """The fused range apply's bound (K2 and K3 compute one function: one
+    count) from new_len int32[R]: doc, delpk, ind_d and dd read below each
+    row's new length (16 B a column; past it the output is the constant
+    2), doc (int32) and cv_intile (int16) written in every column and
+    vis_tile in every tile, new_len read; 12 int32 operations a column
+    below new_len (depth-field decode 3, four prefix adds, vis clear 2,
+    fill 3).  ``bound(bytes, ops)`` gives (ms, "bytes" or "operations")."""
+    R = new_len.shape[0]
+    live = int(new_len.clamp(min=0, max=C).sum())
+    return bound(16 * live + 6 * R * C + 4 * R * (C // 128) + 4 * R,
+                 12 * live)
 
 
 def fail(msg: str) -> None:
@@ -136,6 +158,25 @@ def elapsed_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, enqueued while the
+    device sleeps (~10 ms), so that a kernel shorter than its wrapper's
+    host time is timed back to back and not at the host's pace."""
+    import torch
+
+    fn()  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -716,6 +757,40 @@ def k4_worst_cases(dev, bound) -> tuple[int, list[tuple]]:
     return worst, out
 
 
+def k3_worst_cases(dev, bound) -> tuple[int, list[tuple]]:
+    """K3 held against ``range_apply_plain`` (both on the card) on
+    ``bench/k3_cases.py``'s ``CHIP_CASES`` (4096-column span), once before
+    and once after ten timed launches (each launch a new epoch on the same
+    chain state).  Returns the max abs error (0; any other fails) and per
+    case (name, R, C, new lengths' min and max, K3 ms, bound)."""
+    import torch
+
+    from crdt_benches_tpu_torch.bench.k3_cases import (
+        CHIP_CASES,
+        DSH,
+        k3_case,
+    )
+    from crdt_benches_tpu_torch.ops import apply_range_fused as arf
+
+    worst = 0
+    out = []
+    for name, R, C in CHIP_CASES:
+        ops = [torch.as_tensor(a, device=dev)
+               for a in k3_case(name, R, C, arf.K3_SPAN, seed=R + C)]
+        want = arf.range_apply_plain(*ops, DSH)
+        e = max_err(arf.range_apply_blocked(*ops, DSH), want)
+        ms = queued_ms(lambda: arf.range_apply_blocked(*ops, DSH), 10)
+        e = max(e, max_err(arf.range_apply_blocked(*ops, DSH), want))
+        if e:
+            fail(f"K3 != plain on the {name} case at (R, C) = {(R, C)}: {e}")
+        worst = max(worst, e)
+        nl = ops[4]
+        out.append((name, R, C, (int(nl.min()), int(nl.max())), ms,
+                    range_apply_bound(bound, nl, C)))
+        del ops, want
+    return worst, out
+
+
 def k5_plain_on_cpu(task):
     """Worker process: K5's plain version on CPU tensors from numpy
     operands (kind, pos, v0, emit_origin); returns its outputs as numpy."""
@@ -745,6 +820,8 @@ def main() -> int:
     from crdt_benches_tpu_torch.backends.torch_backend import (
         TorchReplayBackend,
     )
+    from crdt_benches_tpu_torch.bench.k3_cases import DSH as K3_DSH
+    from crdt_benches_tpu_torch.bench.k3_cases import k3_case
     from crdt_benches_tpu_torch.engine import replay as urep
     from crdt_benches_tpu_torch.engine.replay import ReplayEngine
     from crdt_benches_tpu_torch.ops import apply2
@@ -803,15 +880,23 @@ def main() -> int:
               for n in ("sveltecomponent", "automerge-paper")}
     rts = {n: tensorize_ranges(t, batch=1536, coalesce=True)
            for n, t in traces.items()}
-    err = {"k1": 0, "k2": 0}
+    err = {"k1": 0, "k2": 0, "k3": 0}
     times: dict[str, float] = {}
+    kept: dict[tuple[int, int], tuple] = {}
 
     def walk(tname, R, C, check_k1, check_k2, until=None, time_at=None,
-             tag="", stages=None):
-        """Replay ``tname`` batch by batch through the kernels, holding
-        them against the plain versions where asked, timing both at batch
-        ``time_at`` (under ``tag``) and, when ``stages`` is a dict, summing
-        each stage's device time over all batches into it."""
+             tag="", stages=None, apply=None, kname="k2", also=(),
+             keep_at=None, on_ops=None):
+        """Replay ``tname`` batch by batch through K1 and ``apply`` (K2
+        unless given), holding them against the plain versions where
+        asked — ``apply`` under ``err[kname]``, and each (kernel, key) of
+        ``also`` on the same operands — timing K1, ``apply`` and the plain
+        version at batch ``time_at`` (under
+        ``kname`` + ``tag``), keeping the apply's operands of batch
+        ``keep_at`` in ``kept[(R, C)]``, passing every batch's apply
+        operands to ``on_ops`` and, when ``stages`` is a dict, summing each
+        stage's device time over all batches into it."""
+        apply = apply or arf.range_apply
         rt = rts[tname]
         kb, pb, lb, sb = (torch.as_tensor(a, device=dev)
                           for a in rt.batched())
@@ -847,28 +932,34 @@ def main() -> int:
             if stages is not None:
                 ev[-1][2].record()
             ops = (st.doc, delpk, ind_d, dd, new_len, dsh)
-            out = arf.range_apply(*ops)
+            out = apply(*ops)
             if stages is not None:
                 ev[-1][3].record()
             if check_k2(i):
                 want = arf.range_apply_plain(*ops)
-                e = max_err(out, want)
-                if e:
-                    fail(f"K2 != plain on {tname} batch {i} at R={R}, "
-                         f"C={C}: {e}")
-                err["k2"] = max(err["k2"], e)
+                for fn, key in ((apply, kname), *also):
+                    e = max_err(out if fn is apply else fn(*ops), want)
+                    if e:
+                        fail(f"{fn.__name__} != plain on {tname} batch {i} "
+                             f"at R={R}, C={C}: {e}")
+                    err[key] = max(err[key], e)
+            if i == keep_at:
+                kept[R, C] = ops
+            if on_ops is not None:
+                on_ops(ops)
             if i == time_at:
-                times[f"k2{tag}_ms"] = elapsed_ms(
-                    lambda: arf.range_apply(*ops), 10)
-                times[f"k2{tag}_plain_ms"] = elapsed_ms(
+                times[f"{kname}{tag}_ms"] = queued_ms(lambda: apply(*ops),
+                                                      10)
+                times[f"{kname}{tag}_plain_ms"] = elapsed_ms(
                     lambda: arf.range_apply_plain(*ops), 3)
-                times[f"k2{tag}_shape"] = (R, C)
+                times[f"{kname}{tag}_shape"] = (R, C)
+                times[f"{kname}{tag}_newlen"] = new_len.clone()
             st = PackedState4(doc=out[0], cv_intile=out[1],
                               vis_tile=out[2], length=new_len, nvis=nvis)
         torch.cuda.synchronize()
         for e in ev:
             for k, (a, b) in enumerate(zip(e, e[1:])):
-                key = ("k1", "producer", "k2")[k]
+                key = ("k1", "producer", "apply")[k]
                 stages[key] = stages.get(key, 0.0) + a.elapsed_time(b)
         return st
 
@@ -876,10 +967,11 @@ def main() -> int:
     never = lambda i: False
     cap_am = 183_296
     t0 = time.perf_counter()
-    walk("sveltecomponent", 8, 94_208, every, every)
-    walk("automerge-paper", 8, cap_am, every, every)
+    k3_also = ((arf.range_apply_blocked, "k3"),)
+    walk("sveltecomponent", 8, 94_208, every, every, also=k3_also)
+    walk("automerge-paper", 8, cap_am, every, every, also=k3_also)
     print(f"[k1+k2 R=8] sveltecomponent and automerge-paper, every batch "
-          f"equal ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"equal (K3 too) ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # K1's overflow contract: a token list capped below the batch's demand
     # drops placements past T while nused still counts the true demand
@@ -897,15 +989,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     walk("automerge-paper", 1024, cap_am, lambda i: i == 3,
-         lambda i: i == 3, until=3, time_at=3)
+         lambda i: i == 3, until=3, time_at=3, also=k3_also, keep_at=3)
     print(f"[k1 R=1024] automerge-paper batch 3 equal; kernel "
           f"{times['k1_ms']:.4f} ms, plain {times['k1_plain_ms']:.1f} ms "
           f"at (R, B, T) = {times['k1_shape']}; {times['k1_ops']} int32 "
           "operations (live tails moved or clamped, search steps)",
           flush=True)
-    print(f"[k2 R=1024] automerge-paper batch 3 equal; kernel "
-          f"{times['k2_ms']:.3f} ms, plain {times['k2_plain_ms']:.3f} ms "
-          f"at (R, C) = {times['k2_shape']}  "
+    b2 = range_apply_bound(bound, times["k2_newlen"], cap_am)
+    print(f"[k2 R=1024] automerge-paper batch 3 equal (K3 too); kernel "
+          f"{times['k2_ms']:.4f} ms, plain {times['k2_plain_ms']:.3f} ms, "
+          f"bound {b2[0]:.4f} ms ({b2[1]}) at (R, C) = "
+          f"{times['k2_shape']}  "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
@@ -928,27 +1022,111 @@ def main() -> int:
               f"{b[0]:.4f} ({b[1]})" for lb, shape, geo, nl, ms, b in k4w)
           + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    # ---- K3: the long-document walk through the dispatch ----
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     t0 = time.perf_counter()
+    if not arf.range_apply_takes_blocked(2, 1 << 20, sms):
+        fail("the dispatch does not take K3 at R=2, C=2^20")
+    n2, n3 = arf.range_apply.launches, arf.range_apply_blocked.launches
     st = walk("automerge-paper", 2, 1 << 20, never, every, time_at=6,
-              tag="_long")
+              tag="_long", apply=arf.range_apply_dispatch, kname="k3",
+              keep_at=3)
+    nb_am = rts["automerge-paper"].n_batches
+    if (arf.range_apply.launches != n2
+            or arf.range_apply_blocked.launches - n3 < nb_am):
+        fail("the long-document walk did not go through K3 at every batch")
     if st.nvis.tolist() != [len(traces["automerge-paper"].end_content)] * 2:
         fail(f"long-capacity replay lengths {st.nvis.tolist()}")
-    print(f"[k2 long] automerge-paper at R=2, C={1 << 20}: every batch "
-          f"equal; batch 6 kernel {times['k2_long_ms']:.3f} ms, plain "
-          f"{times['k2_long_plain_ms']:.3f} ms, bytes bound "
-          f"{k2_bytes(2, 1 << 20) / HBM_BYTES_PER_S * 1e3:.4f} ms "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    b3 = range_apply_bound(bound, times["k3_long_newlen"], 1 << 20)
+    print(f"[k3] automerge-paper at R=2, C={1 << 20} through the dispatch: "
+          f"every batch K3, equal to plain; batch 6 (new lengths "
+          f"{times['k3_long_newlen'].tolist()}) kernel "
+          f"{times['k3_long_ms']:.4f} ms, plain "
+          f"{times['k3_long_plain_ms']:.3f} ms, bound {b3[0]:.4f} ms "
+          f"({b3[1]}) ({time.perf_counter() - t0:.1f} s)", flush=True)
     del st
+
+    t0 = time.perf_counter()
+    e, k3w = k3_worst_cases(dev, bound)
+    err["k3"] = max(err["k3"], e)
+    print("[k3 worst] K3 equals range_apply_plain (max abs error "
+          f"{e}) on every case; (R, C), new lengths, K3 ms, bound ms (by): "
+          + "; ".join(f"{n} ({R}, {C}), {nl[0]}-{nl[1]}, {ms:.4f}, "
+                      f"{b[0]:.4f} ({b[1]})" for n, R, C, nl, ms, b in k3w)
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # ---- K3 against K2 on automerge-paper batch 3's operands ----
+    t0 = time.perf_counter()
+    full = kept.pop((1024, cap_am))
+    rows = lambda o, R: tuple(x[:R].contiguous() for x in o[:5]) + (o[5],)
+    shapes = [(f"R={R} C={cap_am}", rows(full, R))
+              for R in (1, 2, 8, 64, 128, 256, 1024)]
+    shapes.append((f"R=4096 C={cap_am} (batch 3's rows four times)",
+                   tuple(x.repeat(4, 1) if x.dim() == 2 else x.repeat(4)
+                         for x in full[:5]) + (full[5],)))
+    shapes.append((f"R=2 C={1 << 20}", kept.pop((2, 1 << 20))))
+    full = tuple(torch.as_tensor(a, device=dev) for a in k3_case(
+        "full", 1024, cap_am, arf.K3_SPAN, seed=1024)) + (K3_DSH,)
+    shapes += [(f"R={R} C={cap_am} full rows (bench/k3_cases.py)",
+                rows(full, R)) for R in (64, 96, 128, 256, 1024)]
+    del full
+    for label, ops in shapes:
+        R, C = ops[0].shape
+        want = arf.range_apply_plain(*ops)
+        for fn, key in ((arf.range_apply, "k2"),
+                        (arf.range_apply_blocked, "k3")):
+            e = max_err(fn(*ops), want)
+            if e:
+                fail(f"{fn.__name__} != plain at {label}: {e}")
+            err[key] = max(err[key], e)
+        k2a = queued_ms(lambda: arf.range_apply(*ops), 10)
+        k3a = queued_ms(lambda: arf.range_apply_blocked(*ops), 10)
+        k3b = queued_ms(lambda: arf.range_apply_blocked(*ops), 10)
+        k2b = queued_ms(lambda: arf.range_apply(*ops), 10)
+        k2ms, k3ms = (k2a + k2b) / 2, (k3a + k3b) / 2
+        b = range_apply_bound(bound, ops[4], C)
+        takes = arf.range_apply_takes_blocked(R, C, sms)
+        print(f"[k3 vs k2] {label}: K2 {k2ms:.4f} ms ({k2a:.4f}, "
+              f"{k2b:.4f}), K3 {k3ms:.4f} ms ({k3a:.4f}, {k3b:.4f}), bound "
+              f"{b[0]:.4f} ms ({b[1]}); faster here: "
+              f"{'K3' if k3ms < k2ms else 'K2'}; the dispatch takes "
+              f"{'K3' if takes else 'K2'}", flush=True)
+    del shapes, ops, want
+    # the whole replay's apply, both kernels on every batch's operands
+    for R in (128, 1024):
+        per: dict[str, list[float]] = {"k2": [], "k3": []}
+
+        def time_both(ops, per=per):
+            k2a = queued_ms(lambda: arf.range_apply(*ops), 10)
+            k3a = queued_ms(lambda: arf.range_apply_blocked(*ops), 10)
+            k3b = queued_ms(lambda: arf.range_apply_blocked(*ops), 10)
+            k2b = queued_ms(lambda: arf.range_apply(*ops), 10)
+            per["k2"].append((k2a + k2b) / 2)
+            per["k3"].append((k3a + k3b) / 2)
+
+        walk("automerge-paper", R, cap_am, never, never, on_ops=time_both)
+        print(f"[k3 vs k2] automerge-paper R={R} C={cap_am}, every batch: "
+              + "; ".join(f"K{k[1]} {sum(v):.4f} ms ("
+                          + ", ".join(f"{x:.4f}" for x in v) + ")"
+                          for k, v in per.items()), flush=True)
+    cross = next((R for R in range(1, 1 << 16)
+                  if not arf.range_apply_takes_blocked(R, cap_am, sms)),
+                 None)
+    print(f"[k3 vs k2] on this card's {sms} SMs the dispatch takes K3 "
+          + (f"below R = {cross}" if cross else "at every R below 65,536")
+          + f" at C = {cap_am} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
 
     stages: dict[str, float] = {}
     t0 = time.perf_counter()
-    walk("automerge-paper", 1024, cap_am, never, never, stages=stages)
+    walk("automerge-paper", 1024, cap_am, never, never, stages=stages,
+         apply=arf.range_apply_dispatch)
     wall = (time.perf_counter() - t0) * 1e3
     print("[stages] automerge-paper R=1024, all batches, span ms (CUDA "
           "events, include device waits on the host): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
           + f"; sum {sum(stages.values()):.2f} of {wall:.2f} ms wall "
-          "(wall includes state init)", flush=True)
+          "(wall includes state init; apply as dispatched)", flush=True)
 
     def main_path(bk, trace, counters, plains, tag, absent=()):
         """Drive ``bk`` on ``trace``: 1 warm-up and 3 timed replays, each
@@ -1010,11 +1188,36 @@ def main() -> int:
     trace = traces["automerge-paper"]
     bk = TorchReplayBackend(n_replicas=1024, batch=1536, device=dev)
     bk.prepare(trace)
+    k_main, k_off = arf.range_apply, arf.range_apply_blocked
+    if arf.range_apply_takes_blocked(1024, bk.engine.capacity, sms):
+        k_main, k_off = k_off, k_main
     launches = main_path(
-        bk, trace, (rr.resolve_range, arf.range_apply),
+        bk, trace, (rr.resolve_range, k_main),
         (rr.resolve_range_plain, arf.range_apply_plain), "main",
+        absent=(k_off,),
     )
     del bk
+
+    # ---- the reference's own configuration: one replica, through K3 ----
+    bk = TorchReplayBackend(n_replicas=1, batch=1536, layout="range",
+                            device=dev)
+    bk.prepare(trace)
+    r1_launches = main_path(
+        bk, trace, (rr.resolve_range, arf.range_apply_blocked),
+        (rr.resolve_range_plain, arf.range_apply_plain), "range R=1",
+        absent=(arf.range_apply,),
+    )
+    del bk
+    stages = {}
+    t0 = time.perf_counter()
+    walk("automerge-paper", 1, cap_am, never, never, stages=stages,
+         apply=arf.range_apply_dispatch)
+    wall = (time.perf_counter() - t0) * 1e3
+    print("[range R=1 stages] automerge-paper R=1, all batches, span ms "
+          "(CUDA events, include device waits on the host): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+          + f"; sum {sum(stages.values()):.2f} of {wall:.2f} ms wall "
+          "(wall includes state init; apply as dispatched: K3)", flush=True)
 
     # ---- the unit-op path: K5, K6, K8, K9 ----
     utts = {n: tensorize(t, batch=256) for n, t in traces.items()}
@@ -1586,9 +1789,9 @@ def main() -> int:
     k1_bytes = 4 * B1 * 4 + R1 * 4 + R1 * (4 * T1 + 3 * B1 + 1) * 4
     k1_nops = times["k1_ops"]  # live tails moved or clamped, searches
     R2, C2 = times["k2_shape"]
-    # per position: depth-field decode (3), four prefix adds, vis clear
-    # (2), fill arithmetic (3) — 12 int32 operations
-    k2_ops = R2 * C2 * 12
+    R3, C3 = times["k3_long_shape"]
+    k2_b = range_apply_bound(bound, times["k2_newlen"], C2)
+    k3_b = range_apply_bound(bound, times["k3_long_newlen"], C3)
     R6, C6 = times["k6_shape"]
     # doc_predel and combo read below new_len; doc (int32), cv_intile
     # (int16) and vis_tile written everywhere; new_len read
@@ -1612,8 +1815,11 @@ def main() -> int:
          "resolve_range_pallas.py:255", launches["resolve_range"],
          err["k1"], k1_bytes, k1_nops, None),
         ("k2", "range_apply", "range_apply.cu",
-         "apply_range_fused.py:388", launches["range_apply"], err["k2"],
-         k2_bytes(R2, C2), k2_ops, None),
+         "apply_range_fused.py:388", launches.get("range_apply", 0),
+         err["k2"], k2_b, None, None),
+        ("k3_long", "range_apply_blocked", "range_apply_blocked.cu",
+         "apply_range_fused.py:591", r1_launches["range_apply_blocked"],
+         err["k3"], k3_b, None, None),
         ("k5", "resolve_batch", "resolve_unit.cu",
          "resolve_pallas.py:282", unit_launches["resolve_batch"],
          uerr["k5"], k5_bytes, times["k5_ops"], None),
@@ -1629,7 +1835,7 @@ def main() -> int:
          "expand_pallas.py:276", down_launches["apply_fused_blocked"],
          derr["k7"], k7_bytes, k7_ops, times["k7_r64_lib_ms"]),
     ):
-        b_ms, b_by = bound(nbytes, nops)
+        b_ms, b_by = nbytes if nops is None else bound(nbytes, nops)
         rows.append({
             "name": kname, "route": "cuda", "source": src + cu,
             "replaces": tpu + rep, "launches": n_launch, "max_abs_err": e,

@@ -6,8 +6,8 @@ mirror it so each counterpart is easy to find.  This package imports
 nothing of ``crdt_benches_tpu`` (host modules it needs are copied).
 
 Slice 1 covers the headline range replay: ``traces`` (loading and range
-tensorization), ``ops`` (resolver kernel K1, fused range apply K2/K3 and
-their plain PyTorch versions), ``engine.replay_range``,
+tensorization), ``ops`` (resolver kernel K1, fused range applies K2 and
+K3 and their plain PyTorch versions), ``engine.replay_range``,
 ``backends.torch_backend`` and ``models.flagship``.  Slice 2 adds the
 unit-op engine (``layout="unit"``): unit tensorization, the unit resolver
 K5 (``ops.resolve``), the applies of ``ops.apply2`` with the fused unit

@@ -31,6 +31,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U64 = ctypes.c_uint64
 #: C entry points and their argument types (pointers and the stream are
 #: c_void_p: a bare Python int would be passed as a 32-bit int).
 SIGNATURES = {
@@ -43,6 +44,10 @@ SIGNATURES = {
     # doc, delpk, ind_d, dd, new_len, R, C, dsh,
     # doc_out, cv_intile, vis_tile, scratch, stream
     "crdt_range_apply": [_P] * 5 + [_I] * 3 + [_P] * 4 + [_P],
+    # doc, delpk, ind_d, dd, new_len, R, C, dsh, doc_out, cv_intile,
+    # vis_tile, scratch, status, vals, ticket, base, epoch, stream
+    "crdt_range_apply_blocked": [_P] * 5 + [_I] * 3 + [_P] * 7 + [_U64] * 2
+    + [_P],
     # kind, pos, v0, R, B, T, emit_origin,
     # del_rank, ins_gvis, ins_seq, ins_alive, origin, del_batch, stream
     "crdt_resolve_unit": [_P] * 3 + [_I] * 4 + [_P] * 6 + [_P],

@@ -1,9 +1,11 @@
-// K2/K3: fused range apply for Hopper (sm_90a).
+// K2: fused range apply for Hopper (sm_90a), one block per replica row.
 //
-// Replaces the TPU kernels crdt_benches_tpu/ops/apply_range_fused.py
-// range_fused (Pallas body _range_fused_kernel) and its long-document twin
-// range_fused_blocked (_range_blocked_kernel).  One kernel serves every
-// capacity: Hopper has no VMEM gate.  Per replica row of C positions
+// Replaces the TPU kernel crdt_benches_tpu/ops/apply_range_fused.py
+// range_fused (Pallas body _range_fused_kernel).  Its long-document twin
+// range_fused_blocked has its own kernel, K3 (range_apply_blocked.cu, the
+// same function with each row split across blocks), which
+// ops/apply_range_fused.py range_apply_dispatch takes wherever the rows
+// alone cannot fill the card.  Per replica row of C positions
 // (C a multiple of 128), from doc/delpk/ind_d/dd int32[R, C] and
 // new_len int32[R]:
 //   depth[d] = prefix of (delpk & (2^dsh - 1)) - (delpk >> dsh)

@@ -1,6 +1,7 @@
 """Range-op replay driver (the JAX package's ``engine/replay_range.py``,
-engine v4): per op batch, the resolver K1 then the fused range apply
-K2/K3, over the maintained-cv packed state, replicated R times.
+engine v4): per op batch, the resolver K1 then the fused range apply (K2
+or K3, as ``range_apply_dispatch`` picks), over the maintained-cv packed
+state, replicated R times.
 
 The batches run in chunks of ``chunk`` batches; each chunk runs at a
 staged capacity that covers its end-of-chunk used length (the document

@@ -15,10 +15,21 @@ with one ``scatter_add_`` each (out-of-range indices dropped):
 - ``ind_d``: +1 at each insert run's first destination, -1 one past it;
 - ``dd``: each run's slot-delta difference at its first destination.
 
-Every capacity-wide pass then runs in ONE kernel, :func:`range_apply`
-(K2/K3, ``csrc/range_apply.cu``): delete clear, hole map, expansion as a
-gather, fill, beyond-length stamp and the next batch's ``cv_intile`` /
-``vis_tile``.  :func:`range_apply_plain` is its plain PyTorch version.
+Every capacity-wide pass then runs in ONE kernel: delete clear, hole map,
+expansion as a gather, fill, beyond-length stamp and the next batch's
+``cv_intile`` / ``vis_tile``.  Two kernels compute that one function
+(:func:`range_apply_plain` is its plain PyTorch version):
+
+- :func:`range_apply` (K2, ``csrc/range_apply.cu``): one block per replica
+  row, walking the row chunk by chunk;
+- :func:`range_apply_blocked` (K3, ``csrc/range_apply_blocked.cu``): each
+  row split across blocks of 4096 columns, the row's prefixes carried by
+  chained scans with decoupled look-back, columns past new_len not read.
+
+:func:`range_apply_dispatch` picks one by
+:func:`range_apply_takes_blocked`, as the JAX ``apply_range_batch4``
+sends long documents to ``range_fused_blocked``: there the limit is the
+TPU's VMEM, here whether the rows alone fill the card.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from .apply2 import (
     tile_cumsum,
 )
 from .apply_range import _prev_value, extract_range_tokens
+from .expand import _sm_count
 
 I32 = torch.int32
 
@@ -100,10 +112,11 @@ def _check_operands(doc, *rows, new_len):
 
 
 def range_apply(doc, delpk, ind_d, dd, new_len, dsh: int):
-    """Fused range apply K2/K3.  On a CUDA tensor it launches the kernel
-    of ``csrc/range_apply.cu`` (or raises); on a CPU tensor it runs
-    :func:`range_apply_plain`.  Same contract as the JAX ``range_fused`` /
-    ``range_fused_blocked``, with ``cv_intile`` as int16."""
+    """Fused range apply K2, one block per replica row.  On a CUDA tensor
+    it launches the kernel of ``csrc/range_apply.cu`` (or raises); on a
+    CPU tensor it runs :func:`range_apply_plain`.  Same contract as the
+    JAX ``range_fused`` / ``range_fused_blocked``, with ``cv_intile`` as
+    int16."""
     _check_operands(doc, ("delpk", delpk), ("ind_d", ind_d), ("dd", dd),
                     new_len=new_len)
     if doc.device.type == "cpu":
@@ -130,6 +143,102 @@ def range_apply(doc, delpk, ind_d, dd, new_len, dsh: int):
 
 
 range_apply.launches = 0
+
+
+#: Columns a K3 block owns (``kSpan`` in ``csrc/range_apply_blocked.cu``).
+K3_SPAN = 4096
+#: K3's published values per block (``kVals``).
+_K3_VALS = 8
+#: K3's chain state per (device index, stream): status words, published
+#: values, the ticket counter, the counter's value before the next launch
+#: and the last epoch.
+_k3_state: dict[tuple[int, int], dict] = {}
+
+
+def _k3_workspace(dev, stream: int, nblocks: int) -> dict:
+    """K3's chain state for ``dev`` and ``stream``, holding at least
+    ``nblocks`` blocks.  Allocated zeroed once (and again when it must
+    grow), never zero-filled between launches: a launch stamps a fresh
+    epoch into every status word it publishes, and its tickets count from
+    the counter's value before it, which this side tracks (every block of
+    a launch takes exactly one ticket).  A CUDA graph would replay one
+    epoch and one base, so the launch cannot be captured as it is."""
+    key = (dev.index, stream)
+    ws = _k3_state.get(key)
+    if ws is None or ws["status"].numel() < nblocks:
+        n = max(nblocks, 2 * ws["status"].numel() if ws else 0)
+        ws = {
+            "status": torch.zeros(n, dtype=torch.int64, device=dev),
+            "vals": torch.empty(n * _K3_VALS, dtype=I32, device=dev),
+            "ticket": torch.zeros(1, dtype=torch.int64, device=dev),
+            "base": 0, "epoch": 0,
+        }
+        _k3_state[key] = ws
+    return ws
+
+
+def range_apply_blocked(doc, delpk, ind_d, dd, new_len, dsh: int):
+    """Fused range apply K3, each row split across blocks.  On a CUDA
+    tensor it launches the kernel of ``csrc/range_apply_blocked.cu`` (or
+    raises); on a CPU tensor it runs :func:`range_apply_plain`.  Same
+    contract as :func:`range_apply` and the JAX ``range_fused_blocked``."""
+    _check_operands(doc, ("delpk", delpk), ("ind_d", ind_d), ("dd", dd),
+                    new_len=new_len)
+    if doc.device.type == "cpu":
+        return range_apply_plain(doc, delpk, ind_d, dd, new_len, dsh)
+    if doc.device.type != "cuda":
+        raise ValueError(f"range_apply_blocked: unsupported device "
+                         f"{doc.device}")
+    R, C = doc.shape
+    dev = doc.device
+    out = torch.empty_like(doc)
+    cv = torch.empty((R, C), dtype=torch.int16, device=dev)
+    vt = torch.empty((R, C // LANE), dtype=I32, device=dev)
+    nblocks = R * -(-C // K3_SPAN)
+    if nblocks:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ws = _k3_workspace(dev, stream, nblocks)
+        ws["epoch"] += 1
+        scratch = torch.empty_like(doc)
+        err = kernels().crdt_range_apply_blocked(
+            doc.data_ptr(), delpk.data_ptr(), ind_d.data_ptr(),
+            dd.data_ptr(), new_len.data_ptr(), R, C, dsh,
+            out.data_ptr(), cv.data_ptr(), vt.data_ptr(), scratch.data_ptr(),
+            ws["status"].data_ptr(), ws["vals"].data_ptr(),
+            ws["ticket"].data_ptr(), ws["base"], ws["epoch"], stream,
+        )
+        check(err, "crdt_range_apply_blocked")
+        ws["base"] = (ws["base"] + nblocks) % (1 << 64)
+        range_apply_blocked.launches += 1
+    return out, cv, vt
+
+
+range_apply_blocked.launches = 0
+
+
+def range_apply_takes_blocked(R: int, C: int, sm_count: int) -> bool:
+    """Whether the range apply takes K3 (rows split across blocks) over K2
+    (one block per row) for R rows of C columns on a card of ``sm_count``
+    SMs: K3 while the rows alone cannot fill the card (R < sm_count),
+    whatever C.  On the H100 (PERF.md, ``chip_smoke.py [k3 vs k2]``) K3
+    wins below that on automerge-paper's batches, and on rows filled to C
+    up to 96 rows; from 128 rows on K2 keeps pace with the card's memory
+    and which one wins depends on the share of columns below new_len,
+    which only the device knows."""
+    return R < sm_count
+
+
+def range_apply_dispatch(doc, delpk, ind_d, dd, new_len, dsh: int):
+    """The fused range apply: on a CUDA tensor K3
+    (:func:`range_apply_blocked`) where :func:`range_apply_takes_blocked`
+    says so, else K2 (:func:`range_apply`); on a CPU tensor either runs
+    the plain version."""
+    dev = doc.device
+    R, C = doc.shape
+    if dev.type == "cuda" and range_apply_takes_blocked(
+            R, C, _sm_count(dev.index)):
+        return range_apply_blocked(doc, delpk, ind_d, dd, new_len, dsh)
+    return range_apply(doc, delpk, ind_d, dd, new_len, dsh)
 
 
 def apply_fused2_plain(doc_predel, combo, new_len, *, emit_cv: bool = True):
@@ -265,11 +374,13 @@ def range_apply_operands(state: PackedState4, tokens, dints):
 
 def apply_range_batch4(state: PackedState4, tokens, dints) -> PackedState4:
     """Apply one resolved range batch to the maintained-cv state: the
-    producer's small work, then the fused kernel :func:`range_apply`."""
+    producer's small work, then the fused kernel that
+    :func:`range_apply_dispatch` picks."""
     delpk, ind_d, dd, new_len, nvis, dsh = range_apply_operands(
         state, tokens, dints
     )
-    doc, cv, vt = range_apply(state.doc, delpk, ind_d, dd, new_len, dsh)
+    doc, cv, vt = range_apply_dispatch(state.doc, delpk, ind_d, dd, new_len,
+                                       dsh)
     return PackedState4(
         doc=doc, cv_intile=cv, vis_tile=vt, length=new_len, nvis=nvis
     )

@@ -282,5 +282,6 @@ def test_every_c_entry_is_defined_in_a_source():
     assert {"crdt_resolve_range", "crdt_range_apply", "crdt_resolve_unit",
             "crdt_unit_apply", "crdt_expand_packed",
             "crdt_expand_fill_zero", "crdt_apply_blocked",
-            "crdt_resolve_range_rows", "crdt_serve_macro"} <= set(
+            "crdt_resolve_range_rows", "crdt_serve_macro",
+            "crdt_range_apply_blocked"} <= set(
                 _build.SIGNATURES)
