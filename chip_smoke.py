@@ -30,10 +30,17 @@ Phases (one line each; any failure exits non-zero):
    delete over many blocks, runs across block edges, new lengths on a
    block edge, inside a tile, at 0 and at C, rows ending at C, 64 full
    rows, ragged capacities, run depth 2, random operands), each checked
-   before and after ten timed launches; ``[k3 vs k2]``: both kernels on
-   automerge-paper batch 3's operands at R = 1, 2, 8, 64, 256 and 1024
-   (C = 183,296) and at R = 2, C = 1,048,576, timed in turns beside the
-   bound, with the kernel the dispatch takes there;
+   before and after ten timed launches; ``[k2 worst]``: K2 called directly
+   on ``bench/k3_cases.py``'s cases built to K2's widths (a paste wider
+   than its x ring, new lengths on a chunk edge, inside a tile, at 0 and at
+   C, full rows, mixed rows, run depth 2, random operands) at R = 132 and
+   at R = 1, 2 and 3, each checked before and after ten timed launches and
+   its count of columns sourced left of the ring held against
+   ``range_apply_ring_misses``; ``[k3 vs k2]``: both kernels on
+   automerge-paper batch 3's operands at R = 1, 2, 8, 64, 80, 84, 88, 96,
+   128, 256, 1024 and 4096 (C = 183,296) and at R = 2, C = 1,048,576, and on
+   full rows at R = 64 to 1024, timed in turns beside the bound, with the
+   kernel the dispatch takes there;
 5. the main path at full width: ``TorchReplayBackend(1024 replicas,
    batch 1536)`` replays automerge-paper (1 warm-up, 3 timed); every
    replica's length must be the trace's, replicas 0 and 1023 must decode
@@ -791,6 +798,48 @@ def k3_worst_cases(dev, bound) -> tuple[int, list[tuple]]:
     return worst, out
 
 
+def k2_worst_cases(dev, bound) -> tuple[int, list[tuple]]:
+    """K2 held against ``range_apply_plain`` (both on the card) on
+    ``bench/k3_cases.py``'s ``K2_CHIP_CASES`` (built to K2's chunk and
+    ring), once before and once after ten timed launches, and its count of
+    columns sourced left of its x ring against ``range_apply_ring_misses``.
+    Returns the max abs error (0; any other fails) and per case (name, R,
+    C, new lengths' min and max, columns left of the ring, K2 ms,
+    bound)."""
+    import torch
+
+    from crdt_benches_tpu_torch.bench.k3_cases import (
+        DSH,
+        K2_CHIP_CASES,
+        k2_case,
+    )
+    from crdt_benches_tpu_torch.ops import apply_range_fused as arf
+
+    worst = 0
+    out = []
+    spills = torch.zeros(1, dtype=torch.int64, device=dev)
+    for name, R, C in K2_CHIP_CASES:
+        ops = [torch.as_tensor(a, device=dev) for a in k2_case(
+            name, R, C, arf.K2_CHUNK, arf.K2_RING, seed=R + C)]
+        want = arf.range_apply_plain(*ops, DSH)
+        spills.zero_()
+        e = max_err(arf.range_apply(*ops, DSH, spills=spills), want)
+        ms = queued_ms(lambda: arf.range_apply(*ops, DSH), 10)
+        e = max(e, max_err(arf.range_apply(*ops, DSH), want))
+        if e:
+            fail(f"K2 != plain on the {name} case at (R, C) = {(R, C)}: {e}")
+        misses = arf.range_apply_ring_misses(ops[2], ops[4])
+        if int(spills) != misses:
+            fail(f"K2 sourced {int(spills)} columns left of its ring on the "
+                 f"{name} case at (R, C) = {(R, C)}, want {misses}")
+        worst = max(worst, e)
+        nl = ops[4]
+        out.append((name, R, C, (int(nl.min()), int(nl.max())), misses, ms,
+                    range_apply_bound(bound, nl, C)))
+        del ops, want
+    return worst, out
+
+
 def k5_plain_on_cpu(task):
     """Worker process: K5's plain version on CPU tensors from numpy
     operands (kind, pos, v0, emit_origin); returns its outputs as numpy."""
@@ -996,11 +1045,24 @@ def main() -> int:
           "operations (live tails moved or clamped, search steps)",
           flush=True)
     b2 = range_apply_bound(bound, times["k2_newlen"], cap_am)
+    ops3 = kept[1024, cap_am]
+    k2_spills = torch.zeros(1, dtype=torch.int64, device=dev)
+    arf.range_apply(*ops3, spills=k2_spills)
+    k2_misses = arf.range_apply_ring_misses(ops3[2], ops3[4])
+    if int(k2_spills) != k2_misses:
+        fail(f"K2 sourced {int(k2_spills)} columns left of its ring at "
+             f"batch 3, want {k2_misses}")
+    k2_info = arf.range_apply_info()
     print(f"[k2 R=1024] automerge-paper batch 3 equal (K3 too); kernel "
           f"{times['k2_ms']:.4f} ms, plain {times['k2_plain_ms']:.3f} ms, "
           f"bound {b2[0]:.4f} ms ({b2[1]}) at (R, C) = "
-          f"{times['k2_shape']}  "
+          f"{times['k2_shape']}; {k2_info['regs']} registers a thread, "
+          f"{k2_info['smem_bytes']} B shared memory a block, "
+          f"{k2_info['blocks_per_sm']} blocks an SM; {k2_misses} of "
+          f"{int(ops3[4].clamp(min=0, max=cap_am).sum())} live columns "
+          f"sourced left of the {arf.K2_RING}-column x ring "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del ops3
 
     t0 = time.perf_counter()
     e, k1w = k1_worst_cases(dev, rts["automerge-paper"], bound)
@@ -1055,12 +1117,24 @@ def main() -> int:
                       f"{b[0]:.4f} ({b[1]})" for n, R, C, nl, ms, b in k3w)
           + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    t0 = time.perf_counter()
+    e, k2w = k2_worst_cases(dev, bound)
+    err["k2"] = max(err["k2"], e)
+    print("[k2 worst] K2 equals range_apply_plain (max abs error "
+          f"{e}) on every case, and its count of columns sourced left of "
+          "its ring equals range_apply_ring_misses; (R, C), new lengths, "
+          "columns left of the ring, K2 ms, bound ms (by): "
+          + "; ".join(f"{n} ({R}, {C}), {nl[0]}-{nl[1]}, {m}, {ms:.4f}, "
+                      f"{b[0]:.4f} ({b[1]})"
+                      for n, R, C, nl, m, ms, b in k2w)
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
     # ---- K3 against K2 on automerge-paper batch 3's operands ----
     t0 = time.perf_counter()
     full = kept.pop((1024, cap_am))
     rows = lambda o, R: tuple(x[:R].contiguous() for x in o[:5]) + (o[5],)
     shapes = [(f"R={R} C={cap_am}", rows(full, R))
-              for R in (1, 2, 8, 64, 128, 256, 1024)]
+              for R in (1, 2, 8, 64, 80, 84, 88, 96, 128, 256, 1024)]
     shapes.append((f"R=4096 C={cap_am} (batch 3's rows four times)",
                    tuple(x.repeat(4, 1) if x.dim() == 2 else x.repeat(4)
                          for x in full[:5]) + (full[5],)))
@@ -1068,7 +1142,8 @@ def main() -> int:
     full = tuple(torch.as_tensor(a, device=dev) for a in k3_case(
         "full", 1024, cap_am, arf.K3_SPAN, seed=1024)) + (K3_DSH,)
     shapes += [(f"R={R} C={cap_am} full rows (bench/k3_cases.py)",
-                rows(full, R)) for R in (64, 96, 128, 256, 1024)]
+                rows(full, R)) for R in (64, 80, 84, 88, 96, 128, 256,
+                                         1024)]
     del full
     for label, ops in shapes:
         R, C = ops[0].shape

@@ -42,8 +42,10 @@ SIGNATURES = {
     # ttype, ta, tch, tlen, dlo, dhi, dcount, starts, stream
     "crdt_resolve_range_rows": [_P] * 5 + [_I] * 4 + [_P] * 8 + [_P],
     # doc, delpk, ind_d, dd, new_len, R, C, dsh,
-    # doc_out, cv_intile, vis_tile, scratch, stream
-    "crdt_range_apply": [_P] * 5 + [_I] * 3 + [_P] * 4 + [_P],
+    # doc_out, cv_intile, vis_tile, xvis, spills, stream
+    "crdt_range_apply": [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P],
+    # regs, smem_bytes, blocks_per_sm (int32 out)
+    "crdt_range_apply_info": [_P] * 3,
     # doc, delpk, ind_d, dd, new_len, R, C, dsh, doc_out, cv_intile,
     # vis_tile, scratch, status, vals, ticket, base, epoch, stream
     "crdt_range_apply_blocked": [_P] * 5 + [_I] * 3 + [_P] * 7 + [_U64] * 2

@@ -1,7 +1,10 @@
 """K3's worst cases (the fused range apply split across blocks,
 ``csrc/range_apply_blocked.cu``): operands made with numpy from a seed,
 shared by the CPU tests (``tests/test_torch_range_blocked.py``) and
-``chip_smoke.py`` (``[k3 worst]``).
+``chip_smoke.py`` (``[k3 worst]``).  The same functions make K2's worst
+cases (``csrc/range_apply.cu``, one block per row; :func:`k2_case`,
+``tests/test_torch_range_k2.py`` and ``[k2 worst]``) with the span set to
+K2's widths.
 
 ``span`` is the block width a case is built around: the kernel's 4096
 columns on the card, the JAX blocked kernel's 1024 (``block_tiles=8``) in
@@ -51,6 +54,35 @@ CHIP_CASES = (
     ("depth2", 2, 1 << 20),
     ("noise", 3, (1 << 20) + 1152),
 )
+
+
+#: K2's cases: the paste is built around K2's x ring (so that it is wider
+#: than the ring and later sources lie left of it), the others
+#: around K2's chunk (``nlen_edges`` puts a new length on a chunk edge).
+K2_CASES = ("paste", "nlen_edges", "full", "mixed", "depth2", "noise")
+
+#: (name, R, C) at the card's size for K2: R >= 132 (the rows alone fill
+#: the H100's 132 SMs, where the dispatch takes K2) and R = 1, 2 and 3, at
+#: the headline capacity (89.5 chunks: a ragged last chunk) and at 2^20 +
+#: 1152 columns.
+K2_CHIP_CASES = (
+    ("paste", 132, 183_296),
+    ("nlen_edges", 132, 183_296),
+    ("full", 132, 183_296),
+    ("mixed", 1, 183_296),
+    ("mixed", 2, (1 << 20) + 1152),
+    ("mixed", 3, 183_296),
+    ("depth2", 132, 183_296),
+    ("depth2", 2, 183_296),
+    ("noise", 132, 183_296),
+    ("noise", 3, 183_296),
+)
+
+
+def k2_case(name, R, C, chunk, ring, seed):
+    """One of ``K2_CASES`` for a K2 of ``chunk`` columns a chunk and an x
+    ring of ``ring`` columns: :func:`k3_case` with the span each needs."""
+    return k3_case(name, R, C, ring if name == "paste" else chunk, seed)
 
 
 def _old_doc(rng, L0, C):

@@ -21,7 +21,10 @@ expansion as a gather, fill, beyond-length stamp and the next batch's
 (:func:`range_apply_plain` is its plain PyTorch version):
 
 - :func:`range_apply` (K2, ``csrc/range_apply.cu``): one block per replica
-  row, walking the row chunk by chunk;
+  row, walking the row's live columns chunk by chunk, its operands staged
+  ahead by TMA, the gather from a shared-memory ring of x, and a source
+  older than the ring read as doc with x's vis bit
+  (:func:`range_apply_ring_misses` counts those);
 - :func:`range_apply_blocked` (K3, ``csrc/range_apply_blocked.cu``): each
   row split across blocks of 4096 columns, the row's prefixes carried by
   chained scans with decoupled look-back, columns past new_len not read.
@@ -29,10 +32,12 @@ expansion as a gather, fill, beyond-length stamp and the next batch's
 :func:`range_apply_dispatch` picks one by
 :func:`range_apply_takes_blocked`, as the JAX ``apply_range_batch4``
 sends long documents to ``range_fused_blocked``: there the limit is the
-TPU's VMEM, here whether the rows alone fill the card.
+TPU's VMEM, here whether the rows are many enough for one block a row.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -111,30 +116,66 @@ def _check_operands(doc, *rows, new_len):
             raise ValueError(f"{name} is not contiguous")
 
 
-def range_apply(doc, delpk, ind_d, dd, new_len, dsh: int):
+#: Columns a K2 chunk covers (``kChunk`` in ``csrc/range_apply.cu``).
+K2_CHUNK = 2048
+#: Columns of x K2's shared-memory ring holds (``kRing``): the chunk being
+#: gathered and the three before it.
+K2_RING = 8192
+
+
+def range_apply_ring_misses(ind_d, new_len) -> int:
+    """How many columns K2 sources from left of its x ring (doc read again,
+    with x's vis bit from its bit row): those below their row's new_len,
+    outside a run, whose source max(d - cnt[d], 0) lies left of the ring
+    (the K2_RING columns ending with d's chunk)."""
+    C = ind_d.shape[1]
+    col = torch.arange(C, device=ind_d.device)
+    run = torch.cumsum(ind_d, dim=1, dtype=I32) > 0
+    cnt = torch.cumsum(run.to(I32), dim=1, dtype=I32)
+    src = (col - cnt).clamp(min=0)
+    ring_lo = col // K2_CHUNK * K2_CHUNK + K2_CHUNK - K2_RING
+    miss = (col < new_len[:, None]) & ~run & (src < ring_lo)
+    return int(miss.sum())
+
+
+def range_apply(doc, delpk, ind_d, dd, new_len, dsh: int, *, spills=None):
     """Fused range apply K2, one block per replica row.  On a CUDA tensor
     it launches the kernel of ``csrc/range_apply.cu`` (or raises); on a
     CPU tensor it runs :func:`range_apply_plain`.  Same contract as the
     JAX ``range_fused`` / ``range_fused_blocked``, with ``cv_intile`` as
-    int16."""
+    int16.  ``spills``, an int64[1] on doc's device, gets the count of
+    :func:`range_apply_ring_misses` added (by the kernel on the card)."""
     _check_operands(doc, ("delpk", delpk), ("ind_d", ind_d), ("dd", dd),
                     new_len=new_len)
+    if spills is not None and (spills.device != doc.device
+                               or spills.dtype != torch.int64
+                               or tuple(spills.shape) != (1,)):
+        raise ValueError(f"spills: want int64[1] on {doc.device}, got "
+                         f"{spills.dtype}{list(spills.shape)} on "
+                         f"{spills.device}")
     if doc.device.type == "cpu":
+        if spills is not None:
+            spills += range_apply_ring_misses(ind_d, new_len)
         return range_apply_plain(doc, delpk, ind_d, dd, new_len, dsh)
     if doc.device.type != "cuda":
         raise ValueError(f"range_apply: unsupported device {doc.device}")
+    for name, t in (("doc", doc), ("delpk", delpk), ("ind_d", ind_d),
+                    ("dd", dd)):
+        if t.data_ptr() % 16:  # the kernel's TMA copies
+            raise ValueError(f"{name} is not 16-byte aligned")
     R, C = doc.shape
     out = torch.empty_like(doc)
     cv = torch.empty((R, C), dtype=torch.int16, device=doc.device)
     vt = torch.empty((R, C // LANE), dtype=I32, device=doc.device)
-    scratch = torch.empty_like(doc)
+    xvis = torch.empty((R, C // 32), dtype=I32, device=doc.device)
     if R:
         lib = kernels()
         err = lib.crdt_range_apply(
             doc.data_ptr(), delpk.data_ptr(), ind_d.data_ptr(),
             dd.data_ptr(), new_len.data_ptr(), R, C, dsh,
             out.data_ptr(), cv.data_ptr(), vt.data_ptr(),
-            scratch.data_ptr(),
+            xvis.data_ptr(),
+            None if spills is None else spills.data_ptr(),
             torch.cuda.current_stream(doc.device).cuda_stream,
         )
         check(err, "crdt_range_apply")
@@ -143,6 +184,17 @@ def range_apply(doc, delpk, ind_d, dd, new_len, dsh: int):
 
 
 range_apply.launches = 0
+
+
+def range_apply_info() -> dict[str, int]:
+    """K2 on the current CUDA device: registers a thread, shared memory a
+    block (bytes, dynamic and static) and resident blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    check(kernels().crdt_range_apply_info(*map(ctypes.byref, vals)),
+          "crdt_range_apply_info")
+    return dict(zip(("regs", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 #: Columns a K3 block owns (``kSpan`` in ``csrc/range_apply_blocked.cu``).
@@ -219,13 +271,16 @@ range_apply_blocked.launches = 0
 def range_apply_takes_blocked(R: int, C: int, sm_count: int) -> bool:
     """Whether the range apply takes K3 (rows split across blocks) over K2
     (one block per row) for R rows of C columns on a card of ``sm_count``
-    SMs: K3 while the rows alone cannot fill the card (R < sm_count),
-    whatever C.  On the H100 (PERF.md, ``chip_smoke.py [k3 vs k2]``) K3
-    wins below that on automerge-paper's batches, and on rows filled to C
-    up to 96 rows; from 128 rows on K2 keeps pace with the card's memory
-    and which one wins depends on the share of columns below new_len,
-    which only the device knows."""
-    return R < sm_count
+    SMs: K3 below 7/10 of the SM count of rows, whatever C.  Both kernels
+    read only the columns below new_len, so both scale with them.  Up to
+    the SM count K2 gives each row a block on an SM of its own, and its
+    time barely grows with R, while K3 spreads the rows over the whole card
+    and its time grows with R.  On the H100's 132 SMs (PERF.md §5,
+    ``chip_smoke.py [k3 vs k2]``) K3 wins up to 88 rows and K2 from 96
+    on, on automerge-paper's batch 3 and on rows filled to C alike; near
+    the crossing the two are within a few percent, and the crossing moved
+    by a few rows from call to call."""
+    return 10 * R < 7 * sm_count
 
 
 def range_apply_dispatch(doc, delpk, ind_d, dd, new_len, dsh: int):

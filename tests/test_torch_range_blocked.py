@@ -94,21 +94,24 @@ def test_cases_reach_what_they_name():
 
 @pytest.mark.parametrize("R,C,blocked", [
     (1, 183_296, True), (2, 183_296, True), (8, 183_296, True),
-    (64, 183_296, True), (96, 183_296, True), (128, 183_296, True),
+    (64, 183_296, True), (80, 183_296, True), (84, 183_296, True),
+    (88, 183_296, True), (96, 183_296, False), (128, 183_296, False),
     (256, 183_296, False), (1024, 183_296, False), (4096, 183_296, False),
     (2, 1 << 20, True),
 ])
 def test_takes_blocked_at_the_h100_shapes(R, C, blocked):
     """The dispatch rule at the shapes ``chip_smoke.py`` compares K3 and K2
-    on (``[k3 vs k2]``), for the H100's 132 SMs."""
+    on (``[k3 vs k2]``), for the H100's 132 SMs: K3 wins up to 88 rows,
+    K2 from 96 on (on automerge-paper's batch 3 and on full rows)."""
     assert arf.range_apply_takes_blocked(R, C, H100_SMS) is blocked
 
 
 def test_takes_blocked_follows_the_sm_count():
     for sms in (66, 132, 264):
+        last = (7 * sms - 1) // 10  # the most rows K3 takes: R < 0.7 sms
         for C in (128, 183_296, 1 << 20):
-            assert arf.range_apply_takes_blocked(sms - 1, C, sms)
-            assert not arf.range_apply_takes_blocked(sms, C, sms)
+            assert arf.range_apply_takes_blocked(last, C, sms)
+            assert not arf.range_apply_takes_blocked(last + 1, C, sms)
 
 
 def test_range_apply_blocked_checks_inputs():
