@@ -7,8 +7,8 @@ Phases (one line each; any failure exits non-zero):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile ``crdt_benches_tpu_torch/csrc/*.cu`` (nvcc, sm_90a);
-3. K1 (range resolver) against ``resolve_range_plain``: every batch of
-   sveltecomponent and automerge-paper at 8 replicas, one sveltecomponent
+3. K1 (range resolver) against ``resolve_range_plain``: every other batch
+   of sveltecomponent and automerge-paper at 8 replicas, one sveltecomponent
    batch with the token list capped below its demand, one
    automerge-paper batch at 1024 replicas, and the worst cases (inserts
    at 0, deletes at 0 past the end of a short document, inserts at
@@ -50,21 +50,22 @@ Phases (one line each; any failure exits non-zero):
    reference's own configuration (one replica, ``layout="range"``), under
    the same checks with K1 and K3 once per batch and K2 never;
 6. K5 (unit resolver) against ``resolve_batch_plain``, with
-   ``emit_origin`` off and on, on every batch of sveltecomponent at 8
-   replicas (the plain versions run on the CPU, in worker processes), and
+   ``emit_origin`` off and on, on every fourth batch of sveltecomponent at
+   8 replicas (the plain versions run on the CPU, in worker processes), and
    on the worst-case batches (inserts at 0, deletes at 0, inserts at
    alternating ends, a late automerge-paper batch) at 1, 5 and 1024
    replicas — all six outputs equal;
 7. K6 (fused unit apply) against ``apply_fused2_plain``, with ``emit_cv``
    on and off, on the v4 producer's operands for every batch of
-   automerge-paper at 8 replicas (staged capacities up to 182,400) and at
-   2 replicas with a capacity of 1,310,720;
+   automerge-paper at 8 replicas (staged capacities up to 182,400) and
+   every other batch at 2 replicas with a capacity of 1,310,720;
 8. the v3 and v2 unit replays of automerge-paper at 64 replicas, batch
    256: every length the trace's, replicas 0 and 63 byte-identical, K5
    and K8 (or K9) launched once per batch, no plain version called; then
    K8 and K9 (expansions) against their plain versions on the v3 and v2
    producers' operands for every batch at 64 replicas (capacity 182,400)
-   and at 2 replicas with a capacity of 1,310,720, timed at batch 1013;
+   and every other batch at 2 replicas with a capacity of 1,310,720, timed
+   at batch 1013;
 9. the unit path at full width: ``TorchReplayBackend(1024 replicas,
    batch 256, layout="unit")`` (v4) replays automerge-paper (1 warm-up,
    3 timed) under the same checks, launching K5 and K6 once per batch;
@@ -85,9 +86,9 @@ Phases (one line each; any failure exits non-zero):
     whole ``replay_once``; K7, K6 without cv, K7's plain version and
     ``torch.gather`` are timed at batch 1013;
 12. ``flagship.downstream`` at its defaults (1024 replicas, batch 1536),
-    one replay: byte-identical at replicas 0 and 1023, K6 with ``emit_cv``
-    off once per batch and no K7; its stages, idle share over one whole
-    ``run`` and the same four timings at a late batch;
+    one replay: byte-identical at replicas 0 and 1023, K7 once per batch
+    and no K6; its stages, idle share over one whole ``run`` and the same
+    four timings at a late batch (K7 against K6 without cv);
 13. the v3 (K8 once per batch) and v1 downstream engines at 64 replicas,
     byte-identical at replicas 0 and 63;
 14. the serving fleet on serve/mixed/4096 (4096 documents, five capacity
@@ -102,7 +103,25 @@ Phases (one line each; any failure exits non-zero):
     timed drain through ``run_serve_bench``: both kernels once per
     dispatch, no plain version, evictions, restores and promotions, every
     document byte-identical to the oracle, its host phases and device
-    spans; and the device's idle share over a third, profiled drain.
+    spans; and the device's idle share over a third, profiled drain;
+15. the concurrent merges (``bench/merge.py``, ``--group merge``):
+    merge/traces (rustcode and seph-blog1, 1,348,053 delivered ops)
+    through the unit, run and flat engines at 64 replicas and through the
+    run and flat engines at 1024, merge/adversarial (9,999,872 delivered
+    ops, each unique op ~16 times, shuffled) through the unit and flat
+    engines at 64: the generation counted (K5 once a batch of every
+    agent's stream, held against its plain version on one batch), then per
+    cell a counted run (K7 once a batch on the unit and run merges),
+    every replica's digest equal, replicas 0 and R-1 byte-identical to the
+    native treap's merge, a timed run with CUDA-event spans, the device's
+    idle share over a profiled run, and the engines' documents identical;
+    K7 held against its plain version on one unit-merge batch at 64
+    replicas;
+16. the range and run downstream columns on automerge-paper at 64
+    replicas (``range``, ``runs`` flat and batched, ``patch``,
+    ``unitwire``): counted, timed (1 warm-up, 3 timed), replicas 0 and 63
+    byte-identical; K7 held against its plain version on one ``range``
+    batch.
 
 The line before the last holds the kernels' numbers as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -112,6 +131,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import multiprocessing
 import os
@@ -468,8 +488,7 @@ def serve_phases(dev, bound) -> list[dict]:
     t0 = time.perf_counter()
     pool, sched = fresh_drain()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         pstats = sched.run()
     pool.close()
     busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
@@ -858,6 +877,487 @@ def k5_plain_on_cpu(task):
     return [t.numpy() for t in out]
 
 
+class Spans:
+    """CUDA-event spans around module-level functions: while active, each
+    ``(module, name, key)`` target is wrapped so that every call records an
+    event before and after it; :meth:`ms` sums each key's device time
+    (device waits on the host included).  ``keep`` = {key: call index}
+    clones the arguments of that call of that key into ``kept[key]``."""
+
+    def __init__(self, targets, keep=None):
+        self.targets = targets
+        self.keep = keep or {}
+        self.ev: dict[str, list] = {}
+        self.kept: dict[str, tuple] = {}
+
+    def __enter__(self):
+        import torch
+
+        self.saved = []
+        for mod, name, key in self.targets:
+            fn = getattr(mod, name)
+
+            def wrap(*a, _fn=fn, _key=key, **k):
+                calls = self.ev.setdefault(_key, [])
+                if self.keep.get(_key) == len(calls):
+                    self.kept[_key] = tuple(
+                        x.clone() if isinstance(x, torch.Tensor) else x
+                        for x in a)
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = _fn(*a, **k)
+                e.record()
+                calls.append((s, e))
+                return out
+
+            setattr(mod, name, wrap)
+            self.saved.append((mod, name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def ms(self) -> dict[str, float]:
+        import torch
+
+        torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v)
+                for k, v in self.ev.items()}
+
+
+class Hooks:
+    """While active, calls ``at[i]()`` just before the i-th call of
+    ``module.name`` (0-based)."""
+
+    def __init__(self, module, name, at):
+        self.module, self.name, self.at = module, name, at
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.module, self.name)
+        calls = [0]
+
+        def wrap(*a, **k):
+            hook = self.at.get(calls[0])
+            calls[0] += 1
+            if hook is not None:
+                hook()
+            return fn(*a, **k)
+
+        setattr(self.module, self.name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+class _WindowEnd(Exception):
+    """Ends a profiled run at the end of its window."""
+
+
+def window_busy_ms(run, module, name, lo, hi) -> float:
+    """Device time (ms) of the kernels and copies issued between the
+    ``lo``-th and the ``hi``-th call of ``module.name`` in a call of
+    ``run()``, which stops there: the profiler records that window only,
+    each edge after a device synchronize."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def start():
+        torch.cuda.synchronize()
+        prof.start()
+
+    def stop():
+        torch.cuda.synchronize()
+        prof.stop()
+        raise _WindowEnd
+
+    with Hooks(module, name, {lo: start, hi: stop}):
+        try:
+            run()
+        except _WindowEnd:
+            pass
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+
+
+def device_busy_ms(window) -> float:
+    """Device time (ms) of the kernels and copies of one call of
+    ``window()`` under ``torch.profiler``, device activity only: the host
+    ops' events are not needed, and a whole v5 replay or unit merge issues
+    millions of them.  The raw kineto events are summed (``prof.events()``
+    builds a Python tree of every event)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        window()
+        torch.cuda.synchronize()
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+
+
+def k7_row(tag, ops, launches, err, bound) -> dict:
+    """K7's row of the ``kernels`` line on one batch's operands ``ops``
+    (doc_predel, combo, cnt_base, new_len) of a new path: K7 (20 launches),
+    its plain version (3) and ``torch.gather`` on the precomputed source
+    index, timed with CUDA events; the bound reads doc_predel and combo
+    below new_len, writes the output everywhere, reads cnt_base and
+    new_len; 6 int32 operations a position."""
+    import torch
+
+    from crdt_benches_tpu_torch.ops import expand as ex
+
+    doc_predel, combo, cnt_base, new_len = ops
+    R, C = doc_predel.shape
+    cnt = (torch.cumsum((combo & 1).view(R, C // 128, 128), dim=2,
+                        dtype=torch.int32) + cnt_base[:, :, None]).view(R, C)
+    src = (torch.arange(C, device=combo.device) - cnt).clamp(0, C - 1).long()
+    live = int(new_len.clamp(max=C).sum())
+    b = bound(live * 8 + R * C * 4 + R * (C // 128) * 4 + R * 4, R * C * 6)
+    row = kernel_row(
+        f"apply_fused_blocked ({tag}, (R, C) = ({R}, {C}))",
+        "apply_blocked.cu", "expand_pallas.py:276", launches, err,
+        elapsed_ms(lambda: ex.apply_fused_blocked(*ops), 20),
+        elapsed_ms(lambda: ex.apply_fused_blocked_plain(*ops), 3), b,
+        elapsed_ms(lambda: torch.gather(doc_predel, 1, src), 20))
+    return row
+
+
+#: The merge cells (config, engine, replicas) in the order they run: the
+#: README's concurrent-merge table at 64 replicas, and BASELINE.json's
+#: 1024-replica merge width through the run and flat engines.
+MERGE_PATHS = {
+    "traces": (("unit", 64), ("range", 64), ("flat", 64), ("range", 1024),
+               ("flat", 1024)),
+    "adversarial": (("unit", 64), ("flat", 64)),
+}
+
+
+def merge_phases(dev, bound) -> list[dict]:
+    """The concurrent merges (``bench/merge.py``): for each config of
+    ``MERGE_PATHS``, the untimed generation (every agent's stream replayed
+    through K5, counted; K5 held against its plain version on one late
+    batch and timed there), then for each (engine, replicas): a run with
+    every count set to 0 just before and read just after (K7 once a batch
+    on the unit and run merges, none on the flat one, no plain version),
+    every replica's digest equal (``MergeCell.run``) and replica
+    0 byte-identical to the native treap's merge, timed, with CUDA-event
+    spans (arrangement, chain or fragments, query, producer, K7, snapshot,
+    delete fold, digest; after a warm-up run except on the unit merge,
+    which runs for many seconds); the device's idle share from a run under
+    the profiler (on the unit merges over the middle 256 batches, whose
+    wall time the timed run takes between two synchronizes: a whole
+    profiled unit merge takes minutes).  The engines' documents must be identical to each
+    other.  K7 is held against its plain version on one unit-merge batch's
+    operands at 64 replicas.  Returns the rows of the ``kernels`` line (K7
+    on the merge, K5 in the generation)."""
+    import torch
+
+    from crdt_benches_tpu_torch.bench import merge as bm
+    from crdt_benches_tpu_torch.engine import downstream as dsm
+    from crdt_benches_tpu_torch.engine import downstream_flat as dfl
+    from crdt_benches_tpu_torch.engine import downstream_range as drg
+    from crdt_benches_tpu_torch.engine import merge as mg
+    from crdt_benches_tpu_torch.engine import merge_range as mrg
+    from crdt_benches_tpu_torch.engine import replay as urep
+    from crdt_benches_tpu_torch.ops import apply_range_fused as arf
+    from crdt_benches_tpu_torch.ops import expand as ex
+    from crdt_benches_tpu_torch.ops import resolve as rs
+
+    kernels = (rs.resolve_batch, ex.apply_fused_blocked, arf.apply_fused2)
+    plains = (rs.resolve_batch_plain, ex.apply_fused_blocked_plain,
+              arf.apply_fused2_plain)
+
+    def zero():
+        for f in kernels:
+            f.launches = 0
+        for f in plains:
+            f.calls = 0
+
+    def counts():
+        return ({f.__name__: f.launches for f in kernels},
+                sum(f.calls for f in plains))
+
+    spans_of = {
+        "unit": [(mg, "_rank_sorted_segments", "arrangement"),
+                 (mg, "_sort_dedup", "arrangement"),
+                 (mg, "_chain_structure", "chain"),
+                 (dsm, "resolve_targets5", "query"),
+                 (dsm, "batch5_operands", "producer"),
+                 (dsm, "apply_fused_blocked", "K7"),
+                 (mg, "snap_rebuild", "snapshot"),
+                 (bm, "doc_digest_packed", "digest")],
+        "range": [(mrg, "_arrange_runs", "arrangement"),
+                  (mrg, "_run_batch_fragments", "fragments"),
+                  (mrg, "_apply_range_update_batch5", "batch apply"),
+                  (drg, "query", "query"),
+                  (drg, "apply_fused_blocked", "K7"),
+                  (mrg, "snap_rebuild", "snapshot"),
+                  (mrg, "delete_fold", "delete fold"),
+                  (bm, "doc_digest_packed", "digest")],
+        "flat": [(dfl, "flatten_unit_log", "flat merge"),
+                 (dfl, "flatten_runs", "flatten"),
+                 (dfl, "_link_and_rank", "link and rank"),
+                 (mrg, "delete_fold", "delete fold"),
+                 (bm, "doc_digest_packed", "digest")],
+    }
+    rows = []
+    k7_err = k5_err = 0
+    for config, paths in MERGE_PATHS.items():
+        merge_ops = 10_000_000 if config == "adversarial" else 1_000_000
+        t0 = time.perf_counter()
+        zero()
+        gen = Spans([(urep, "resolve_batch", "K5")], keep={"K5": 40})
+        with gen:
+            sim = bm.merge_sim(config, merge_ops, batch=256, device=dev)
+        la, pc = counts()
+        want_k5 = sum(max(1, -(-len(lg) // 256)) for lg in sim.agent_logs)
+        if la["resolve_batch"] != want_k5 or pc or la["apply_fused2"]:
+            fail(f"merge/{config} generation: launches {la} for {want_k5} "
+                 f"batches, plain calls {pc}")
+        gen_s = time.perf_counter() - t0
+        if config == "traces":
+            args = gen.kept["K5"][:3]
+            e = max_err(tuple(rs.resolve_batch(*args, emit_origin=True)),
+                        tuple(rs.resolve_batch_plain(*args,
+                                                     emit_origin=True)))
+            if e:
+                fail(f"K5 != plain on merge/traces generation batch 40: {e}")
+            k5_err = max(k5_err, e)
+            out = rs.resolve_batch(*args, emit_origin=True)
+            nbytes = (sum(a.numel() * a.element_size() for a in args)
+                      + sum(t.numel() * t.element_size() for t in out))
+            rows.append(kernel_row(
+                "resolve_batch (merge/traces generation, emit_origin on, "
+                f"(R, B) = (1, {args[0].shape[0]}))", "resolve_unit.cu",
+                "resolve_pallas.py:282", la["resolve_batch"], k5_err,
+                elapsed_ms(lambda: rs.resolve_batch(*args, emit_origin=True),
+                           10),
+                elapsed_ms(lambda: rs.resolve_batch_plain(
+                    *args, emit_origin=True), 1),
+                bound(nbytes, k5_ops(*args))))
+        print(f"[merge gen] merge/{config}: {sim.n_agents} agents, "
+              f"{len(sim.log)} unique ops, capacity {sim.capacity}, "
+              f"generated untimed in {gen_s:.1f} s (K5 "
+              f"{la['resolve_batch']} launches, plain calls 0)", flush=True)
+        docs = {}
+        want = None
+        for engine, R in paths:
+            t0 = time.perf_counter()
+            cell = bm.MergeCell(sim, config, engine, n_replicas=R,
+                                merge_ops=merge_ops)
+            if engine == "unit":
+                padded = len(sim._padded(cell.delivered,
+                                         sim.batch * cell.epoch))
+                quantum = sim.batch * cell.epoch
+                keep = min(padded, -(-len(sim.log) // quantum) * quantum)
+                want_k7 = keep // sim.batch
+            elif engine == "range":
+                want_k7 = len(cell.runs.lamport) // cell.runs.batch
+            else:
+                want_k7 = 0
+            set_s = time.perf_counter() - t0
+            if engine != "unit":
+                cell.run()  # warm-up (a unit merge runs for many seconds)
+            sp = Spans(spans_of[engine],
+                       keep={"K7": want_k7 - 2} if (
+                           engine == "unit" and config == "traces") else None)
+            # the unit merge's idle-share window: the middle 256 batches,
+            # timed here between two synchronizes
+            lo = max(0, want_k7 // 2 - 128)
+            hi = min(want_k7 - 1, lo + 256)
+            edges = {}
+
+            def edge(k):
+                def mark():
+                    torch.cuda.synchronize()
+                    edges[k] = time.perf_counter()
+                return mark
+
+            hooks = (Hooks(mg, "_chain_structure",
+                           {lo: edge("lo"), hi: edge("hi")})
+                     if engine == "unit" else contextlib.nullcontext())
+            torch.cuda.synchronize()
+            zero()
+            with sp, hooks:
+                t1 = time.perf_counter()
+                st = cell.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+            la, pc = counts()
+            if (la["apply_fused_blocked"] != want_k7 or pc
+                    or la["resolve_batch"] or la["apply_fused2"]):
+                fail(f"merge/{config} {engine} R={R}: launches {la}, want "
+                     f"K7 {want_k7}; plain calls {pc}")
+            if want is None:  # one native merge of the config's log
+                want = mg.native_merge_content(sim, cell.delivered)
+            docs[engine] = sim.decode(st, R - 1)
+            if (sim.decode(st, 0) != want or docs[engine] != want
+                    or not bool((st.nvis == len(want)).all())):
+                fail(f"merge/{config} {engine} R={R}: replica 0 or {R - 1} "
+                     "differs from the native treap's merge")
+            del st
+            span = sp.ms()
+            if engine == "range":
+                span["producer"] = (span.pop("batch apply") - span["query"]
+                                    - span["K7"])
+            elif engine == "flat":
+                span["dedup"] = span.pop("flat merge", 0.0) - span["flatten"]
+                span["materialize"] = span.pop("flatten") - span[
+                    "link and rank"]
+            if engine == "unit":
+                busy = window_busy_ms(cell.run, mg, "_chain_structure", lo,
+                                      hi)
+                span_wall = (edges["hi"] - edges["lo"]) * 1e3
+                over = f" over batches {lo}-{hi - 1} of {want_k7}"
+            else:
+                busy, span_wall, over = device_busy_ms(cell.run), wall * 1e3, (
+                    "")
+            eps = cell.elements * R / wall
+            print(f"[merge] merge/{config} {engine} R={R}: "
+                  f"{cell.elements} delivered ops, set-up {set_s:.1f} s; "
+                  f"timed merge {wall:.4f} s = {eps:.1f} elements/s; every "
+                  f"replica's digest equal, replicas 0 and {R - 1} "
+                  f"byte-identical to the native treap; launches {la}, plain "
+                  "calls 0; spans ms (CUDA events, include device waits on "
+                  "the host): " + ", ".join(f"{k} {v:.2f}"
+                                            for k, v in span.items())
+                  + f"; device busy {busy:.2f} of {span_wall:.2f} ms wall"
+                  f"{over}, idle {100 * (1 - busy / span_wall):.1f}% "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            if "K7" in sp.kept:
+                ops = sp.kept["K7"]
+                e = max_err(ex.apply_fused_blocked(*ops),
+                            ex.apply_fused_blocked_plain(*ops))
+                if e:
+                    fail(f"K7 != plain on merge/traces unit batch "
+                         f"{want_k7 - 2}: {e}")
+                k7_err = max(k7_err, e)
+                rows.append(k7_row(f"merge/traces unit R={R}, batch "
+                                   f"{want_k7 - 2}", ops,
+                                   la["apply_fused_blocked"], k7_err, bound))
+                del ops
+            del cell
+        if len(set(docs.values())) != 1:
+            fail(f"merge/{config}: the engines' documents differ")
+        print(f"[merge] merge/{config}: {', '.join(docs)} give one "
+              f"document ({len(docs['unit'])} chars)", flush=True)
+        del sim
+    return rows
+
+
+#: The run-granular downstream columns: (label, engine, schedule).
+DOWN_RUN_COLUMNS = (("range", "range", None), ("runs", "runs", "flat"),
+                    ("runs batched", "runs", "batched"),
+                    ("patch", "patch", "flat"),
+                    ("unitwire", "unitwire", "flat"))
+
+
+def run_down_phases(dev, bound) -> list[dict]:
+    """The five range and run downstream columns on automerge-paper at 64
+    replicas (``--group downstream --engine range|runs|patch|unitwire``):
+    each prepared untimed (K5 counted in the run columns' generation), one
+    warm-up and three timed ``replay_once`` with every count set to 0 just
+    before and read just after (K7 once a batch on ``range`` and the
+    batched schedule, none on the flat one, no plain version), replicas 0
+    and 63 decoded against the end content.  K7 is held against its plain
+    version on one ``range`` batch's operands.  Returns K7's row."""
+    import torch
+
+    from crdt_benches_tpu_torch.engine import downstream_range as drg
+    from crdt_benches_tpu_torch.engine.merge_range import (
+        TorchRunDownstreamBackend,
+    )
+    from crdt_benches_tpu_torch.ops import apply_range_fused as arf
+    from crdt_benches_tpu_torch.ops import expand as ex
+    from crdt_benches_tpu_torch.ops import resolve as rs
+    from crdt_benches_tpu_torch.traces import load_testing_data
+
+    trace = load_testing_data("automerge-paper")
+    end = trace.end_content
+    kernels = (rs.resolve_batch, ex.apply_fused_blocked, arf.apply_fused2)
+    plains = (rs.resolve_batch_plain, ex.apply_fused_blocked_plain,
+              arf.apply_fused2_plain)
+    rows = []
+    for label, engine, schedule in DOWN_RUN_COLUMNS:
+        if engine == "range":
+            bk = drg.TorchRangeDownstreamBackend(n_replicas=64, device=dev)
+        else:
+            bk = TorchRunDownstreamBackend(
+                n_replicas=64, device=dev, schedule=schedule,
+                granularity={"runs": "coalesced", "patch": "patch",
+                             "unitwire": "unit"}[engine])
+        for f in (*kernels, *plains):
+            setattr(f, "launches" if f in kernels else "calls", 0)
+        t0 = time.perf_counter()
+        bk.prepare(trace)
+        gen_s = time.perf_counter() - t0
+        gen_k5 = rs.resolve_batch.launches
+        eng = bk.engine
+        if engine == "range":
+            nb, want_gen, want_k7 = eng.n_batches, 0, eng.n_batches
+            run = eng.run
+        else:
+            nb = len(eng.lamport) // eng.batch
+            want_gen = -(-len(eng.sim.log) // 512)
+            want_k7 = nb if schedule == "batched" else 0
+            run = bk._merge
+        if gen_k5 != want_gen or any(f.calls for f in plains):
+            fail(f"[down {label}] generation: K5 {gen_k5}, want {want_gen}")
+        bk.replay_once()  # warm-up
+        secs = []
+        for _ in range(3):
+            for f in (*kernels, *plains):
+                setattr(f, "launches" if f in kernels else "calls", 0)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            n = bk.replay_once()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            la = {f.__name__: f.launches for f in kernels}
+            if (la["apply_fused_blocked"] != want_k7 or la["resolve_batch"]
+                    or la["apply_fused2"] or any(f.calls for f in plains)):
+                fail(f"[down {label}] launches {la}, want K7 {want_k7}")
+        if n != len(end):
+            fail(f"[down {label}] length {n} != {len(end)}")
+        sp = Spans([(drg, "apply_fused_blocked", "K7")],
+                   keep={"K7": nb - 2} if engine == "range" else None)
+        with sp:
+            st = run()
+        for r in (0, 63):
+            if eng.decode(st, r) != end:
+                fail(f"[down {label}] replica {r} differs from the end "
+                     "content")
+        del st
+        med = sorted(secs)[1]
+        wire = bk.batch_ops if engine == "range" else eng.batch
+        print(f"[down {label}] automerge-paper R=64, "
+              f"{'schedule ' + schedule + ', ' if schedule else ''}"
+              f"{bk.NAME}: {nb} batches ({wire} wire ops a batch), generation {gen_s:.1f} s (K5 {gen_k5}); replay s "
+              f"{[round(s, 4) for s in secs]}, median {med:.4f} s, "
+              f"{len(trace) * 64 / med:.1f} elements/s; replicas 0 and 63 "
+              f"byte-identical; launches per replay {la}, plain calls 0",
+              flush=True)
+        if "K7" in sp.kept:
+            ops = sp.kept["K7"]
+            e = max_err(ex.apply_fused_blocked(*ops),
+                        ex.apply_fused_blocked_plain(*ops))
+            if e:
+                fail(f"K7 != plain on the range downstream batch {nb - 2}: "
+                     f"{e}")
+            rows.append(k7_row(f"range downstream R=64, batch {nb - 2}", ops,
+                               want_k7, e, bound))
+            del ops
+        del bk, eng
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1014,13 +1514,17 @@ def main() -> int:
 
     every = lambda i: True
     never = lambda i: False
+    # every other batch: where a plain version on every batch would set a
+    # phase's time (each main path runs its kernels on every batch)
+    half = lambda i: i % 2 == 0
     cap_am = 183_296
     t0 = time.perf_counter()
     k3_also = ((arf.range_apply_blocked, "k3"),)
-    walk("sveltecomponent", 8, 94_208, every, every, also=k3_also)
-    walk("automerge-paper", 8, cap_am, every, every, also=k3_also)
-    print(f"[k1+k2 R=8] sveltecomponent and automerge-paper, every batch "
-          f"equal (K3 too) ({time.perf_counter() - t0:.1f} s)", flush=True)
+    walk("sveltecomponent", 8, 94_208, half, half, also=k3_also)
+    walk("automerge-paper", 8, cap_am, half, half, also=k3_also)
+    print(f"[k1+k2 R=8] sveltecomponent and automerge-paper, every other "
+          f"batch equal (K3 too) ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
 
     # K1's overflow contract: a token list capped below the batch's demand
     # drops placements past T while nused still counts the true demand
@@ -1416,11 +1920,12 @@ def main() -> int:
         if not bool((st.nvis == end_am).all()):
             fail(f"{tag}: lengths {st.nvis[:4].tolist()} != {end_am}")
 
-    def checked_all(n, tag):
-        if n != am.n_batches:
-            fail(f"{tag}: {n} batches checked, want {am.n_batches}")
+    def checked_all(n, tag, want=None):
+        want = am.n_batches if want is None else want
+        if n != want:
+            fail(f"{tag}: {n} batches checked, want {want}")
 
-    # K5 on every sveltecomponent batch, emit_origin off (as the replay
+    # K5 on sveltecomponent's batches, emit_origin off (as the replay
     # launches it) and on; the plain versions run in CPU worker processes
     t0 = time.perf_counter()
     sv = ReplayEngine(utts["sveltecomponent"], n_replicas=8, device=dev)
@@ -1428,6 +1933,9 @@ def main() -> int:
     unit_walk("v4", sv.init_state(), engine_chunks(sv), k5_log=k5_log)
     if len(k5_log) != sv.tt.n_batches:
         fail(f"K5 logged {len(k5_log)} batches, want {sv.tt.n_batches}")
+    # every fourth batch (the plain version on the CPU sets this phase's
+    # time; every batch of the main paths runs K5 at full width)
+    k5_log = k5_log[::4]
     tasks, got = [], []
     for args, out in k5_log:
         for eo, res in ((False, out),
@@ -1442,10 +1950,11 @@ def main() -> int:
     for i, (g, w) in enumerate(zip(got, wants)):
         e = max_err(tuple(g), tuple(torch.from_numpy(x).to(dev) for x in w))
         if e:
-            fail(f"K5 != plain on sveltecomponent batch {i // 2}, "
+            fail(f"K5 != plain on sveltecomponent batch {4 * (i // 2)}, "
                  f"emit_origin {tasks[i][3]}: {e}")
         uerr["k5"] = max(uerr["k5"], e)
-    print(f"[k5 R=8] sveltecomponent: all {len(k5_log)} batches equal with "
+    print(f"[k5 R=8] sveltecomponent: every fourth batch ({len(k5_log)} "
+          f"of {sv.tt.n_batches}) equal with "
           f"emit_origin off and on (plain on {workers} CPU workers; "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     del k5_log, tasks, got, wants
@@ -1469,12 +1978,13 @@ def main() -> int:
     checked_all(n, "K6 R=8")
     st, n, _ = unit_walk(
         "v4", init_state4(2, long_c, len(am.init_chars), device=dev),
-        long_chunks, every)
+        long_chunks, half)
     lengths_ok(st, "K6 long")
-    checked_all(n, "K6 long")
+    checked_all(n, "K6 long", (am.n_batches + 1) // 2)
     print(f"[k6] automerge-paper, all {am.n_batches} batches equal with "
-          f"emit_cv on and off at R=8 (C up to {e8.stage_caps[-1]}) and at "
-          f"R=2, C={long_c} ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"emit_cv on and off at R=8 (C up to {e8.stage_caps[-1]}), every "
+          f"other batch at R=2, C={long_c} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     del st, e8
 
     # K8 (v3) and K9 (v2): their replays at R = 64 through the engine,
@@ -1510,14 +2020,15 @@ def main() -> int:
         checked_all(n, f"{key} R=64")
         st, n, _ = unit_walk(
             eng, init(2, long_c, len(am.init_chars), device=dev),
-            long_chunks, every)
+            long_chunks, half)
         lengths_ok(st, f"{key} long")
-        checked_all(n, f"{key} long")
+        checked_all(n, f"{key} long", (am.n_batches + 1) // 2)
         del st
         print(f"[{key}] automerge-paper: the {eng} replay at R=64: all "
               f"lengths {end_am}, replicas 0 and 63 byte-identical, launches "
               f"{la}, plain calls 0, {secs:.3f} s; all {am.n_batches} batches"
-              f" equal at R=64, C={e64.capacity} and at R=2, C={long_c}; "
+              f" equal at R=64, C={e64.capacity}, every other at R=2, "
+              f"C={long_c}; "
               f"batch {late}: kernel {times[key + '_ms']:.4f} ms, plain "
               f"{times[key + '_plain_ms']:.4f} ms, torch.gather on the "
               f"source index {times[key + '_lib_ms']:.4f} ms at (R, C) = "
@@ -1610,8 +2121,8 @@ def main() -> int:
                   until=None, epoch=32):
         """Apply the v5 wire tensors (ins, anchor, rank, dslot int32[N, B])
         to ``st`` batch by batch as ``dsm.apply_updates5`` does: the
-        anchor/delete query, the producer, the no-cv apply through the
-        dispatch, the snapshot rebuild after each epoch.  Where
+        anchor/delete query, the producer, the no-cv apply K7, the
+        snapshot rebuild after each epoch.  Where
         ``check(i)`` or at batch ``time_at``, K7 and K6 without cv are held
         against their plain versions (and each other) on the batch's
         operands; at ``time_at`` they are timed (:func:`time_down_batch`).
@@ -1641,7 +2152,7 @@ def main() -> int:
                     rank_b[i], dslot_b[i])
                 if stages is not None:
                     ev[-1][2].record()
-                out = ex.fused_apply_nocv_dispatch(*ops)
+                out = ex.apply_fused_blocked(*ops)
                 if stages is not None:
                     ev[-1][3].record()
                 if check(i) or i == time_at:
@@ -1680,13 +2191,10 @@ def main() -> int:
 
     def idle_share(window):
         """Device idle share of ``window()``: 1 - the summed device time of
-        its kernels and copies (torch.profiler, one profiled call) over its
-        wall time (host clock, one unprofiled call, after a warm-up), None
-        when the profiler shows no device time; with the wall and busy ms
-        and the seconds the measurement took."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
+        its kernels and copies (:func:`device_busy_ms`, one profiled call)
+        over its wall time (host clock, one unprofiled call, after a
+        warm-up), None when the profiler shows no device time; with the
+        wall and busy ms and the seconds the measurement took."""
         t0 = time.perf_counter()
         window()
         torch.cuda.synchronize()
@@ -1694,15 +2202,7 @@ def main() -> int:
         window()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            window()
-            torch.cuda.synchronize()
-        # the raw kineto events: prof.events() builds a Python tree of every
-        # host op, minutes for a whole v5 replay's ~1M of them
-        busy = sum(e.duration_ns()
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA) / 1e6
+        busy = device_busy_ms(window)
         return ((1 - busy / wall if busy > 0 else None), wall, busy,
                 time.perf_counter() - t0)
 
@@ -1779,7 +2279,7 @@ def main() -> int:
           f"index {times['k7_r64_lib_ms']:.4f} ms at (R, C) = "
           f"{times['k7_r64_shape']}", flush=True)
 
-    # flagship.downstream() at its defaults: R = 1024, B = 1536, K6
+    # flagship.downstream() at its defaults: R = 1024, B = 1536, K7
     t0 = time.perf_counter()
     feng = flagship.downstream(trace, device=dev)
     gen_s = time.perf_counter() - t0
@@ -1791,7 +2291,7 @@ def main() -> int:
     torch.cuda.synchronize()
     rep_s = time.perf_counter() - t0
     fl = {f.__name__: f.launches for f in kernels_all}
-    if (fl["apply_fused2"] != feng.n_batches or fl["apply_fused_blocked"]
+    if (fl["apply_fused_blocked"] != feng.n_batches or fl["apply_fused2"]
             or any(f.calls for f in plains_all)):
         fail(f"flagship downstream: launches {fl} for {feng.n_batches} "
              f"batches, plain calls {[f.calls for f in plains_all]}")
@@ -1816,8 +2316,8 @@ def main() -> int:
           f"B={feng.upd.ins_slot.shape[1]}: "
           f"{feng.n_batches} batches, generation {gen_s:.1f} s, one replay "
           f"{rep_s:.4f} s = {len(trace) * fR / rep_s:.1f} elements/s; all "
-          f"lengths {end_am}, replicas 0 and {fR - 1} byte-identical; K6 "
-          f"(emit_cv off) {fl['apply_fused2']} launches, K7 0, plain calls "
+          f"lengths {end_am}, replicas 0 and {fR - 1} byte-identical; K7 "
+          f"{fl['apply_fused_blocked']} launches, K6 0, plain calls "
           "0; stages, span ms (CUDA events, include device waits on the "
           "host): "
           + ", ".join(f"{k} {v:.2f}" for k, v in fstages.items())
@@ -1919,6 +2419,15 @@ def main() -> int:
         })
     # ---- the serving fleet: K1's per-row form and K4 ----
     rows += serve_phases(dev, bound)
+    # ---- the concurrent merges and the run-granular downstream ----
+    t0 = time.perf_counter()
+    rows += merge_phases(dev, bound)
+    print(f"[merge] all merge phases {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    rows += run_down_phases(dev, bound)
+    print(f"[down runs] all run-granular downstream phases "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

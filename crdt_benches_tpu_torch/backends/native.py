@@ -1,7 +1,10 @@
 """ctypes binding to the native C++ sequence CRDT (``native/crdt.cpp``,
 built into ``native/libcrdtnative.so``): its whole-trace replay (the
-single-core baseline of the replay ratio) and its downstream update
-generation and apply (the baseline of the downstream ratio)."""
+single-core baseline of the replay ratio), its downstream update
+generation and apply (the baseline of the downstream ratio), the replay
+dump the range downstream's update generation anchors on, and the
+concurrent-merge treap (:class:`NativeMerge`, the merges' independent
+oracle)."""
 
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ LIB_PATH = os.path.join(NATIVE_DIR, "libcrdtnative.so")
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 _i64 = ctypes.c_int64
 _vp = ctypes.c_void_p
 _lib: ctypes.CDLL | None = None
@@ -45,10 +49,17 @@ def lib() -> ctypes.CDLL:
              [_i32p, _i64, _i32p, _i32p, _i32p, _i32p, _i64]),
             (native.crdt_new, _vp, [_i32p, _i64, ctypes.c_uint32]),
             (native.crdt_free, None, [_vp]),
+            (native.crdt_len, _i64, [_vp]),
+            (native.crdt_read, None, [_vp, _i32p]),
             (native.crdt_apply_updates, _i64, [_vp, _u8p, _i64p, _i64]),
             (native.crdt_gen_updates, _i64,
              [_i32p, _i64, _i32p, _i32p, _i32p, _i32p, _i64, _u8p, _i64,
               _i64p]),
+            (native.crdt_integrate_ops, _i64,
+             [_vp, _i64, _u8p, _u32p, _u32p, _u32p, _u32p, _i32p]),
+            (native.crdt_replay_dump, _i64,
+             [_i32p, _i64, _i32p, _i32p, _i32p, _i32p, _i64, _i32p, _i64,
+              _u8p, _i32p, _i64]),
         ):
             fn.restype, fn.argtypes = res, args
         _lib = native
@@ -100,3 +111,59 @@ class CppCrdtDownstream:
             )
         finally:
             native.crdt_free(h)
+
+
+def native_available() -> bool:
+    """Whether the native library builds and loads here."""
+    try:
+        lib()
+        return True
+    except OSError:
+        return False
+
+
+def _codes(s: str) -> np.ndarray:
+    return np.asarray([ord(c) for c in s], np.int32)
+
+
+class NativeMerge:
+    """Independent native RGA oracle for concurrent merge
+    (``crdt_integrate_ops``): an order-statistic treap with the same
+    (lamport, agent) id order and insert-after-origin rule as
+    ``engine/merge.py``, in an entirely separate implementation.  Holds the
+    merges at scales where the pure-Python oracle is infeasible."""
+
+    def __init__(self, base: str, base_agent: int = 1_000_000):
+        self.base = base
+        self.base_agent = base_agent
+        self._h = lib().crdt_new(_codes(base), len(base), base_agent)
+
+    def integrate(self, type_, id_agent, id_seq, org_agent, org_seq,
+                  ch) -> int:
+        """Integrate struct-of-array ops (already (lamport, agent)-sorted,
+        ids per :func:`engine.merge.to_native_ops`).  Returns the visible
+        length."""
+        return lib().crdt_integrate_ops(
+            self._h, len(type_),
+            np.ascontiguousarray(type_, np.uint8),
+            np.ascontiguousarray(id_agent, np.uint32),
+            np.ascontiguousarray(id_seq, np.uint32),
+            np.ascontiguousarray(org_agent, np.uint32),
+            np.ascontiguousarray(org_seq, np.uint32),
+            np.ascontiguousarray(ch, np.int32),
+        )
+
+    def __len__(self) -> int:
+        return lib().crdt_len(self._h)
+
+    def content(self) -> str:
+        out = np.zeros(len(self), np.int32)
+        lib().crdt_read(self._h, out)
+        return "".join(map(chr, out.tolist()))
+
+    def close(self) -> None:
+        if getattr(self, "_h", None):
+            lib().crdt_free(self._h)
+            self._h = None
+
+    __del__ = close

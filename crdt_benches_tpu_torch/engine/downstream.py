@@ -16,8 +16,8 @@
     target resolved to its current position inside the timed region
     through the epoch structure of ``ops/idpos.py``; the packed doc is
     rewritten by the no-cv fused apply (``ops/expand.py``
-    ``fused_apply_nocv_dispatch``: K7, or K6 when the replicas alone fill
-    the card);
+    ``apply_fused_blocked``, K7, at every width: it beat K6 without cv
+    at 64 and at 1024 replicas on the card);
   - ``v3``: the positional form (``ins_gap``/``del_pos``, resolved at
     encode time) on the packed doc, expansion K8;
   - ``v1``: the id-based form on the slot-indexed ``DownState`` with
@@ -50,7 +50,7 @@ from ..ops.apply2 import (
     pack_doc,
     spread_fill_combo,
 )
-from ..ops.expand import expand_packed, fused_apply_nocv_dispatch
+from ..ops.expand import apply_fused_blocked, expand_packed
 from ..ops.idpos import make_level, query, snap_init, snap_rebuild
 from ..traces.loader import TestData
 from ..traces.tensorize import INSERT, TensorizedTrace, tensorize
@@ -325,6 +325,16 @@ def apply_updates3(state: PackedState, ins_b, gap_b, rank_b, dpos_b):
 # ---- v5: id resolution inside the timed apply -----------------------------
 
 
+def decode_packed(state, chars: torch.Tensor, replica: int = 0) -> str:
+    """One replica's visible document as a string, from a packed state
+    (``DownPacked``, ``PackedState``)."""
+    codes, _ = decode_state3(
+        PackedState(doc=state.doc, length=state.length, nvis=state.nvis),
+        chars, replica,
+    )
+    return "".join(map(chr, codes.cpu().tolist()))
+
+
 def down_packed_init(
     n_replicas: int, capacity: int, n_init: int,
     device: str | torch.device = "cuda",
@@ -394,7 +404,7 @@ def _apply_update_batch5(doc, length, nvis, snap, levels, ins, anchor, rank,
     targets = resolve_targets5(snap, levels, anchor, dslot)
     ops, (nvis2, level) = batch5_operands(doc, length, nvis, targets, ins,
                                           anchor, rank, dslot)
-    return fused_apply_nocv_dispatch(*ops), ops[3], nvis2, level
+    return apply_fused_blocked(*ops), ops[3], nvis2, level
 
 
 def apply_updates5(state: DownPacked, ins_b, anchor_b, rank_b, dslot_b,
@@ -478,13 +488,8 @@ class DownstreamEngine:
         """A replica's visible document as a string."""
         if isinstance(state, DownState):
             codes, _ = decode_state(state, self.chars, replica)
-        else:
-            codes, _ = decode_state3(
-                PackedState(doc=state.doc, length=state.length,
-                            nvis=state.nvis),
-                self.chars, replica,
-            )
-        return "".join(map(chr, codes.cpu().tolist()))
+            return "".join(map(chr, codes.cpu().tolist()))
+        return decode_packed(state, self.chars, replica)
 
 
 class TorchDownstreamBackend:

@@ -106,6 +106,14 @@ def slot_char_table(tt: TensorizedTrace, capacity: int) -> np.ndarray:
     return chars
 
 
+def decode_to_str(state, chars: torch.Tensor, replica: int = 0) -> str:
+    """One replica's visible document as a string, from any state with
+    order/visible/length fields (``DocState``, the downstream
+    ``DownState``)."""
+    codes, _ = decode_state(state, chars, replica)
+    return "".join(map(chr, codes.cpu().tolist()))
+
+
 def replay_units(state, kind_b, pos_b, slot_b, engine: str = "v4"):
     """Replay the unit batches kind_b/pos_b/slot_b int32[N, B] into
     ``state`` (the engine's state type); returns the new state.  Only v1

@@ -15,8 +15,7 @@ y[d] = x[d - cnt[d]] (d - cnt[d] < 0 only at a destination).
 K8 and K9 launch ``csrc/expand.cu``, K7 ``csrc/apply_blocked.cu``, on
 CUDA tensors; ``*_plain`` are their plain PyTorch versions.  The gather is
 exact for any 1-Lipschitz cnt, so unlike the TPU's roll cascade they take
-no ``nbits``.  :func:`fused_apply_nocv_dispatch` picks K6 or K7 for the
-no-cv apply.
+no ``nbits``.
 """
 
 from __future__ import annotations
@@ -193,16 +192,3 @@ apply_fused_blocked.launches = 0
 @lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def fused_apply_nocv_dispatch(doc_predel, combo, cnt_base, new_len):
-    """The no-cv fused apply: on a CUDA tensor K6 (``apply_fused2`` with
-    ``emit_cv=False``, one block per replica row) when the rows alone fill
-    the card (R >= its SM count), else K7, whose blocks split each row too;
-    on a CPU tensor K7's plain version."""
-    dev = doc_predel.device
-    if dev.type == "cuda" and doc_predel.shape[0] >= _sm_count(dev.index):
-        from .apply_range_fused import apply_fused2
-
-        return apply_fused2(doc_predel, combo, new_len, emit_cv=False)
-    return apply_fused_blocked(doc_predel, combo, cnt_base, new_len)

@@ -4,7 +4,11 @@ state and the same ``ResolvedBatch``.
 
 The serving fleet's carriers: :func:`rounds_from_jax` for a macro
 dispatch's K resolved rounds, :func:`buckets_from_jax` for a pool's
-bucket stacks.
+bucket stacks.  The downstream and merge carriers:
+:func:`down_packed_from_jax` and :func:`down_state_from_jax` (and their
+``*_to_numpy``) for the ``DownPacked`` and ``DownState`` replica states,
+:func:`oplog_from_jax` and :func:`runlog_from_jax` for the merges' wire
+logs (the JAX dataclasses hold numpy fields already).
 
 The JAX side holds ``cv_intile`` as bf16; its caller casts it to int32
 before ``np.asarray``.  The port holds it as int16 (values are at most
@@ -18,6 +22,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..engine.downstream import DownPacked, DownState
+from ..engine.merge import OpLog
+from ..engine.merge_range import RunLog
 from ..ops.apply2 import LANE, PackedState, PackedState4, ReplayState
 from ..ops.resolve import ResolvedBatch
 
@@ -105,6 +112,55 @@ def state3_from_jax(
 
 def state3_to_numpy(state: PackedState) -> dict[str, np.ndarray]:
     return _to_numpy(state)
+
+
+def down_packed_from_jax(
+    arrays: dict[str, np.ndarray], device: str | torch.device = "cuda"
+) -> DownPacked:
+    """A port ``DownPacked`` from a JAX ``DownPacked``'s arrays."""
+    return _from_numpy(DownPacked, arrays, ("doc", "snap"), {}, device)
+
+
+def down_packed_to_numpy(state: DownPacked) -> dict[str, np.ndarray]:
+    return _to_numpy(state)
+
+
+def down_state_from_jax(
+    arrays: dict[str, np.ndarray], device: str | torch.device = "cuda"
+) -> DownState:
+    """A port ``DownState`` (leaves with a leading R) from a JAX
+    ``DownState``'s arrays; a one-replica JAX state (order int32[C])
+    gains R = 1."""
+    arrays = dict(arrays)
+    if np.ndim(arrays.get("order")) == 1:
+        arrays = {f: np.asarray(a)[None] for f, a in arrays.items()}
+    return _from_numpy(DownState, arrays, ("order", "visible"),
+                       {"visible": torch.bool}, device)
+
+
+def down_state_to_numpy(state: DownState) -> dict[str, np.ndarray]:
+    return _to_numpy(state)
+
+
+def _dataclass_from(cls, obj, ints=()):
+    """A ``cls`` dataclass from a JAX twin's fields (numpy arrays as
+    contiguous int32, the names in ``ints`` as Python ints)."""
+    return cls(**{
+        f: int(getattr(obj, f)) if f in ints
+        else np.ascontiguousarray(getattr(obj, f), np.int32)
+        for f in cls.__dataclass_fields__
+    })
+
+
+def oplog_from_jax(log) -> OpLog:
+    """A port ``OpLog`` from a JAX ``OpLog`` (or anything with its six
+    array fields)."""
+    return _dataclass_from(OpLog, log)
+
+
+def runlog_from_jax(log) -> RunLog:
+    """A port ``RunLog`` from a JAX ``RunLog``."""
+    return _dataclass_from(RunLog, log, ints=("n_unit_ops",))
 
 
 def resolved_from_jax(

@@ -153,7 +153,7 @@ def test_backend_and_dispatch_on_the_cpu():
     assert bk.NAME == "torch-cpu-r2"
     assert bk.replay_once() == len(tr.end_content)
     assert bk.final_content() == tr.end_content
-    # on the CPU the dispatch runs K7's plain version, once per batch
+    # on the CPU the v5 apply runs K7's plain version, once per batch
     assert (expand.apply_fused_blocked_plain.calls - before
             == 2 * bk.engine.n_batches)
     assert pd.TorchDownstreamBackend(engine="v3", device="cpu").NAME == (

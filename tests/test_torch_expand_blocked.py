@@ -68,7 +68,7 @@ def _check(ops, nbits, block_tiles):
     assert expand.apply_fused_blocked_plain.calls == before + 1
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
-        expand.fused_apply_nocv_dispatch(*pops).numpy(), want)
+        expand.apply_fused_blocked(*pops).numpy(), want)
     # K6 without cv recomputes the tile base from combo: equal on
     # consistent operands
     np.testing.assert_array_equal(

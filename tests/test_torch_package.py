@@ -22,12 +22,24 @@ from crdt_benches_tpu.oracle import replay_trace
 from crdt_benches_tpu.traces.synth import synth_trace
 from crdt_benches_tpu_torch import _build
 from crdt_benches_tpu_torch.backends.torch_backend import TorchReplayBackend
+from crdt_benches_tpu.engine.downstream import (
+    down_packed_init as jax_down_packed_init,
+)
+from crdt_benches_tpu_torch.bench.merge import merge_sim
 from crdt_benches_tpu_torch.engine.downstream import (
     DownstreamEngine,
     TorchDownstreamBackend,
     down_packed_init,
     generate_updates,
     init_down_state,
+)
+from crdt_benches_tpu_torch.engine.downstream_range import (
+    RangeDownstreamEngine,
+    TorchRangeDownstreamBackend,
+)
+from crdt_benches_tpu_torch.engine.merge import MergeSimulation, agent_oplog
+from crdt_benches_tpu_torch.engine.merge_range import (
+    TorchRunDownstreamBackend,
 )
 from crdt_benches_tpu_torch.engine.replay import ReplayEngine
 from crdt_benches_tpu_torch.engine.replay_range import RangeReplayEngine
@@ -45,6 +57,9 @@ from crdt_benches_tpu_torch.traces.tensorize import (
     tensorize_ranges,
 )
 from crdt_benches_tpu_torch.utils.convert import (
+    down_packed_from_jax,
+    down_packed_to_numpy,
+    down_state_from_jax,
     resolved_from_jax,
     state2_from_jax,
     state3_from_jax,
@@ -79,7 +94,10 @@ def test_port_imports_no_jax_and_no_reference_module():
     for mod in ("ops.idpos", "ops.apply", "engine.downstream",
                 "ops.packing", "ops.serve_fused", "oracle.text_oracle",
                 "traces.synth", "utils.checkpoint", "serve.workload",
-                "serve.pool", "serve.scheduler", "serve.bench"):
+                "serve.pool", "serve.scheduler", "serve.bench",
+                "engine.merge", "engine.downstream_range",
+                "engine.merge_range", "engine.downstream_flat",
+                "utils.digest", "bench.merge", "bench.nocv_versus"):
         assert os.path.exists(os.path.join(
             REPO, "crdt_benches_tpu_torch", *mod.split(".")) + ".py"), mod
 
@@ -116,6 +134,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: flagship.downstream("sveltecomponent"),
         lambda: DocPool(),
         lambda: run_serve_bench(n_docs=2),
+        lambda: agent_oplog(tt, 1, 0, 0),
+        lambda: MergeSimulation([tt]),
+        lambda: merge_sim("synthetic", 320, batch=16),
+        lambda: RangeDownstreamEngine(synth_trace(seed=0, n_ops=20)),
+        lambda: TorchRangeDownstreamBackend(),
+        lambda: TorchRunDownstreamBackend(),
+        lambda: TorchRunDownstreamBackend(granularity="patch",
+                                          schedule="batched"),
+        lambda: down_packed_from_jax({}),
+        lambda: down_state_from_jax({}),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -145,6 +173,74 @@ def test_downstream_bench_entry_without_cuda_exits_with_error():
     assert done.stdout.strip() == ""
 
 
+@pytest.mark.parametrize("argv", [
+    ["--group", "merge", "--merge-config", "synthetic", "--merge-ops",
+     "320"],
+    ["--group", "merge", "--merge-engine", "flat"],
+    ["--group", "downstream", "--engine", "range"],
+    ["--group", "downstream", "--engine", "runs", "--schedule", "batched"],
+    ["--group", "downstream", "--engine", "patch"],
+    ["--group", "downstream", "--engine", "unitwire"],
+])
+def test_merge_and_run_downstream_entries_without_cuda_exit_with_error(argv):
+    _no_cuda()
+    done = subprocess.run(
+        [sys.executable, "-m", "crdt_benches_tpu_torch.bench", *argv,
+         "--trace", "sveltecomponent", "--samples", "1"]
+        if "downstream" in argv else
+        [sys.executable, "-m", "crdt_benches_tpu_torch.bench", *argv,
+         "--samples", "1"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert done.returncode != 0
+    assert "CUDA is not available" in done.stderr
+    assert done.stdout.strip() == ""
+
+
+def test_merge_bench_entry_on_cpu_prints_one_json_line():
+    for engine in ("unit", "range", "flat"):
+        done = subprocess.run(
+            [sys.executable, "-m", "crdt_benches_tpu_torch.bench",
+             "--group", "merge", "--merge-config", "synthetic",
+             "--merge-ops", "640", "--merge-engine", engine, "--replicas",
+             "2", "--batch", "16", "--epoch", "2", "--samples", "1",
+             "--device", "cpu"],
+            cwd=REPO, capture_output=True, text=True, timeout=300,
+        )
+        assert done.returncode == 0, done.stderr
+        lines = done.stdout.strip().splitlines()
+        assert len(lines) == 1
+        out = json.loads(lines[0])
+        assert out["unit"] == "elements/sec" and out["value"] > 0
+        assert out["verify_ok"] is True
+        assert f"engine {engine}" in out["metric"]
+        assert "torch-cpu-r2" in out["metric"]
+    # the run merge refuses duplicated delivery
+    done = subprocess.run(
+        [sys.executable, "-m", "crdt_benches_tpu_torch.bench", "--group",
+         "merge", "--merge-config", "adversarial", "--merge-ops", "1280",
+         "--merge-engine", "range", "--batch", "16", "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert done.returncode == 2
+    assert "refuses duplicated delivery" in done.stderr
+    assert done.stdout.strip() == ""
+
+
+def test_port_reads_no_environment_knob():
+    """Options are arguments; the one environment read is the build's
+    CUDA_HOME, which locates the toolkit."""
+    reads = []
+    for path in glob.glob(os.path.join(REPO, "crdt_benches_tpu_torch", "**",
+                                       "*.py"), recursive=True):
+        with open(path) as fh:
+            for line in fh:
+                if re.search(r"os\.environ|getenv", line):
+                    reads.append((os.path.basename(path), line.strip()))
+    assert reads == [("_build.py", 'os.environ.get("CUDA_HOME", '
+                      '"/usr/local/cuda"), "bin", "nvcc"')]
+
+
 def test_serve_bench_entry_without_cuda_exits_with_error():
     _no_cuda()
     done = subprocess.run(
@@ -161,6 +257,13 @@ def test_serve_bench_entry_without_cuda_exits_with_error():
     ["--group", "downstream", "--layout", "unit"],
     ["--group", "downstream", "--unit-engine", "v3"],
     ["--engine", "v3"],
+    ["--merge-engine", "flat"],
+    ["--group", "downstream", "--epoch", "4"],
+    ["--group", "serve", "--merge-ops", "100"],
+    ["--group", "merge", "--engine", "v5"],
+    ["--group", "merge", "--serve-docs", "4"],
+    ["--schedule", "batched"],
+    ["--group", "downstream", "--engine", "range", "--schedule", "flat"],
 ])
 def test_bench_entry_rejects_the_other_groups_flags(argv, capsys):
     from crdt_benches_tpu_torch.bench.__main__ import main
@@ -241,6 +344,14 @@ def test_state_conversion_round_trip():
     # the port's own fresh state equals the reference's
     fresh = state4_to_numpy(init_state4(3, 2048, 700, device="cpu"))
     for f, a in arrays.items():
+        np.testing.assert_array_equal(fresh[f], a, err_msg=f)
+    # the downstream's packed state carries across too
+    jdp = jax_down_packed_init(3, 2048, 700)
+    darrays = {f: np.asarray(getattr(jdp, f)) for f in jdp._fields}
+    back = down_packed_to_numpy(down_packed_from_jax(darrays, device="cpu"))
+    fresh = down_packed_to_numpy(down_packed_init(3, 2048, 700, device="cpu"))
+    for f, a in darrays.items():
+        np.testing.assert_array_equal(back[f], a, err_msg=f)
         np.testing.assert_array_equal(fresh[f], a, err_msg=f)
     with pytest.raises(ValueError, match="integer"):
         state4_from_jax(
