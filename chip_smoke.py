@@ -121,7 +121,24 @@ Phases (one line each; any failure exits non-zero):
     replicas (``range``, ``runs`` flat and batched, ``patch``,
     ``unitwire``): counted, timed (1 warm-up, 3 timed), replicas 0 and 63
     byte-identical; K7 held against its plain version on one ``range``
-    batch.
+    batch;
+17. ``[runner]``: the bench matrix runner (``bench/runner.py``) in-process
+    with ``--verify --samples 2 --warmup 1``: the upstream columns
+    ``cpp-rope``, ``cpp-crdt``, ``cpp-cola``, ``torch`` (1024 replicas,
+    batch 1536) and ``torch-unit`` (batch 256) on sveltecomponent and
+    automerge-paper, the downstream columns ``cpp-crdt``, ``torch``,
+    ``torch-range`` and ``torch-runs`` at 64 replicas on sveltecomponent,
+    and the merge columns ``cpp-crdt`` and ``torch-flat`` on merge/traces
+    at 64 replicas; every cell verified, none skipped, each call's kernels
+    counted; the records written to ``bench_results/torch_chip.json``;
+18. ``[range v3]``: automerge-paper through the v3 range engine at 1024
+    replicas, batch 1536 (K1, then K4 at K = 1 on its scratch path): K1
+    and K4 once per batch, every length the trace's, replicas 0 and 1023
+    byte-identical; K4 against ``serve_apply_round_plain`` on every other
+    batch at 8 replicas; K4 timed at batch 3 beside its plain round and
+    bound;
+19. ``[entry]``: ``entry()``'s step on the card against the same step on
+    the CPU, all five outputs equal.
 
 The line before the last holds the kernels' numbers as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -271,9 +288,6 @@ def serve_phases(dev, bound) -> list[dict]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from crdt_benches_tpu_torch.ops import apply_range_fused as arf
-    from crdt_benches_tpu_torch.ops import expand as ex
-    from crdt_benches_tpu_torch.ops import resolve as rs
     from crdt_benches_tpu_torch.ops import resolve_range as rr
     from crdt_benches_tpu_torch.ops import serve_fused as sf
     from crdt_benches_tpu_torch.ops.apply2 import PackedState
@@ -441,35 +455,20 @@ def serve_phases(dev, bound) -> list[dict]:
     del keep, k4_keep, args, st, tokens, dints
 
     # ---- [serve]: the timed drain through the bench's entry point ----
-    counted = (rr.resolve_range, arf.range_apply, rs.resolve_batch,
-               arf.apply_fused2, ex.expand_packed, ex.expand_fill_zero,
-               ex.apply_fused_blocked, rr.resolve_range_rows,
-               sf.serve_macro_fused)
-    plains = (rr.resolve_range_plain, arf.range_apply_plain,
-              rs.resolve_batch_plain, arf.apply_fused2_plain,
-              ex.expand_packed_plain, ex.expand_fill_zero_plain,
-              ex.apply_fused_blocked_plain, rr.resolve_range_rows_plain,
-              sf.serve_macro_plain)
     held = {}
 
     def arm(p):
         p.spans = []
         held["pool"] = p
         torch.cuda.synchronize()
-        for f in counted:
-            f.launches = 0
-        for f in plains:
-            f.calls = 0
+        zero_all_counts()
 
     rep = run_serve_bench(**cell, device=dev, pool_hook=arm,
                           log=lambda m: print(f"[serve] {m}", flush=True))
-    launches = {f.__name__: f.launches for f in counted if f.launches}
-    plain_calls = {f.__name__: f.calls for f in plains if f.calls}
+    launches = read_all_counts("serve drain")
     n = rep["dispatches"]
-    if launches != {"resolve_range_rows": n, "serve_macro_fused": n} or (
-            plain_calls):
-        fail(f"serve drain: launches {launches} for {n} dispatches, plain "
-             f"calls {plain_calls}")
+    if launches != {"resolve_range_rows": n, "serve_macro_fused": n}:
+        fail(f"serve drain: launches {launches} for {n} dispatches")
     if not (rep["verify_ok"] and rep["verify"] == "all"
             and rep["verified_docs"] == cell["n_docs"]
             and set(rep["verified_per_class"]) == set(map(
@@ -1066,23 +1065,8 @@ def merge_phases(dev, bound) -> list[dict]:
     from crdt_benches_tpu_torch.engine import merge as mg
     from crdt_benches_tpu_torch.engine import merge_range as mrg
     from crdt_benches_tpu_torch.engine import replay as urep
-    from crdt_benches_tpu_torch.ops import apply_range_fused as arf
     from crdt_benches_tpu_torch.ops import expand as ex
     from crdt_benches_tpu_torch.ops import resolve as rs
-
-    kernels = (rs.resolve_batch, ex.apply_fused_blocked, arf.apply_fused2)
-    plains = (rs.resolve_batch_plain, ex.apply_fused_blocked_plain,
-              arf.apply_fused2_plain)
-
-    def zero():
-        for f in kernels:
-            f.launches = 0
-        for f in plains:
-            f.calls = 0
-
-    def counts():
-        return ({f.__name__: f.launches for f in kernels},
-                sum(f.calls for f in plains))
 
     spans_of = {
         "unit": [(mg, "_rank_sorted_segments", "arrangement"),
@@ -1112,15 +1096,15 @@ def merge_phases(dev, bound) -> list[dict]:
     for config, paths in MERGE_PATHS.items():
         merge_ops = 10_000_000 if config == "adversarial" else 1_000_000
         t0 = time.perf_counter()
-        zero()
+        zero_all_counts()
         gen = Spans([(urep, "resolve_batch", "K5")], keep={"K5": 40})
         with gen:
             sim = bm.merge_sim(config, merge_ops, batch=256, device=dev)
-        la, pc = counts()
+        la = read_all_counts(f"merge/{config} generation")
         want_k5 = sum(max(1, -(-len(lg) // 256)) for lg in sim.agent_logs)
-        if la["resolve_batch"] != want_k5 or pc or la["apply_fused2"]:
+        if la != {"resolve_batch": want_k5}:
             fail(f"merge/{config} generation: launches {la} for {want_k5} "
-                 f"batches, plain calls {pc}")
+                 "batches")
         gen_s = time.perf_counter() - t0
         if config == "traces":
             args = gen.kept["K5"][:3]
@@ -1184,17 +1168,16 @@ def merge_phases(dev, bound) -> list[dict]:
                            {lo: edge("lo"), hi: edge("hi")})
                      if engine == "unit" else contextlib.nullcontext())
             torch.cuda.synchronize()
-            zero()
+            zero_all_counts()
             with sp, hooks:
                 t1 = time.perf_counter()
                 st = cell.run()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t1
-            la, pc = counts()
-            if (la["apply_fused_blocked"] != want_k7 or pc
-                    or la["resolve_batch"] or la["apply_fused2"]):
+            la = read_all_counts(f"merge/{config} {engine} R={R}")
+            if la != ({"apply_fused_blocked": want_k7} if want_k7 else {}):
                 fail(f"merge/{config} {engine} R={R}: launches {la}, want "
-                     f"K7 {want_k7}; plain calls {pc}")
+                     f"K7 {want_k7}")
             if want is None:  # one native merge of the config's log
                 want = mg.native_merge_content(sim, cell.delivered)
             docs[engine] = sim.decode(st, R - 1)
@@ -1274,16 +1257,11 @@ def run_down_phases(dev, bound) -> list[dict]:
     from crdt_benches_tpu_torch.engine.merge_range import (
         TorchRunDownstreamBackend,
     )
-    from crdt_benches_tpu_torch.ops import apply_range_fused as arf
     from crdt_benches_tpu_torch.ops import expand as ex
-    from crdt_benches_tpu_torch.ops import resolve as rs
     from crdt_benches_tpu_torch.traces import load_testing_data
 
     trace = load_testing_data("automerge-paper")
     end = trace.end_content
-    kernels = (rs.resolve_batch, ex.apply_fused_blocked, arf.apply_fused2)
-    plains = (rs.resolve_batch_plain, ex.apply_fused_blocked_plain,
-              arf.apply_fused2_plain)
     rows = []
     for label, engine, schedule in DOWN_RUN_COLUMNS:
         if engine == "range":
@@ -1293,12 +1271,11 @@ def run_down_phases(dev, bound) -> list[dict]:
                 n_replicas=64, device=dev, schedule=schedule,
                 granularity={"runs": "coalesced", "patch": "patch",
                              "unitwire": "unit"}[engine])
-        for f in (*kernels, *plains):
-            setattr(f, "launches" if f in kernels else "calls", 0)
+        zero_all_counts()
         t0 = time.perf_counter()
         bk.prepare(trace)
         gen_s = time.perf_counter() - t0
-        gen_k5 = rs.resolve_batch.launches
+        gen = read_all_counts(f"[down {label}] generation")
         eng = bk.engine
         if engine == "range":
             nb, want_gen, want_k7 = eng.n_batches, 0, eng.n_batches
@@ -1308,21 +1285,21 @@ def run_down_phases(dev, bound) -> list[dict]:
             want_gen = -(-len(eng.sim.log) // 512)
             want_k7 = nb if schedule == "batched" else 0
             run = bk._merge
-        if gen_k5 != want_gen or any(f.calls for f in plains):
-            fail(f"[down {label}] generation: K5 {gen_k5}, want {want_gen}")
+        if gen != ({"resolve_batch": want_gen} if want_gen else {}):
+            fail(f"[down {label}] generation: launches {gen}, want K5 "
+                 f"{want_gen}")
+        gen_k5 = gen.get("resolve_batch", 0)
         bk.replay_once()  # warm-up
         secs = []
         for _ in range(3):
-            for f in (*kernels, *plains):
-                setattr(f, "launches" if f in kernels else "calls", 0)
+            zero_all_counts()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             n = bk.replay_once()
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t1)
-            la = {f.__name__: f.launches for f in kernels}
-            if (la["apply_fused_blocked"] != want_k7 or la["resolve_batch"]
-                    or la["apply_fused2"] or any(f.calls for f in plains)):
+            la = read_all_counts(f"[down {label}]")
+            if la != ({"apply_fused_blocked": want_k7} if want_k7 else {}):
                 fail(f"[down {label}] launches {la}, want K7 {want_k7}")
         if n != len(end):
             fail(f"[down {label}] length {n} != {len(end)}")
@@ -1358,6 +1335,306 @@ def run_down_phases(dev, bound) -> list[dict]:
     return rows
 
 
+def port_counters():
+    """Every kernel wrapper of the port (its ``launches``) and every plain
+    version (its ``calls``)."""
+    from crdt_benches_tpu_torch.ops import apply_range_fused as arf
+    from crdt_benches_tpu_torch.ops import expand as ex
+    from crdt_benches_tpu_torch.ops import resolve as rs
+    from crdt_benches_tpu_torch.ops import resolve_range as rr
+    from crdt_benches_tpu_torch.ops import serve_fused as sf
+
+    kernels = (rr.resolve_range, rr.resolve_range_rows, arf.range_apply,
+               arf.range_apply_blocked, sf.serve_macro_fused,
+               rs.resolve_batch, arf.apply_fused2, ex.apply_fused_blocked,
+               ex.expand_packed, ex.expand_fill_zero)
+    plains = (rr.resolve_range_plain, rr.resolve_range_rows_plain,
+              arf.range_apply_plain, sf.serve_macro_plain,
+              rs.resolve_batch_plain, arf.apply_fused2_plain,
+              ex.apply_fused_blocked_plain, ex.expand_packed_plain,
+              ex.expand_fill_zero_plain)
+    return kernels, plains
+
+
+def zero_all_counts() -> None:
+    kernels, plains = port_counters()
+    for f in kernels:
+        f.launches = 0
+    for f in plains:
+        f.calls = 0
+
+
+def read_all_counts(tag: str) -> dict[str, int]:
+    """The launches since :func:`zero_all_counts`, by kernel; fails if a
+    plain version ran."""
+    kernels, plains = port_counters()
+    called = {f.__name__: f.calls for f in plains if f.calls}
+    if called:
+        fail(f"{tag}: plain versions called on the path: {called}")
+    return {f.__name__: f.launches for f in kernels if f.launches}
+
+
+#: The runner cells ``[runner]`` drives (``bench/runner.py`` flags, then
+#: the kernels each call must launch): the upstream columns at the width
+#: of ``bench_results/up_r5_*.json`` (R = 1024; batch 1536 for ``torch``,
+#: 256 for ``torch-unit``), the downstream columns at the width of
+#: ``down_r5.json`` (R = 64) and the merge columns of
+#: ``merge_traces_r5_jax.json`` (R = 64).
+RUNNER_CALLS = (
+    (["--filter", "upstream", "--traces", "sveltecomponent,automerge-paper",
+      "--backends", "cpp-rope,cpp-crdt,cpp-cola,torch", "--replicas", "1024",
+      "--batch", "1536"], ("resolve_range", "range_apply")),
+    (["--filter", "upstream", "--traces", "sveltecomponent,automerge-paper",
+      "--backends", "torch-unit", "--replicas", "1024", "--batch", "256"],
+     ("resolve_batch", "apply_fused2")),
+    (["--filter", "downstream", "--traces", "sveltecomponent", "--backends",
+      "cpp-crdt,torch,torch-range,torch-runs", "--replicas", "64",
+      "--batch", "256"], ("resolve_batch", "apply_fused_blocked")),
+    (["--filter", "merge", "--merge-configs", "traces", "--backends",
+      "cpp-crdt,torch-flat", "--replicas", "64"], ("resolve_batch",)),
+)
+
+
+def runner_phase(dev) -> dict[str, int]:
+    """``[runner]``: the port's bench matrix runner in-process with
+    ``--verify``, ``--samples 2 --warmup 1``, on ``RUNNER_CALLS``.  Each
+    call runs with every count set to 0 just before and read just after
+    (its kernels launched, no plain version called); a verify mismatch, a
+    skipped cell, a cell left unverified (every cell but the merge's
+    ``cpp-crdt`` reference is verified) or a missing record fails.  Prints each cell's id and
+    median and writes every record to ``bench_results/torch_chip.json``.
+    Returns the launches by kernel over all calls."""
+    import io
+
+    from crdt_benches_tpu_torch.backends.native import native_available
+    from crdt_benches_tpu_torch.bench import harness, runner
+
+    if not native_available():
+        fail("[runner] the native library does not build: its columns "
+             "would be skipped")
+    records, launches = [], {}
+    for argv, want_kernels in RUNNER_CALLS:
+        argv = argv + ["--samples", "2", "--warmup", "1", "--verify"]
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        zero_all_counts()
+        with contextlib.redirect_stderr(err), \
+                contextlib.redirect_stdout(io.StringIO()):
+            rc = runner.main(argv)
+        secs = time.perf_counter() - t0
+        la = read_all_counts(f"[runner] {' '.join(argv[:2])}")
+        lines = err.getvalue().splitlines()
+        if rc or any(ln.startswith(("skip", "verify FAILED")) or
+                     "MISMATCH" in ln for ln in lines):
+            fail(f"[runner] {' '.join(argv)}: exit {rc}; " + "; ".join(
+                ln for ln in lines if ln.startswith(("skip", "verify"))))
+        missing = [k for k in want_kernels if not la.get(k)]
+        if missing:
+            fail(f"[runner] {' '.join(argv)}: {missing} never launched "
+                 f"({la})")
+        with open(os.path.join(harness.RESULTS_DIR, "torch_latest.json")) \
+                as fh:
+            got = json.load(fh)
+        names = [t for t in argv[argv.index("--traces") + 1].split(",")] \
+            if "--merge-configs" not in argv else ["traces"]
+        cols = argv[argv.index("--backends") + 1].split(",")
+        if len(got) != len(names) * len(cols):
+            fail(f"[runner] {' '.join(argv)}: {len(got)} records for "
+                 f"{len(names)} x {len(cols)} cells")
+        verified = sum(ln.startswith("verify ") and ln.endswith(": ok")
+                       for ln in lines)
+        # every cell is verified but the merge's reference column
+        want_verified = len(names) * len(
+            [c for c in cols if c in runner.MERGE_TORCH]
+            if "--merge-configs" in argv else cols)
+        if verified != want_verified:
+            fail(f"[runner] {' '.join(argv)}: {verified} cells verified, "
+                 f"want {want_verified}")
+        for r in got:
+            print(f"[runner] {r['group']}/{r['trace']}/{r['backend']}: "
+                  f"median {r['median']:.6f} s ({len(r['samples'])} "
+                  f"samples), {r['elements_per_sec']:.1f} elements/s",
+                  flush=True)
+        print(f"[runner] {' '.join(argv[:8])} ...: {verified} cells "
+              f"verified byte-identical, launches {la}, plain calls 0 "
+              f"({secs:.1f} s)", flush=True)
+        records += got
+        for k, v in la.items():
+            launches[k] = launches.get(k, 0) + v
+    runner._merge_sim.cache_clear()  # free the merge cell's device logs
+    path = os.path.join(harness.RESULTS_DIR, "torch_chip.json")
+    with open(path, "w") as fh:
+        json.dump(records, fh, indent=2)
+    print(f"[runner] {len(records)} records written to "
+          f"{os.path.relpath(path, REPO)}", flush=True)
+    return launches
+
+
+#: The headline width (``models/flagship.py``) the v3 range replay runs at.
+V3_REPLICAS = 1024
+
+
+def range_v3_phase(dev, bound) -> dict:
+    """``[range v3]``: automerge-paper through the v3 range engine at the
+    headline width (``TorchReplayBackend(1024, batch 1536, layout="range",
+    range_engine="v3")``): K1's shared form, then ``apply_range_batch``, K4
+    at K = 1 (its scratch path at this capacity).  One counted replay (K1
+    and K4 once a batch, K2, K3 and every plain version never), three
+    timed;
+    every length the trace's, replicas 0 and R-1 byte-identical.  K4's
+    output is held against ``serve_apply_round_plain`` on the card at
+    every batch of a batch-by-batch walk at R = 1024 (the main path's
+    launch geometry) and every other batch at R = 8.  K4 is timed at
+    batch 3 of the R = 1024 walk (the rounds' inputs precomputed, CUDA
+    events) beside its plain round and bound.  Returns K4's row at this
+    shape."""
+    import torch
+
+    from crdt_benches_tpu_torch.backends.torch_backend import (
+        TorchReplayBackend,
+    )
+    from crdt_benches_tpu_torch.engine.replay_range import (
+        RangeReplayEngine,
+        _grow_state3,
+    )
+    from crdt_benches_tpu_torch.ops import apply_range as ar
+    from crdt_benches_tpu_torch.ops import resolve_range as rr
+    from crdt_benches_tpu_torch.ops import serve_fused as sf
+    from crdt_benches_tpu_torch.ops.apply2 import init_state3
+    from crdt_benches_tpu_torch.traces import load_testing_data
+
+    t_all = time.perf_counter()
+    trace = load_testing_data("automerge-paper")
+    end = trace.end_content
+    R = V3_REPLICAS
+    bk = TorchReplayBackend(n_replicas=R, batch=1536, layout="range",
+                            range_engine="v3", device=dev)
+    bk.prepare(trace)
+    eng = bk.engine
+    nb = eng.rt.n_batches
+    zero_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = bk.replay_once()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    la = read_all_counts("[range v3]")
+    if la != {"resolve_range": nb, "serve_macro_fused": nb}:
+        fail(f"[range v3] launches {la}, want K1 and K4 {nb} each")
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = bk.replay_once()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    if n != len(end):
+        fail(f"[range v3] replay length {n} != {len(end)}")
+    st = eng.run()
+    if not bool((st.nvis == len(end)).all()):
+        fail("[range v3] replica lengths differ from the trace's")
+    for r in (0, R - 1):
+        if eng.decode(st, r) != end:
+            fail(f"[range v3] replica {r} differs from the end content")
+    C = st.doc.shape[1]
+    del st
+
+    def walk(Rw, check, time_at=None):
+        """The v3 replay batch by batch at ``Rw`` replicas: K4 held
+        against the plain round where ``check(i)``; K4 and the plain
+        round timed at batch ``time_at``."""
+        e = RangeReplayEngine(eng.rt, n_replicas=Rw, engine="v3",
+                              device=dev)
+        st = init_state3(Rw, e.stage_caps[0], e.n_init, device=dev)
+        worst, timed, i = 0, {}, 0
+        for cap, (kind, pos, rlen, slot0) in zip(e.stage_caps, e.chunks):
+            st = _grow_state3(st, cap)
+            for j in range(kind.shape[0]):
+                tok, dints, _ = rr.resolve_range(kind[j], pos[j], rlen[j],
+                                                 slot0[j], st.nvis)
+                new = ar.apply_range_batch(st, tok, dints)
+                if check(i):
+                    want = sf.serve_apply_round_plain(st, tok, dints)
+                    err = max_err(tuple(new), tuple(want))
+                    if err:
+                        fail(f"[range v3] K4 != plain round at batch {i}, "
+                             f"R={Rw}: {err}")
+                    worst = max(worst, err)
+                if i == time_at:
+                    one = lambda xs: tuple(x.unsqueeze(0).contiguous()
+                                           for x in xs)
+                    t1, d1 = one(tok), one(dints)
+                    inputs = sf.serve_round_inputs(t1, d1, st.length,
+                                                   st.nvis)
+                    timed = {
+                        "ms": elapsed_ms(lambda: sf.serve_macro_fused(
+                            st, t1, d1, inputs=inputs), 10),
+                        "plain_ms": elapsed_ms(
+                            lambda: sf.serve_apply_round_plain(st, tok,
+                                                               dints), 3),
+                        "bound": k4_bound(bound, st.length, inputs[5],
+                                          d1[0].shape[2], t1[0].shape[2],
+                                          st.doc.shape[1]),
+                        "shape": (Rw, d1[0].shape[2], t1[0].shape[2],
+                                  st.doc.shape[1]),
+                        "geometry": sf.serve_macro_launch_geometry(
+                            Rw, st.doc.shape[1], dev)[:4],
+                    }
+                st = new
+                i += 1
+        return worst, timed
+
+    t0 = time.perf_counter()
+    err8, _ = walk(8, lambda i: i % 2 == 0)
+    check_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    err_r, timed = walk(R, lambda i: True, time_at=3)
+    check_r_s = time.perf_counter() - t0
+    med = sorted(secs)[1]
+    print(f"[range v3] automerge-paper R={R} B=1536 C={C}: {nb} batches, "
+          f"all {R} lengths {len(end)}, replicas 0 and {R - 1} "
+          f"byte-identical; counted replay {first_s:.4f} s, timed "
+          f"{[round(x, 4) for x in secs]} s, median {med:.4f} s = "
+          f"{len(trace) * R / med:.1f} elements/s; launches per "
+          f"replay {la}, plain calls 0; K4 equals serve_apply_round_plain "
+          f"at every batch at R={R} (max abs error {err_r}, "
+          f"{check_r_s:.1f} s with the timing) and every other batch at R=8 "
+          f"(max abs error {err8}, {check_s:.1f} s)"
+          f"; K4 at (R, B, T, C) = {timed['shape']}, geometry (n, slice, "
+          f"smem, resident) {timed['geometry']}: {timed['ms']:.4f} ms a "
+          f"launch, plain round {timed['plain_ms']:.4f} ms, bound "
+          f"{timed['bound'][0]:.4f} ms ({timed['bound'][1]}) "
+          f"({time.perf_counter() - t_all:.1f} s)", flush=True)
+    return kernel_row(
+        "serve_macro_fused (v3 range replay, K = 1, (R, B, T, C) = "
+        f"{timed['shape']})", "serve_macro.cu", "serve_fused.py:685",
+        la["serve_macro_fused"], max(err_r, err8), timed["ms"],
+        timed["plain_ms"],
+        timed["bound"])
+
+
+def entry_phase(dev) -> None:
+    """``[entry]``: ``entry()``'s step on the card against the same step
+    at ``device="cpu"`` (all five outputs, max abs error 0), with every
+    count set to 0 just before: K1 and the range apply the dispatch takes
+    at R = 4 once each."""
+    from crdt_benches_tpu_torch.entry import entry
+
+    step, args = entry(device=dev)
+    cstep, cargs = entry(device="cpu")
+    zero_all_counts()
+    out = step(*args)
+    la = read_all_counts("[entry]")
+    want = cstep(*cargs)
+    err = max_err(tuple(o.cpu() for o in out), tuple(want))
+    if err or la.get("resolve_range") != 1 or sum(la.values()) != 2:
+        fail(f"[entry] max abs error {err}, launches {la}")
+    print(f"[entry] entry() step on {dev} equals device='cpu' in all five "
+          f"outputs (max abs error {err}); launches {la}; doc "
+          f"{tuple(out[0].shape)}, lengths {out[3].cpu().tolist()}",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1390,6 +1667,7 @@ def main() -> int:
         tensorize_ranges,
     )
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1707,7 +1985,7 @@ def main() -> int:
           + f"; sum {sum(stages.values()):.2f} of {wall:.2f} ms wall "
           "(wall includes state init; apply as dispatched)", flush=True)
 
-    def main_path(bk, trace, counters, plains, tag, absent=()):
+    def main_path(bk, trace, counters, tag, absent=()):
         """Drive ``bk`` on ``trace``: 1 warm-up and 3 timed replays, each
         with every count set to 0 just before and read just after; every
         kernel in ``counters`` must launch once per batch, every kernel in
@@ -1722,26 +2000,20 @@ def main() -> int:
         samples = []
         launches = {}
         for _ in range(3):
-            for f in (*counters, *absent):
-                f.launches = 0
-            for f in plains:
-                f.calls = 0
+            zero_all_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             n = bk.replay_once()
             torch.cuda.synchronize()
             samples.append(time.perf_counter() - t0)
-            launches = {f.__name__: f.launches for f in counters}
-            plain_calls = {f.__name__: f.calls for f in plains}
+            la = read_all_counts(tag)
+            launches = {f.__name__: la.get(f.__name__, 0) for f in counters}
             if any(v != nb for v in launches.values()):
                 fail(f"{tag}: launches per replay {launches}, want {nb} each")
-            if any(f.launches for f in absent):
+            if any(la.get(f.__name__) for f in absent):
                 fail(f"{tag}: launched " + ", ".join(
-                    f"{f.__name__} {f.launches}x" for f in absent
-                    if f.launches) + " on this path")
-            if any(plain_calls.values()):
-                fail(f"{tag}: plain versions called on the main path: "
-                     f"{plain_calls}")
+                    f"{f.__name__} {la[f.__name__]}x" for f in absent
+                    if la.get(f.__name__)) + " on this path")
         if n != len(trace.end_content):
             fail(f"{tag}: replay length {n} != {len(trace.end_content)}")
         st = eng.run()
@@ -1771,8 +2043,7 @@ def main() -> int:
     if arf.range_apply_takes_blocked(1024, bk.engine.capacity, sms):
         k_main, k_off = k_off, k_main
     launches = main_path(
-        bk, trace, (rr.resolve_range, k_main),
-        (rr.resolve_range_plain, arf.range_apply_plain), "main",
+        bk, trace, (rr.resolve_range, k_main), "main",
         absent=(k_off,),
     )
     del bk
@@ -1782,8 +2053,7 @@ def main() -> int:
                             device=dev)
     bk.prepare(trace)
     r1_launches = main_path(
-        bk, trace, (rr.resolve_range, arf.range_apply_blocked),
-        (rr.resolve_range_plain, arf.range_apply_plain), "range R=1",
+        bk, trace, (rr.resolve_range, arf.range_apply_blocked), "range R=1",
         absent=(arf.range_apply,),
     )
     del bk
@@ -1995,21 +2265,16 @@ def main() -> int:
         key, _, kern, plain, _, init, _ = unit[eng]
         t0 = time.perf_counter()
         e64 = ReplayEngine(am, n_replicas=64, engine=eng, device=dev)
-        pair = (rs.resolve_batch, kern)
-        for f in pair:
-            f.launches = 0
-        for f in (rs.resolve_batch_plain, plain, arf.apply_fused2_plain):
-            f.calls = 0
+        zero_all_counts()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         st = e64.run()
         lengths_ok(st, f"{eng} R=64")
         secs = time.perf_counter() - t1
-        la = {f.__name__: f.launches for f in pair}
-        pc = (rs.resolve_batch_plain.calls + plain.calls
-              + arf.apply_fused2_plain.calls)
-        if any(v != am.n_batches for v in la.values()) or pc:
-            fail(f"{eng} replay: launches {la}, plain calls {pc}")
+        la = read_all_counts(f"{eng} replay")
+        if la != {"resolve_batch": am.n_batches, kern.__name__: am.n_batches}:
+            fail(f"{eng} replay: launches {la}, want K5 and "
+                 f"{kern.__name__} {am.n_batches} each")
         for r in (0, 63):
             if e64.decode(st, r) != trace.end_content:
                 fail(f"{eng} replay: replica {r} differs from the end content")
@@ -2040,9 +2305,7 @@ def main() -> int:
                             device=dev)
     bk.prepare(trace)
     unit_launches = main_path(
-        bk, trace, (rs.resolve_batch, arf.apply_fused2),
-        (rs.resolve_batch_plain, arf.apply_fused2_plain), "unit main",
-    )
+        bk, trace, (rs.resolve_batch, arf.apply_fused2), "unit main")
     # one more replay, stage by stage, with K5 and K6 held against their
     # plain versions (both flags each way) and timed at a late batch
     ustages: dict[str, float] = {}
@@ -2080,18 +2343,7 @@ def main() -> int:
     from crdt_benches_tpu_torch.models import flagship
     from crdt_benches_tpu_torch.ops.idpos import snap_rebuild
 
-    kernels_all = (rs.resolve_batch, arf.apply_fused2, ex.expand_packed,
-                   ex.expand_fill_zero, ex.apply_fused_blocked)
-    plains_all = (rs.resolve_batch_plain, arf.apply_fused2_plain,
-                  ex.expand_packed_plain, ex.expand_fill_zero_plain,
-                  ex.apply_fused_blocked_plain)
     derr = {"k7": 0, "k6nocv": 0}
-
-    def zero_counts():
-        for f in kernels_all:
-            f.launches = 0
-        for f in plains_all:
-            f.calls = 0
 
     def time_down_batch(tag, ops):
         """K7, K6 without cv, K7's plain version and torch.gather on the
@@ -2216,15 +2468,15 @@ def main() -> int:
     # the recorded downstream width: R = 64, B = 256; updates generated
     # untimed (K5 on one replica, emit_origin on), counted
     t0 = time.perf_counter()
-    zero_counts()
+    zero_all_counts()
     dbk = dsm.TorchDownstreamBackend(n_replicas=64, batch=256, device=dev)
     dbk.prepare(trace)
     deng = dbk.engine
-    gen_k5 = rs.resolve_batch.launches
-    if gen_k5 != deng.n_batches or any(f.calls for f in plains_all):
-        fail(f"downstream generation: K5 launched {gen_k5} times for "
-             f"{deng.n_batches} batches, plain calls "
-             f"{[f.calls for f in plains_all]}")
+    gen = read_all_counts("downstream generation")
+    gen_k5 = gen.get("resolve_batch", 0)
+    if gen != {"resolve_batch": deng.n_batches}:
+        fail(f"downstream generation: launches {gen} for {deng.n_batches} "
+             "batches, want K5 once a batch")
     dcap, dinit = deng.upd.capacity, deng.upd.n_init
     wire = (deng.ins_b, deng.anchor_b, deng.rank_b, deng.dslot_b)
     print(f"[down gen] automerge-paper B=256: {deng.n_batches} update "
@@ -2255,7 +2507,7 @@ def main() -> int:
 
     # the downstream path at the recorded width: K7 once per batch
     down_launches = main_path(
-        dbk, trace, (ex.apply_fused_blocked,), plains_all, "down main",
+        dbk, trace, (ex.apply_fused_blocked,), "down main",
         absent=(arf.apply_fused2, rs.resolve_batch, ex.expand_packed,
                 ex.expand_fill_zero),
     )
@@ -2284,17 +2536,17 @@ def main() -> int:
     feng = flagship.downstream(trace, device=dev)
     gen_s = time.perf_counter() - t0
     fR = feng.n_replicas
-    zero_counts()
+    zero_all_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st = feng.run()
     torch.cuda.synchronize()
     rep_s = time.perf_counter() - t0
-    fl = {f.__name__: f.launches for f in kernels_all}
-    if (fl["apply_fused_blocked"] != feng.n_batches or fl["apply_fused2"]
-            or any(f.calls for f in plains_all)):
+    fl = read_all_counts("flagship downstream")
+    if fl.get("apply_fused_blocked") != feng.n_batches or fl.get(
+            "apply_fused2"):
         fail(f"flagship downstream: launches {fl} for {feng.n_batches} "
-             f"batches, plain calls {[f.calls for f in plains_all]}")
+             "batches")
     if not bool((st.nvis == end_am).all()):
         fail("flagship downstream: lengths differ from the trace's")
     for r in (0, fR - 1):
@@ -2335,19 +2587,16 @@ def main() -> int:
         t0 = time.perf_counter()
         e = dsm.DownstreamEngine(am, n_replicas=64, engine=ename, device=dev)
         gen_s = time.perf_counter() - t0
-        zero_counts()
+        zero_all_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st = e.run()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        la = {f.__name__: f.launches for f in kernels_all}
-        want = {f.__name__: 0 for f in kernels_all}
-        if ename == "v3":
-            want["expand_packed"] = e.n_batches
-        if la != want or any(f.calls for f in plains_all):
-            fail(f"downstream {ename}: launches {la}, want {want}; plain "
-                 f"calls {[f.calls for f in plains_all]}")
+        la = read_all_counts(f"downstream {ename}")
+        want = {"expand_packed": e.n_batches} if ename == "v3" else {}
+        if la != want:
+            fail(f"downstream {ename}: launches {la}, want {want}")
         lengths_ok(st, f"downstream {ename}")
         for r in (0, 63):
             if e.decode(st, r) != trace.end_content:
@@ -2356,7 +2605,7 @@ def main() -> int:
         del st, e
         print(f"[down {ename}] automerge-paper R=64 B=256: all lengths "
               f"{end_am}, replicas 0 and 63 byte-identical; launches "
-              f"{ {k: v for k, v in la.items() if v} or 'none (no kernel)'}"
+              f"{la or 'none (no kernel)'}"
               f", plain calls 0; generation {gen_s:.1f} s, one replay "
               f"{secs:.4f} s", flush=True)
 
@@ -2428,6 +2677,14 @@ def main() -> int:
     rows += run_down_phases(dev, bound)
     print(f"[down runs] all run-granular downstream phases "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # ---- the bench matrix runner, the v3 range engine, entry() ----
+    t0 = time.perf_counter()
+    runner_launches = runner_phase(dev)
+    print(f"[runner] all runner calls {time.perf_counter() - t0:.1f} s; "
+          f"launches {runner_launches}", flush=True)
+    rows.append(range_v3_phase(dev, bound))
+    entry_phase(dev)
+    print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

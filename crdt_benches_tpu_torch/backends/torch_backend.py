@@ -22,7 +22,7 @@ from .base import BatchedReplay
 class TorchReplayBackend(BatchedReplay):
     def __init__(self, n_replicas: int = 1, batch: int = 512,
                  layout: str | None = None, pack: int = 8,
-                 unit_engine: str = "v4",
+                 unit_engine: str = "v4", range_engine: str = "v4",
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.n_replicas = n_replicas
@@ -34,8 +34,20 @@ class TorchReplayBackend(BatchedReplay):
         self.pack = pack
         #: the unit engine's apply: 'v4' (fused, default), 'v3' or 'v2'
         self.unit_engine = unit_engine
+        #: the range engine's apply: 'v4' (K2/K3 on the maintained-cv
+        #: state, default) or 'v3' (K4 at K = 1 on the packed state)
+        self.range_engine = range_engine
         self._eng: RangeReplayEngine | ReplayEngine | None = None
         self._end_len = 0
+
+    @property
+    def NAME(self) -> str:  # type: ignore[override]
+        """``torch-<device type>[-r<R>][-<layout>]``: the bench column."""
+        return (
+            f"torch-{self.device.type}"
+            + (f"-r{self.n_replicas}" if self.n_replicas > 1 else "")
+            + (f"-{self.layout}" if self.layout else "")
+        )
 
     @property
     def replicas(self) -> int:
@@ -71,7 +83,7 @@ class TorchReplayBackend(BatchedReplay):
             )
             self._eng = RangeReplayEngine(
                 rt, n_replicas=self.n_replicas, pack=self.pack,
-                device=self.device,
+                engine=self.range_engine, device=self.device,
             )
         else:
             raise ValueError(f"unknown layout {layout!r}")

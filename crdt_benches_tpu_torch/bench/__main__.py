@@ -97,9 +97,9 @@ def _downstream_baselines(trace, samples: int) -> dict:
     """cpp-crdt downstream rate: applying its own encoded updates."""
     from ..backends.native import CppCrdtDownstream
 
-    native = CppCrdtDownstream(trace)  # untimed generation
+    native, _ = CppCrdtDownstream.upstream_updates(trace)  # untimed
     return {"cpp_downstream_els_per_sec":
-            _native_rate(trace, native.apply_all, samples)}
+            _native_rate(trace, native.apply_all_native, samples)}
 
 
 def _replay_metric(args, backend, kind, rates):

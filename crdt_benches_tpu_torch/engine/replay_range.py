@@ -1,7 +1,9 @@
-"""Range-op replay driver (the JAX package's ``engine/replay_range.py``,
-engine v4): per op batch, the resolver K1 then the fused range apply (K2
-or K3, as ``range_apply_dispatch`` picks), over the maintained-cv packed
-state, replicated R times.
+"""Range-op replay engine (the JAX package's ``engine/replay_range.py``):
+per op batch the resolver K1, then the range apply, replicated R times.
+Engine ``v4`` (default) applies with the fused range apply (K2 or K3, as
+``range_apply_dispatch`` picks) on the maintained-cv ``PackedState4``;
+engine ``v3`` with ``apply_range_batch`` (K4 at K = 1) on a
+``PackedState``.
 
 The batches run in chunks of ``chunk`` batches; each chunk runs at a
 staged capacity that covers its end-of-chunk used length (the document
@@ -17,7 +19,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.apply2 import PackedState, PackedState4, decode_state3, init_state4
+from ..ops.apply2 import (
+    PackedState,
+    PackedState4,
+    decode_state3,
+    init_state3,
+    init_state4,
+)
+from ..ops.apply_range import apply_range_batch
 from ..ops.apply_range_fused import apply_range_batch4
 from ..ops.resolve_range import effective_token_list_size, resolve_range
 from ..traces.tensorize import INSERT, RangeTrace
@@ -29,17 +38,38 @@ from .replay import _grow_state4, _round_up, _stage_capacity
 MAX_CAPACITY = 1 << 29
 
 
-def replay_ranges(state: PackedState4, kind_b, pos_b, rlen_b, slot0_b):
+ENGINES = ("v4", "v3")
+
+
+def _grow_state3(state: PackedState, new_cap: int) -> PackedState:
+    """Pad a PackedState's capacity axis to new_cap (doc pads with
+    pack_doc(-1, 0) == 2, the beyond-length code every apply re-stamps)."""
+    R, C = state.doc.shape
+    if new_cap <= C:
+        return state
+    return PackedState(
+        doc=torch.cat([state.doc, state.doc.new_full((R, new_cap - C), 2)],
+                      dim=1),
+        length=state.length,
+        nvis=state.nvis,
+    )
+
+
+def replay_ranges(state, kind_b, pos_b, rlen_b, slot0_b):
     """Replay the range batches kind_b/pos_b/rlen_b/slot0_b int32[N, B]
-    into ``state``.  Returns (state, max resolver token demand as a 0-d
+    into ``state``: a ``PackedState4`` goes through the fused apply (v4), a
+    ``PackedState`` through ``apply_range_batch`` (v3), each batch after
+    K1's shared form.  Returns (state, max resolver token demand as a 0-d
     device tensor)."""
+    apply = (apply_range_batch4 if isinstance(state, PackedState4)
+             else apply_range_batch)
     mx = torch.zeros((), dtype=torch.int32, device=state.doc.device)
     for i in range(kind_b.shape[0]):
         tokens, dints, nused = resolve_range(
             kind_b[i], pos_b[i], rlen_b[i], slot0_b[i], state.nvis
         )
         mx = torch.maximum(mx, nused.max())
-        state = apply_range_batch4(state, tokens, dints)
+        state = apply(state, tokens, dints)
     return state, mx
 
 
@@ -52,14 +82,19 @@ class RangeReplayEngine:
         n_replicas: int = 1,
         chunk: int = 32,
         pack: int = 4,
+        engine: str = "v4",
         device: str | torch.device = "cuda",
     ):
+        if engine not in ENGINES:
+            raise ValueError(f"unknown range engine {engine!r}")
         self.device = resolve_device(device)
         self.rt = rt
         self.n_replicas = n_replicas
-        # capacities round to 1024 positions, as the reference's v4 engine
-        # does, so both engines stage through the same shapes
-        lane = 8 * 128
+        self.engine = engine
+        # capacities round to 1024 positions on v4 and 128 on v3, as the
+        # reference's engines do, so both packages stage through the same
+        # shapes
+        lane = 8 * 128 if engine == "v4" else 128
         self.capacity = _round_up(max(rt.capacity, 1), lane)
         if self.capacity > MAX_CAPACITY:
             raise ValueError(
@@ -100,18 +135,21 @@ class RangeReplayEngine:
         chars[: rt.capacity] = rt.chars
         self.chars = as_t(chars)
 
-    def run(self, state: PackedState4 | None = None) -> PackedState4:
+    def run(self, state=None):
+        """Replay every batch into ``state`` (default: a fresh document,
+        ``PackedState4`` on v4, ``PackedState`` on v3); returns the final
+        state."""
+        init, grow = ((init_state4, _grow_state4) if self.engine == "v4"
+                      else (init_state3, _grow_state3))
         st = (
-            init_state4(
-                self.n_replicas, self.stage_caps[0], self.n_init,
-                device=self.device,
-            )
+            init(self.n_replicas, self.stage_caps[0], self.n_init,
+                 device=self.device)
             if state is None
             else state
         )
         demands = []
         for cap, (kind, pos, rlen, slot0) in zip(self.stage_caps, self.chunks):
-            st = _grow_state4(st, cap)
+            st = grow(st, cap)
             st, mx = replay_ranges(st, kind, pos, rlen, slot0)
             demands.append(mx)
         # one host fetch after the loop: an undersized token list is a
@@ -127,10 +165,10 @@ class RangeReplayEngine:
                     )
         return st
 
-    def decode(self, state: PackedState4, replica: int = 0) -> str:
+    def decode(self, state, replica: int = 0) -> str:
         s3 = PackedState(doc=state.doc, length=state.length, nvis=state.nvis)
         codes, _ = decode_state3(s3, self.chars, replica=replica)
         return "".join(map(chr, codes.cpu().tolist()))
 
-    def lengths(self, state: PackedState4) -> np.ndarray:
+    def lengths(self, state) -> np.ndarray:
         return np.atleast_1d(state.nvis.cpu().numpy())

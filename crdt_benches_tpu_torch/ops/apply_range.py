@@ -1,5 +1,6 @@
-"""Token-axis helpers of the range apply (the parts of the JAX package's
-``ops/apply_range.py`` that the fused v4 producer uses).
+"""The v3 range apply on a ``PackedState`` (the JAX package's
+``ops/apply_range.py``) and the token-axis helpers that it and the fused v4
+producer use.
 
 Deletes arrive as per-op PRE-BATCH RANK intervals [lo, hi]: visible
 chars with ranks in the interval are exactly the delete's targets (ranks
@@ -46,3 +47,19 @@ def _prev_value(x, mask):
     prev = torch.cat([torch.full_like(last[:, :1], -1), last[:, :-1]], dim=1)
     val = x.gather(1, prev.clamp(min=0))
     return torch.where(mask & (prev >= 0), val, 0)
+
+
+def apply_range_batch(state, tokens, dints):
+    """One batch's range apply on a ``PackedState`` (engine v3): tokens
+    (ttype, ta, tch, tlen) int32[R, T] and dints (dlo, dhi, dcount)
+    int32[R, B] from the batch's resolve against ``state.nvis``.  This is
+    one round of the serving fleet's macro apply: on a CUDA tensor it
+    launches K4 at K = 1 (``serve_macro_fused``, which counts the launch);
+    on a CPU tensor it runs the plain round, ``serve_apply_round_plain``.
+    Returns the new state."""
+    from .serve_fused import serve_macro_fused  # serve_fused imports this
+
+    def one(xs):
+        return tuple(x.unsqueeze(0).contiguous() for x in xs)
+
+    return serve_macro_fused(state, one(tokens), one(dints))

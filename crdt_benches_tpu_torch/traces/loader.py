@@ -3,7 +3,8 @@
 ``(pos, del_count, ins)`` patches; ``len()`` is the patch count, the
 throughput element count).
 
-Positions and delete counts are in character (codepoint) units.  Pure
+Positions and delete counts are in character (codepoint) units;
+``TestData.chars_to_bytes`` rewrites them into UTF-8 byte units.  Pure
 Python and the standard library.
 """
 
@@ -60,6 +61,41 @@ class TestData:
     def iter_patches(self) -> Iterator[TestPatch]:
         for txn in self.txns:
             yield from txn.patches
+
+    def chars_to_bytes(self) -> "TestData":
+        """The same trace with positions and delete counts in UTF-8 byte
+        units, for byte-addressed backends.  Only multi-byte chars make
+        the two differ, so this tracks the char positions of those in the
+        evolving document (O(#multi-byte chars) a patch)."""
+        # (char_pos, extra_bytes) of each multi-byte char in the document
+        extras: list[list[int]] = [
+            [i, len(c.encode("utf-8")) - 1]
+            for i, c in enumerate(self.start_content)
+            if ord(c) >= 128
+        ]
+        new_txns: list[TestTxn] = []
+        for txn in self.txns:
+            new_patches: list[TestPatch] = []
+            for pos, del_count, ins in txn.patches:
+                byte_pos = pos + sum(e for p, e in extras if p < pos)
+                byte_del = del_count + sum(
+                    e for p, e in extras if pos <= p < pos + del_count
+                )
+                new_patches.append(TestPatch(byte_pos, byte_del, ins))
+                shift = len(ins) - del_count
+                extras = [
+                    [p + shift if p >= pos + del_count else p, e]
+                    for p, e in extras
+                    if not (pos <= p < pos + del_count)
+                ]
+                extras.extend(
+                    [pos + i, len(c.encode("utf-8")) - 1]
+                    for i, c in enumerate(ins)
+                    if ord(c) >= 128
+                )
+                extras.sort()
+            new_txns.append(TestTxn(txn.time, new_patches))
+        return TestData(self.start_content, self.end_content, new_txns)
 
 
 def trace_path(name: str, trace_dir: str | None = None) -> str:

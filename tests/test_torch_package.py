@@ -26,6 +26,13 @@ from crdt_benches_tpu.engine.downstream import (
     down_packed_init as jax_down_packed_init,
 )
 from crdt_benches_tpu_torch.bench.merge import merge_sim
+from crdt_benches_tpu_torch.bench.runner import (
+    run_downstream,
+    run_merge,
+    run_upstream,
+    verify_upstream,
+)
+from crdt_benches_tpu_torch.entry import entry
 from crdt_benches_tpu_torch.engine.downstream import (
     DownstreamEngine,
     TorchDownstreamBackend,
@@ -89,7 +96,7 @@ def test_port_imports_no_jax_and_no_reference_module():
     )
     assert done.returncode == 0, done.stderr
     n, old = done.stdout.split(" ", 1)
-    assert int(n) >= 41  # every module of the port was imported
+    assert int(n) >= 56  # every module of the port was imported
     assert old.strip() == "[]"
     for mod in ("ops.idpos", "ops.apply", "engine.downstream",
                 "ops.packing", "ops.serve_fused", "oracle.text_oracle",
@@ -97,7 +104,10 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "serve.pool", "serve.scheduler", "serve.bench",
                 "engine.merge", "engine.downstream_range",
                 "engine.merge_range", "engine.downstream_flat",
-                "utils.digest", "bench.merge", "bench.nocv_versus"):
+                "utils.digest", "bench.merge", "bench.nocv_versus",
+                "bench.runner", "bench.report", "bench.dump_trace",
+                "bench.harness", "backends.reconcile", "backends.base",
+                "backends.native", "entry"):
         assert os.path.exists(os.path.join(
             REPO, "crdt_benches_tpu_torch", *mod.split(".")) + ".py"), mod
 
@@ -144,6 +154,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                                           schedule="batched"),
         lambda: down_packed_from_jax({}),
         lambda: down_state_from_jax({}),
+        lambda: RangeReplayEngine(rt, engine="v3"),
+        lambda: TorchReplayBackend(range_engine="v3"),
+        lambda: entry(),
+        lambda: run_upstream("sveltecomponent", "torch", 1, 0, 1, 1536),
+        lambda: run_downstream("sveltecomponent", "torch", 1, 0),
+        lambda: run_merge("synthetic", "torch-flat", 1, 0, 1, 16, 320),
+        lambda: verify_upstream("sveltecomponent", "torch-unit", 1, 256),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
