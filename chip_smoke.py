@@ -104,6 +104,13 @@ Phases (one line each; any failure exits non-zero):
     dispatch, no plain version, evictions, restores and promotions, every
     document byte-identical to the oracle, its host phases and device
     spans; and the device's idle share over a third, profiled drain;
+    then ``[serve scan]``: the same cell drained through the ``scan``
+    serve kernel (``engine/merge_fleet.py``: K1's per-row form and K4,
+    each at K = 1, once a round), every document byte-identical to the
+    oracle, every bucket state, row map and doc record and every counter
+    equal to the fused drain's, its latency and spans; K1's per-row form
+    and K4 at K = 1 held against their plain versions and timed on round 0
+    of the fused drain's kept dispatches;
 15. the concurrent merges (``bench/merge.py``, ``--group merge``):
     merge/traces (rustcode and seph-blog1, 1,348,053 delivered ops)
     through the unit, run and flat engines at 64 replicas and through the
@@ -138,7 +145,19 @@ Phases (one line each; any failure exits non-zero):
     batch at 8 replicas; K4 timed at batch 3 beside its plain round and
     bound;
 19. ``[entry]``: ``entry()``'s step on the card against the same step on
-    the CPU, all five outputs equal.
+    the CPU, all five outputs equal;
+20. ``[mesh]``: the replica mesh (``parallel/mesh.py``) over NCCL at world
+    size 1 (this machine's one card): ``sharded_downstream_runs`` on
+    automerge-paper at 64 subscribers (digests equal to the run
+    downstream backend's), ``sharded_merge_runs`` on merge/traces (replica
+    0 equal to the native treap's merge), ``sharded_replay_and_digest`` on
+    the whole automerge-paper trace at B = 256, R = 64 (digests equal to
+    the one-replica v1 engine's), and the v1 and packed sharded merges of
+    the dry run's streams, each counted (K7, K7, K5, both), timed and its
+    converged flag read from the collective; K5 and K7 held against their
+    plain versions on one batch of these paths;
+21. ``[dryrun]``: ``entry.dryrun_multichip(1)`` on the card and on the
+    CPU (gloo), the same three digests.
 
 The line before the last holds the kernels' numbers as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -452,6 +471,41 @@ def serve_phases(dev, bound) -> list[dict]:
           f"{k1_bound[0]:.4f} ms ({k1_bound[1]}); rows of inserts at 0 in "
           f"every round, equal to the plain version and the round starts: "
           f"{k1w_ms:.4f} ms", flush=True)
+    # the scan kernel's shapes (K = 1): round 0 of each kept dispatch, the
+    # round the scan kernel applies first there; timed queued behind a
+    # device sleep (a launch at K = 1 can be shorter than its wrapper's
+    # host time) and back to back, at the host's pace
+    scan_at = {}
+    for (C, Rt), (st, tokens, dints) in sorted(k4_keep.items()):
+        t1 = tuple(t[:1] for t in tokens)
+        d1 = tuple(d[:1] for d in dints)
+        e = max_err(tuple(sf.serve_macro_fused(st, t1, d1)),
+                    tuple(sf.serve_macro_plain(st, t1, d1)))
+        if e:
+            fail(f"K4 at K = 1 != plain at (Rt, C) = {(Rt, C)}: {e}")
+        err["k4_k1"] = max(err.get("k4_k1", 0), e)
+        inputs = sf.serve_round_inputs(t1, d1, st.length, st.nvis)
+        launch = lambda: sf.serve_macro_fused(st, t1, d1, inputs=inputs)
+        scan_at[C, Rt] = (queued_ms(launch, 20),
+                          k4_bound(bound, st.length, inputs[5],
+                                   d1[0].shape[2], t1[0].shape[2], C),
+                          elapsed_ms(launch, 20))
+        if (C, Rt) == (top, widest[top]):
+            scan_at["k4_plain_ms"] = elapsed_ms(
+                lambda: sf.serve_macro_plain(st, t1, d1), 3)
+    a1 = tuple(x[:1] for x in args[:4]) + (args[4],)
+    got1 = rr.resolve_range_rows(*a1)
+    want1 = rr.resolve_range_rows_plain(*a1)
+    err["k1rows_k1"] = max_err((*got1[0], *got1[1], got1[2]),
+                               (*want1[0], *want1[1], want1[2]))
+    if err["k1rows_k1"]:
+        fail(f"K1 rows at K = 1 != plain: {err['k1rows_k1']}")
+    scan_at["k1"] = (
+        queued_ms(lambda: rr.resolve_range_rows(*a1), 10),
+        elapsed_ms(lambda: rr.resolve_range_rows_plain(*a1), 1),
+        bound(4 * a1[0].numel() * 4 + R1r * 4
+              + R1r * (4 * T1r + 3 * B1r + 1) * 4, k1_rows_ops(*a1)),
+        elapsed_ms(lambda: rr.resolve_range_rows(*a1), 10))
     del keep, k4_keep, args, st, tokens, dints
 
     # ---- [serve]: the timed drain through the bench's entry point ----
@@ -480,7 +534,12 @@ def serve_phases(dev, bound) -> list[dict]:
         fail(f"serve drain: evictions {rep['evictions']}, restores "
              f"{rep['restores']}, promotions {rep['promotions']}")
     spans: dict[str, float] = {}
-    for name, a, b in held.pop("pool").spans:
+    fpool = held.pop("pool")  # closed: its spool is gone, its rows stay
+    fused_final = ({c: (list(b.rows), b.state.doc.cpu(), b.state.length.cpu(),
+                        b.state.nvis.cpu()) for c, b in fpool.buckets.items()},
+                   {d: (r.cls, r.row, r.length, r.last_sched, r.spool is None)
+                    for d, r in fpool.docs.items()})
+    for name, a, b in fpool.spans:
         spans[name] = spans.get(name, 0.0) + a.elapsed_time(b)
 
     # ---- the device's idle share over a whole drain ----
@@ -516,6 +575,75 @@ def serve_phases(dev, bound) -> list[dict]:
           + "; device span ms (CUDA events, include device waits on the "
           "host): " + ", ".join(f"{k} {v:.2f}" for k, v in spans.items())
           + f"; {idle} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    del fpool
+
+    # ---- [serve scan]: the same cell through the scan serve kernel ----
+    t0 = time.perf_counter()
+    held = {}
+    srep = run_serve_bench(**cell, serve_kernel="scan", device=dev,
+                           pool_hook=arm,
+                           log=lambda m: print(f"[serve scan] {m}",
+                                               flush=True))
+    scan_launches = read_all_counts("serve scan drain")
+    spool = held.pop("pool")
+    n_sl = srep["device_rounds"]
+    if scan_launches != {"resolve_range_rows": n_sl,
+                         "serve_macro_fused": n_sl}:
+        fail(f"serve scan drain: launches {scan_launches} for {n_sl} "
+             "rounds")
+    if not (srep["verify_ok"] and srep["verify"] == "all"
+            and srep["verified_docs"] == cell["n_docs"]):
+        fail(f"serve scan drain: verify {srep['verify']} ok "
+             f"{srep['verify_ok']} on {srep['verified_docs']} docs")
+    same = ("patches", "rounds", "device_rounds", "dispatches", "range_ops",
+            "unit_ops", "coalesce_ratio", "pad_fraction", "evictions",
+            "restores", "promotions", "admissions")
+    differ = [k for k in same if srep[k] != rep[k]]
+    buckets, records = fused_final
+    for c, b in spool.buckets.items():
+        rows_f, doc, length, nvis = buckets[c]
+        if not (b.rows == rows_f and torch.equal(b.state.doc.cpu(), doc)
+                and torch.equal(b.state.length.cpu(), length)
+                and torch.equal(b.state.nvis.cpu(), nvis)):
+            differ.append(f"bucket c{c}")
+    if {d: (r.cls, r.row, r.length, r.last_sched, r.spool is None)
+            for d, r in spool.docs.items()} != records:
+        differ.append("doc records")
+    if differ:
+        fail(f"serve scan drain differs from the fused drain in {differ}")
+    sspans: dict[str, float] = {}
+    for name, a, b in spool.spans:
+        sspans[name] = sspans.get(name, 0.0) + a.elapsed_time(b)
+    del spool
+    slat = srep["batch_latency"]
+    sk1_ms, sk1_plain, sk1_b, sk1_paced = scan_at["k1"]
+    sk4_ms, sk4_b, _ = scan_at[top, widest[top]]
+    print(f"[serve scan] serve/{cell['mix']}/{cell['n_docs']} through the "
+          f"scan kernel: {srep['patches_per_sec']:.1f} patches/s "
+          f"({srep['wall_time']:.4f} s; fused {rep['patches_per_sec']:.1f} "
+          f"in this run); macro-round latency p50 {slat['p50'] * 1e3:.2f} "
+          f"ms, p95 {slat['p95'] * 1e3:.2f}, p99 {slat['p99'] * 1e3:.2f}; "
+          f"every doc byte-identical to the oracle, every bucket state, row "
+          f"map and doc record equal to the fused drain's, and "
+          f"{', '.join(same)} equal; launches {scan_launches} ({n_sl} "
+          f"rounds), plain calls 0; device span ms (CUDA events, include "
+          f"device waits on the host): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sspans.items())
+          + f"; host phase s: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in srep["phase_seconds"].items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"[serve scan] at K = 1, ms queued behind a device sleep (back "
+          f"to back, at the host's pace): K1 per-row at (R, B, T) = "
+          f"{(R1r, B1r, T1r)} {sk1_ms:.4f} ({sk1_paced:.4f}) ms, plain "
+          f"{sk1_plain:.1f} ms, bound {sk1_b[0]:.4f} ms ({sk1_b[1]}); K4 by "
+          "(class, tier) "
+          + ", ".join(f"C={C} Rt={Rt}: {v[0]:.4f} ({v[2]:.4f}) ms, bound "
+                      f"{v[1][0]:.4f}"
+                      for (C, Rt), v in sorted(
+                          (k, v) for k, v in scan_at.items()
+                          if isinstance(k, tuple)))
+          + f"; K4 plain at (Rt, C) = {(widest[top], top)}: "
+          f"{scan_at['k4_plain_ms']:.3f} ms", flush=True)
     return [
         kernel_row("resolve_range_rows", "resolve_range.cu",
                    "resolve_range_pallas.py:255",
@@ -524,6 +652,15 @@ def serve_phases(dev, bound) -> list[dict]:
         kernel_row("serve_macro_fused", "serve_macro.cu", "serve_fused.py:685",
                    launches["serve_macro_fused"], err["k4"], k4_ms,
                    k4_plain_ms, k4_bnd),
+        kernel_row(f"resolve_range_rows (scan, K = 1, (R, B) = "
+                   f"({R1r}, {B1r}))", "resolve_range.cu",
+                   "resolve_range_pallas.py:255",
+                   scan_launches["resolve_range_rows"], err["k1rows_k1"],
+                   sk1_ms, sk1_plain, sk1_b),
+        kernel_row(f"serve_macro_fused (scan, K = 1, (Rt, C) = "
+                   f"({widest[top]}, {top}))", "serve_macro.cu",
+                   "serve_fused.py:685", scan_launches["serve_macro_fused"],
+                   err["k4_k1"], sk4_ms, scan_at["k4_plain_ms"], sk4_b),
     ]
 
 
@@ -1038,7 +1175,7 @@ MERGE_PATHS = {
 }
 
 
-def merge_phases(dev, bound) -> list[dict]:
+def merge_phases(dev, bound) -> tuple[list[dict], dict]:
     """The concurrent merges (``bench/merge.py``): for each config of
     ``MERGE_PATHS``, the untimed generation (every agent's stream replayed
     through K5, counted; K5 held against its plain version on one late
@@ -1055,7 +1192,8 @@ def merge_phases(dev, bound) -> list[dict]:
     profiled unit merge takes minutes).  The engines' documents must be identical to each
     other.  K7 is held against its plain version on one unit-merge batch's
     operands at 64 replicas.  Returns the rows of the ``kernels`` line (K7
-    on the merge, K5 in the generation)."""
+    on the merge, K5 in the generation), and merge/traces' simulation with
+    the native treap's merge of it (for ``[mesh]``)."""
     import torch
 
     from crdt_benches_tpu_torch.bench import merge as bm
@@ -1092,6 +1230,7 @@ def merge_phases(dev, bound) -> list[dict]:
                  (bm, "doc_digest_packed", "digest")],
     }
     rows = []
+    kept = {}
     k7_err = k5_err = 0
     for config, paths in MERGE_PATHS.items():
         merge_ops = 10_000_000 if config == "adversarial" else 1_000_000
@@ -1231,8 +1370,10 @@ def merge_phases(dev, bound) -> list[dict]:
             fail(f"merge/{config}: the engines' documents differ")
         print(f"[merge] merge/{config}: {', '.join(docs)} give one "
               f"document ({len(docs['unit'])} chars)", flush=True)
+        if config == "traces":
+            kept = {"sim": sim, "want": want}
         del sim
-    return rows
+    return rows, kept
 
 
 #: The run-granular downstream columns: (label, engine, schedule).
@@ -1333,6 +1474,225 @@ def run_down_phases(dev, bound) -> list[dict]:
             del ops
         del bk, eng
     return rows
+
+
+#: The ``[mesh]`` paths' width: the run downstream column's replicas
+#: (``bench_results/down_r5.json``, R = 64) and the unit replay's batch.
+MESH_REPLICAS, MESH_BATCH = 64, 256
+
+
+def mesh_phases(dev, bound, traces) -> list[dict]:
+    """``[mesh]``: the replica mesh (``parallel/mesh.py``) over NCCL at
+    world size 1 (``parallel/launch.py run_ranks``: one group, created on
+    a ``HashStore`` and destroyed after), on the card at full width, each
+    path with every count set to 0 just before and read just after:
+
+    - ``sharded_downstream_runs`` on automerge-paper, 64 subscribers: K7
+      once a batch; every digest equal to ``TorchRunDownstreamBackend``'s
+      at R = 64 (its flat schedule, no kernel);
+    - ``sharded_merge_runs`` on merge/traces (``traces``: the merge
+      phases' simulation and the native treap's merge): K7 once a batch,
+      replica 0 byte-identical to the native merge;
+    - ``sharded_replay_and_digest`` on the whole automerge-paper trace,
+      B = 256, R = 64 (K5 once a batch, the v1 apply): every digest equal
+      to the one-replica v1 ``ReplayEngine``'s, every length the trace's;
+      K5 held against its plain version on batch N - 2 and timed there;
+    - the v1 and packed sharded merges of the dry run's synthetic streams
+      (``entry.dryrun_rank``'s parts).
+
+    Each path's seconds and the converged flag read from the collective
+    are printed.  ``[dryrun]``: ``entry.dryrun_multichip(1)`` on the card;
+    its three digests must equal the same call's on the CPU (gloo).
+    Returns the rows of K5 (the sharded replay) and K7 (the sharded
+    downstream, launches over every mesh and dry-run path)."""
+    import torch
+
+    from crdt_benches_tpu_torch.engine import downstream_range as drg
+    from crdt_benches_tpu_torch.engine import replay as urep
+    from crdt_benches_tpu_torch.engine.merge_range import (
+        RunMergeSimulation,
+        TorchRunDownstreamBackend,
+    )
+    from crdt_benches_tpu_torch.entry import (
+        _pad_to,
+        dryrun_multichip,
+        dryrun_rank,
+    )
+    from crdt_benches_tpu_torch.ops import expand as ex
+    from crdt_benches_tpu_torch.ops import resolve as rs
+    from crdt_benches_tpu_torch.parallel import mesh as pm
+    from crdt_benches_tpu_torch.parallel.launch import run_ranks
+    from crdt_benches_tpu_torch.traces import load_testing_data, tensorize
+    from crdt_benches_tpu_torch.utils.digest import (
+        doc_digest,
+        doc_digest_packed,
+    )
+
+    R, B = MESH_REPLICAS, MESH_BATCH
+    trace = load_testing_data("automerge-paper")
+    end = len(trace.end_content)
+    t0 = time.perf_counter()
+    # untimed set-up: the run wire and its single-device digests, the
+    # unit ops and the one-replica v1 replay's digest, merge/traces' wire
+    bk = TorchRunDownstreamBackend(n_replicas=R, device=dev)
+    bk.prepare(trace)
+    rm = bk.engine
+    ref = bk._merge()
+    down_want = doc_digest_packed(ref.doc, ref.length, rm.sim.chars)
+    del ref
+    tt = tensorize(trace, batch=B)
+    eng = urep.ReplayEngine(tt, n_replicas=1, engine="v1", device=dev)
+    st1 = eng.run()
+    replay_want = doc_digest(st1.order, st1.visible, st1.length, eng.chars)
+    del st1
+    i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+    kind_b, pos_b, _, slot_b = (i32(a) for a in tt.batched())
+    sim = traces["sim"]
+    trm = RunMergeSimulation(sim, batch=512, epoch=8)
+    if not trm.fast_ok:
+        fail("[mesh] merge/traces: the run merge's precondition fails")
+    neg = (i32([-1]), i32([-2]))
+    print(f"[mesh] set-up {time.perf_counter() - t0:.1f} s (run wire, "
+          f"single-device digests, merge/traces' run wire)", flush=True)
+
+    def timed(tag, fn, targets=(), keep=None):
+        sp = Spans(targets, keep=keep)
+        torch.cuda.synchronize()
+        zero_all_counts()
+        t1 = time.perf_counter()
+        with sp:
+            out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        return out, secs, read_all_counts(f"[mesh] {tag}"), sp.kept
+
+    kept_ops = {}  # device operands; a rank's results come back as numpy
+
+    def rank(mesh):
+        got = {}
+        nb = len(rm.lamport) // rm.batch
+        step = pm.sharded_downstream_runs(
+            mesh, rm.sim.capacity, rm.sim.n_base, batch=rm.batch,
+            epoch=rm.epoch_eff, r_per_shard=R)
+        (st, d, conv), secs, la, kept = timed(
+            "downstream", lambda: step(*rm._dev, *(rm._dev_del or neg),
+                                       rm.sim.chars),
+            [(drg, "apply_fused_blocked", "K7")], {"K7": nb - 2})
+        if not (conv and torch.equal(d, down_want)
+                and bool((st.nvis == end).all())
+                and la == {"apply_fused_blocked": nb}):
+            fail(f"[mesh] downstream: converged {conv}, digests equal "
+                 f"{torch.equal(d, down_want)}, launches {la} for {nb} "
+                 "batches")
+        got["downstream"] = (secs, conv, la, d[0].tolist(), nb)
+        kept_ops["k7"] = kept["K7"]
+        del st
+
+        nb = len(trm.lamport) // trm.batch
+        wire = [_pad_to(a, mesh.world, f) for a, f in (
+            (trm.lamport, 0), (trm.agent, 0), (trm.slot0, -1),
+            (trm.rlen, 0), (trm.origin, -2), (trm.dlo, -1), (trm.dhi, -2))]
+        step = pm.sharded_merge_runs(mesh, sim.capacity, sim.n_base,
+                                     batch=trm.batch, epoch=trm.epoch_eff)
+        local = [pm.shard_rows(mesh, a) for a in wire]
+        (st, d, conv), secs, la, _ = timed(
+            "merge runs", lambda: step(*local, sim.chars))
+        if not (conv and la == {"apply_fused_blocked": nb}
+                and sim.decode(st, 0) == traces["want"]):
+            fail(f"[mesh] merge/traces runs: converged {conv}, launches "
+                 f"{la} for {nb} batches, or replica 0 differs from the "
+                 "native treap's merge")
+        got["merge runs"] = (secs, conv, la, d[0].tolist(), nb)
+        del st, local
+
+        nb = tt.n_batches
+        state = pm.make_sharded_state(mesh, R, eng.capacity, eng.n_init)
+        step = pm.sharded_replay_and_digest(mesh)
+        (st, d, conv), secs, la, kept = timed(
+            "replay", lambda: step(state, kind_b, pos_b, slot_b, eng.chars),
+            [(urep, "resolve_batch", "K5")], {"K5": nb - 2})
+        if not (conv and bool((d == replay_want).all())
+                and bool((st.nvis == end).all())
+                and la == {"resolve_batch": nb}):
+            fail(f"[mesh] replay: converged {conv}, digests equal the "
+                 f"one-replica engine's {bool((d == replay_want).all())}, "
+                 f"lengths {st.nvis[:4].tolist()} (want {end}), launches "
+                 f"{la} for {nb} batches")
+        got["replay"] = (secs, conv, la, d[0].tolist(), nb)
+        kept_ops["k5"] = kept["K5"]
+        del st, state
+
+        out, secs, la, _ = timed("dry-run merges", lambda: dryrun_rank(mesh))
+        for part in ("merge", "packed"):
+            if not out[part][2]:
+                fail(f"[mesh] the dry run's {part} merge did not converge")
+        got["dry-run merges"] = (secs, True, la,
+                                 out["merge"][1][0].tolist(),
+                                 out["packed"][1][0].tolist())
+        return got
+
+    (got,) = run_ranks(rank, 1, device=dev)
+    if torch.distributed.is_initialized():
+        fail("[mesh] the process group outlived its phase")
+    launches = {}
+    for path in ("downstream", "merge runs", "replay", "dry-run merges"):
+        secs, conv, la, d0, extra = got[path]
+        for k, v in la.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"[mesh] {path}: {secs:.4f} s, converged {conv} (from the "
+              f"collective, NCCL, world size 1), launches {la}, plain calls "
+              f"0, digest {d0}"
+              + (f", {extra} batches" if path != "dry-run merges"
+                 else f", packed digest {extra}"), flush=True)
+    print(f"[mesh] downstream automerge-paper R={R}: digests equal "
+          f"TorchRunDownstreamBackend's; merge/traces runs: replica 0 "
+          f"byte-identical to the native treap; replay automerge-paper "
+          f"R={R} B={B}: digests equal the one-replica v1 engine's, all "
+          f"lengths {end}", flush=True)
+
+    # ---- [dryrun]: entry.dryrun_multichip(1) on the card and the CPU ----
+    t0 = time.perf_counter()
+    zero_all_counts()
+    card = dryrun_multichip(1, device=dev)
+    la = read_all_counts("[dryrun]")
+    if not (la.get("resolve_batch") and la.get("apply_fused_blocked")):
+        fail(f"[dryrun] launches {la}: K5 and K7 must both launch")
+    cpu = dryrun_multichip(1, device="cpu")
+    if card != cpu or torch.distributed.is_initialized():
+        fail(f"[dryrun] card digests {card} != CPU digests {cpu}")
+    for k, v in la.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"[dryrun] dryrun_multichip(1) on {dev} (NCCL) and on the CPU "
+          f"(gloo): the same three digests {card}; card launches {la} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # the kernels' rows at the mesh paths' shapes
+    args = kept_ops["k5"]
+    e = max_err(tuple(rs.resolve_batch(*args, emit_origin=True)),
+                tuple(rs.resolve_batch_plain(*args, emit_origin=True)))
+    if e:
+        fail(f"K5 != plain on the [mesh] replay's batch {tt.n_batches - 2}:"
+             f" {e}")
+    out = rs.resolve_batch(*args, emit_origin=True)
+    nbytes = (sum(a.numel() * a.element_size() for a in args)
+              + sum(t.numel() * t.element_size() for t in out))
+    k5 = kernel_row(
+        f"resolve_batch ([mesh] v1 replay, (R, B) = ({R}, {B}), batch "
+        f"{tt.n_batches - 2}; launches over [mesh] and [dryrun])",
+        "resolve_unit.cu", "resolve_pallas.py:282",
+        launches["resolve_batch"], e,
+        elapsed_ms(lambda: rs.resolve_batch(*args, emit_origin=True), 10),
+        elapsed_ms(lambda: rs.resolve_batch_plain(*args, emit_origin=True),
+                   1),
+        bound(nbytes, k5_ops(*args)))
+    ops = kept_ops["k7"]
+    e = max_err(ex.apply_fused_blocked(*ops),
+                ex.apply_fused_blocked_plain(*ops))
+    if e:
+        fail(f"K7 != plain on the [mesh] downstream's batch: {e}")
+    k7 = k7_row("[mesh] downstream R=64; launches over [mesh] and "
+                "[dryrun]", ops, launches["apply_fused_blocked"], e, bound)
+    return [k5, k7]
 
 
 def port_counters():
@@ -2670,7 +3030,8 @@ def main() -> int:
     rows += serve_phases(dev, bound)
     # ---- the concurrent merges and the run-granular downstream ----
     t0 = time.perf_counter()
-    rows += merge_phases(dev, bound)
+    merge_rows, traces = merge_phases(dev, bound)
+    rows += merge_rows
     print(f"[merge] all merge phases {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
@@ -2684,6 +3045,12 @@ def main() -> int:
           f"launches {runner_launches}", flush=True)
     rows.append(range_v3_phase(dev, bound))
     entry_phase(dev)
+    # ---- the replica mesh at world size 1 (NCCL) and the dry run ----
+    t0 = time.perf_counter()
+    rows += mesh_phases(dev, bound, traces)
+    del traces
+    print(f"[mesh] all mesh and dry-run phases "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi_line)

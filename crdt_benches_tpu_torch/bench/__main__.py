@@ -13,7 +13,7 @@
         [--serve-macro 8] [--serve-batch-chars 256]
         [--serve-classes 256,...] [--serve-slots 2048,...]
         [--serve-arrival-span 8] [--serve-verify-sample 0] [--seed 0]
-                                                             (serve)
+        [--serve-kernel fused|scan]                          (serve)
 
 The default is the headline range replay (1024 replicas, batch 1536);
 ``--layout unit --batch 256`` is the unit-op engine (the JAX package's
@@ -33,7 +33,9 @@ when replica 0 differs from the native treap's merge.  ``--group serve``
 drains the document fleet once (``serve/mixed/4096`` by default: 4096
 documents of the ``mixed`` band table, macro depth 8) and verifies every
 document against the oracle (``--serve-verify-sample N``: a seeded sample of about
-N spread over the classes); its metric is fleet patches/sec over the
+N spread over the classes; ``--serve-kernel scan`` applies the rounds one
+after another through ``engine/merge_fleet.py`` instead of the fused macro
+apply); its metric is fleet patches/sec over the
 drain's wall time, and it exits non-zero when verification fails.  A flag
 of another group is an error.
 
@@ -55,6 +57,7 @@ from statistics import median
 
 import torch
 
+from ..serve.pool import SERVE_KERNELS
 from .merge import CONFIGS as MERGE_CONFIGS
 from .merge import ENGINES as MERGE_ENGINES
 
@@ -214,7 +217,8 @@ def _serve(args) -> int:
             slots=_ints(args.serve_slots), seed=args.seed,
             arrival_span=args.serve_arrival_span, macro_k=args.serve_macro,
             batch_chars=args.serve_batch_chars,
-            verify_sample=args.serve_verify_sample, device=args.device,
+            verify_sample=args.serve_verify_sample,
+            serve_kernel=args.serve_kernel, device=args.device,
             log=lambda m: print(m, file=sys.stderr),
         )
     except RuntimeError as e:
@@ -271,9 +275,11 @@ def main(argv=None) -> int:
         ("--serve-slots", str, "2048,512,128,32,16"),
         ("--serve-arrival-span", int, 8),
         ("--serve-verify-sample", int, 0), ("--seed", int, 0),
+        ("--serve-kernel", str, "fused", SERVE_KERNELS),
     )
-    for flag, typ, default in serve_flags:
-        ap.add_argument(flag, type=typ, help=f"serve (default {default})")
+    for flag, typ, default, *choices in serve_flags:
+        ap.add_argument(flag, type=typ, choices=choices[0] if choices else None,
+                        help=f"serve (default {default})")
     args = ap.parse_args(argv)
     flag_set = lambda flags: [f for f, *_ in flags
                               if getattr(args, f[2:].replace("-", "_"))
@@ -300,7 +306,7 @@ def main(argv=None) -> int:
             ap.error("--replicas, --batch, --layout, --unit-engine, "
                      "--engine and --schedule do not belong to --group "
                      "serve")
-        for flag, _, default in serve_flags:
+        for flag, _, default, *_ in serve_flags:
             key = flag[2:].replace("-", "_")
             if getattr(args, key) is None:
                 setattr(args, key, default)

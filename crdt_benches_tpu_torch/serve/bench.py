@@ -58,11 +58,13 @@ def run_serve_bench(
     macro_k: int = 8,
     batch_chars: int = 256,
     verify_sample: int = 0,
+    serve_kernel: str = "fused",
     device: str | torch.device = "cuda",
     pool_hook=None,
     log=print,
 ) -> dict:
-    """Build, drain and verify one fleet; returns the report.
+    """Build, drain and verify one fleet through ``serve_kernel``
+    (``serve/pool.py SERVE_KERNELS``); returns the report.
     ``pool_hook(pool)``, if given, runs on the pool just before the drain
     (``chip_smoke.py`` arms the pool's CUDA-event spans there)."""
     dev = resolve_device(device)
@@ -71,7 +73,8 @@ def run_serve_bench(
     t0 = time.perf_counter()
     sessions = build_fleet(n_docs, mix=mix, seed=seed,
                            arrival_span=arrival_span)
-    pool = DocPool(classes=classes, slots=slots, device=dev)
+    pool = DocPool(classes=classes, slots=slots, serve_kernel=serve_kernel,
+                   device=dev)
     try:
         streams = prepare_streams(sessions, pool, batch=batch,
                                   batch_chars=batch_chars)
@@ -81,7 +84,8 @@ def run_serve_bench(
         total_ops = sum(s.remaining for s in streams.values())
         log(f"serve: {n_docs} docs ({mix}, seed {seed}), {total_ops} range "
             f"ops, classes {classes} slots {slots} batch {batch} chars "
-            f"{batch_chars} K {macro_k} on {dev}; set-up {setup_s:.1f} s")
+            f"{batch_chars} K {macro_k} kernel {serve_kernel} on {dev}; "
+            f"set-up {setup_s:.1f} s")
         if pool_hook is not None:
             pool_hook(pool)
         stats = sched.run()
@@ -118,6 +122,7 @@ def run_serve_bench(
         return {
             "fleet_docs": n_docs, "mix": mix, "seed": seed,
             "batch": batch, "batch_chars": batch_chars, "macro_k": macro_k,
+            "serve_kernel": serve_kernel,
             "classes": list(classes), "slots": list(slots),
             "device": (torch.cuda.get_device_name(dev)
                        if dev.type == "cuda" else "cpu"),

@@ -15,12 +15,15 @@ is two-tier: device rows and the spool.
 The hot path is :meth:`DocPool.macro_step`: K staged rounds of per-row
 range ops for the first ``Rt`` rows of one class (a row tier from
 :meth:`DocPool.tiers`; the scheduler compacts a macro-round's documents
-into it), applied in place on the tier's row slice: K1's per-row form
-resolves the K rounds and yields each round's starting visible count,
+into it), applied to the tier's row slice by one of two byte-identical
+serve kernels (``serve_kernel``).  ``"fused"`` (the default): K1's per-row
+form resolves the K rounds and yields each round's starting visible count,
 :func:`serve_round_inputs` derives the rounds' operands, and one launch of
-K4 applies them.  On a CUDA device both kernels launch (or raise); on the
-CPU their plain versions run.  Nothing syncs: callers fence with
-:meth:`DocPool.block` or a bucket pull.
+K4 applies them in place.  ``"scan"``: the rounds one after another through
+``engine/merge_fleet.py merge_rows_body`` (K1's per-row form and K4, each
+at K = 1), then the tier's rows written back.  On a CUDA device the kernels
+launch (or raise); on the CPU their plain versions run.  Nothing syncs:
+callers fence with :meth:`DocPool.block` or a bucket pull.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..engine.merge_fleet import merge_rows_body
 from ..ops.apply2 import LANE, PackedState
 from ..ops.packing import op_lane_dtypes, widen_ops
 from ..ops.resolve_range import resolve_range_rows
@@ -42,6 +46,9 @@ from ..ops.serve_fused import serve_macro_fused, serve_round_inputs
 from ..utils.checkpoint import CorruptCheckpointError, load_state, save_state
 
 I32 = torch.int32
+#: The serve step's kernels: "fused" (K1's per-row form over the K rounds,
+#: then one K4 launch) and "scan" (``merge_rows_body`` round by round).
+SERVE_KERNELS = ("fused", "scan")
 
 
 def _fresh_row_np(C: int, n_init: int) -> np.ndarray:
@@ -134,7 +141,7 @@ class DocPool:
     ``classes``: ascending capacity classes, each a multiple of 128;
     ``slots``: resident rows per class.  Buckets live on ``device`` (CUDA
     by default; the CPU only when asked).  ``serve_kernel`` names the
-    serve step: only ``"fused"`` (K1's per-row form and K4) is ported."""
+    serve step, one of :data:`SERVE_KERNELS`."""
 
     def __init__(
         self,
@@ -144,12 +151,7 @@ class DocPool:
         serve_kernel: str = "fused",
         device: str | torch.device = "cuda",
     ):
-        if serve_kernel == "scan":
-            raise NotImplementedError(
-                "serve_kernel='scan' (engine/merge_fleet.py) is not ported: "
-                "ROADMAP.md Queue 1 item 6"
-            )
-        if serve_kernel != "fused":
+        if serve_kernel not in SERVE_KERNELS:
             raise ValueError(f"unknown serve kernel {serve_kernel!r}")
         if len(classes) != len(slots):
             raise ValueError("classes and slots must have equal length")
@@ -159,6 +161,7 @@ class DocPool:
             if c % LANE:
                 raise ValueError(f"capacity class {c} not a multiple of {LANE}")
         self.device = resolve_device(device)
+        self.serve_kernel = serve_kernel
         self.classes = tuple(classes)
         self.buckets = {
             c: Bucket(c, r, self.device) for c, r in zip(classes, slots)
@@ -174,6 +177,7 @@ class DocPool:
         self.promotions = 0
         #: when a list on a CUDA pool, each macro step appends its
         #: (name, start, end) CUDA-event pairs: upload, resolve, inputs, k4
+        #: (fused); upload, then a "round" span for each round (scan)
         self.spans: list | None = None
 
     # ---- registration / class arithmetic ----
@@ -321,14 +325,13 @@ class DocPool:
 
     def macro_step(self, cls: int, kind: np.ndarray, pos: np.ndarray,
                    rlen: np.ndarray, slot0: np.ndarray, nbits: int) -> None:
-        """Apply K staged rounds to the first ``Rt`` rows of class ``cls``
-        in place: op arrays [K, Rt, B] in the pool's staged lane dtypes
+        """Apply K staged rounds to the first ``Rt`` rows of class ``cls``:
+        op arrays [K, Rt, B] in the pool's staged lane dtypes
         (:attr:`op_dtypes`), row r of round k the ops of the doc in row r
-        (PAD lanes are no-ops).  K1's per-row form resolves the rounds, K4
-        applies them in one launch.  ``nbits`` (the scheduler's
-        ``bit_length(batch_chars)``, which JAX's kernel needs for its roll
-        cascade) is unused: the port expands with one gather.  Nothing
-        syncs."""
+        (PAD lanes are no-ops), through :attr:`serve_kernel`.  ``nbits``
+        (the scheduler's ``bit_length(batch_chars)``, which JAX's kernels
+        need for their roll cascade) is unused: the port expands with one
+        gather.  Nothing syncs."""
         del nbits
         b = self.buckets[cls]
         K, Rt, B = kind.shape
@@ -349,15 +352,22 @@ class DocPool:
         mark("upload")
         st = b.state
         sub = PackedState(st.doc[:Rt], st.length[:Rt], st.nvis[:Rt])
-        tokens, dints, _ = resolve_range_rows(kd, pd, ld, sd, sub.nvis)
-        mark("resolve")
-        inputs = serve_round_inputs(tokens, dints, sub.length, sub.nvis)
-        mark("inputs")
-        new = serve_macro_fused(sub, tokens, dints, inputs=inputs,
-                                out=sub.doc)
+        if self.serve_kernel == "fused":
+            tokens, dints, _ = resolve_range_rows(kd, pd, ld, sd, sub.nvis)
+            mark("resolve")
+            inputs = serve_round_inputs(tokens, dints, sub.length, sub.nvis)
+            mark("inputs")
+            new = serve_macro_fused(sub, tokens, dints, inputs=inputs,
+                                    out=sub.doc)
+            mark("k4")
+        else:
+            new = sub
+            for k in range(K):
+                new = merge_rows_body(new, kd[k], pd[k], ld[k], sd[k])
+                mark("round")
+            sub.doc.copy_(new.doc)  # the tier's rows back into the bucket
         sub.length.copy_(new.length)
         sub.nvis.copy_(new.nvis)
-        mark("k4")
         if spans is not None:
             spans.extend((name, marks[i][1], ev)
                          for i, (name, ev) in enumerate(marks[1:]))

@@ -32,7 +32,7 @@ from crdt_benches_tpu_torch.bench.runner import (
     run_upstream,
     verify_upstream,
 )
-from crdt_benches_tpu_torch.entry import entry
+from crdt_benches_tpu_torch.entry import dryrun_multichip, dryrun_rank, entry
 from crdt_benches_tpu_torch.engine.downstream import (
     DownstreamEngine,
     TorchDownstreamBackend,
@@ -57,6 +57,8 @@ from crdt_benches_tpu_torch.ops.apply2 import (
     init_state3,
     init_state4,
 )
+from crdt_benches_tpu_torch.parallel.launch import run_ranks
+from crdt_benches_tpu_torch.parallel.mesh import device_memory_stats
 from crdt_benches_tpu_torch.serve.bench import run_serve_bench
 from crdt_benches_tpu_torch.serve.pool import DocPool
 from crdt_benches_tpu_torch.traces.tensorize import (
@@ -96,7 +98,7 @@ def test_port_imports_no_jax_and_no_reference_module():
     )
     assert done.returncode == 0, done.stderr
     n, old = done.stdout.split(" ", 1)
-    assert int(n) >= 56  # every module of the port was imported
+    assert int(n) >= 59  # every module of the port was imported
     assert old.strip() == "[]"
     for mod in ("ops.idpos", "ops.apply", "engine.downstream",
                 "ops.packing", "ops.serve_fused", "oracle.text_oracle",
@@ -107,7 +109,8 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "utils.digest", "bench.merge", "bench.nocv_versus",
                 "bench.runner", "bench.report", "bench.dump_trace",
                 "bench.harness", "backends.reconcile", "backends.base",
-                "backends.native", "entry"):
+                "backends.native", "entry", "parallel.mesh",
+                "parallel.launch", "engine.merge_fleet"):
         assert os.path.exists(os.path.join(
             REPO, "crdt_benches_tpu_torch", *mod.split(".")) + ".py"), mod
 
@@ -161,6 +164,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: run_downstream("sveltecomponent", "torch", 1, 0),
         lambda: run_merge("synthetic", "torch-flat", 1, 0, 1, 16, 320),
         lambda: verify_upstream("sveltecomponent", "torch-unit", 1, 256),
+        lambda: dryrun_multichip(1),
+        lambda: run_ranks(dryrun_rank, 1),
+        lambda: device_memory_stats(),
+        lambda: DocPool(serve_kernel="scan"),
+        lambda: run_serve_bench(n_docs=2, serve_kernel="scan"),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

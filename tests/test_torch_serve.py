@@ -191,8 +191,9 @@ def test_pool_evict_admit_promote_round_trip(tmp_path):
 
 
 def test_pool_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DocPool(serve_kernel="scan", device="cpu")
+    with pytest.raises(ValueError, match="unknown serve kernel"):
+        DocPool(serve_kernel="pallas", device="cpu")
+    DocPool(serve_kernel="scan", device="cpu").close()  # ported
     with pytest.raises(ValueError, match="multiple of 128"):
         # the refusal under test is what the linter's G008 flags
         DocPool(classes=(100,), slots=(1,), device="cpu")  # graftlint: disable=G008
