@@ -3,6 +3,11 @@ their plain PyTorch versions.
 
     python chip_smoke.py
 
+``--tier-only`` runs the device, build and three-tier phases alone,
+``--tier-full`` drains the README's 65,536-document tier cell in
+``[serve tier]`` in place of its cut, and ``--ab-pairs N`` sets the pairs
+of ``[serve tier ab]``.
+
 Phases (one line each; any failure exits non-zero):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
@@ -110,7 +115,26 @@ Phases (one line each; any failure exits non-zero):
     oracle, every bucket state, row map and doc record and every counter
     equal to the fused drain's, its latency and spans; K1's per-row form
     and K4 at K = 1 held against their plain versions and timed on round 0
-    of the fused drain's kept dispatches;
+    of the fused drain's kept dispatches; then three-tier residency:
+    ``[serve tier]``, the README's tiered cell cut to 16,384 documents
+    (``TIER_CELL``: zipf arrivals over 32 rounds, ``--serve-tiers
+    hot=256,warm=4096``, 64 times over-subscribed) through
+    ``run_serve_bench``: both kernels once per dispatch, no plain version,
+    every document byte-identical to the oracle, its rate, latency, host
+    phases (``prefetch`` included), ``residency`` block, limbo pulls and
+    spans; a second drain of the same fleet, profiled over a window of
+    its dispatches, gives the device's idle share against the timed
+    drain's wall time there and keeps each (class, rows) pair's first
+    operands; ``[serve tier kernels]``: those operands through one K1
+    per-row launch and one K4 launch, equal to their plain versions,
+    timed; ``[serve tier ab]``: serve/mixed/4096 at slots (192, 48, 12, 3,
+    2), pairs of drains with a warm tier of 1024 and the prefetcher and
+    with the same tiers and no prefetcher, in turns, then one through the
+    two-tier pool: each side's median, least and largest rate and moves,
+    the first pair's and the two-tier drain's spool writes, reads and hit
+    rate; every tiered drain equal to the first in every fact no thread
+    timing moves, the first pair and the two-tier drain byte-identical to
+    the oracle;
 15. the concurrent merges (``bench/merge.py``, ``--group merge``):
     merge/traces (rustcode and seph-blog1, 1,348,053 delivered ops)
     through the unit, run and flat engines at 64 replicas and through the
@@ -167,6 +191,7 @@ result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import multiprocessing
@@ -661,6 +686,470 @@ def serve_phases(dev, bound) -> list[dict]:
                    f"({widest[top]}, {top}))", "serve_macro.cu",
                    "serve_fused.py:685", scan_launches["serve_macro_fused"],
                    err["k4_k1"], sk4_ms, scan_at["k4_plain_ms"], sk4_b),
+    ]
+
+
+#: The README's tiered cell, serve/tier/mixed/65536 (the ``--serve-tiers
+#: hot=1024,warm=16384`` row of its "Tiered residency" table: the
+#: ``mixed`` table, zipf arrivals over 32 rounds, a fleet 64 times its
+#: device-row budget, a warm tier 16 times it; the serve cell's batch,
+#: macro depth, slice and kernel), every document verified.  ``python3
+#: chip_smoke.py --tier-only --tier-full`` drains it.
+TIER_FULL = dict(SERVE_CELL, n_docs=65536, arrival_span=32,
+                 arrival_dist="zipf", serve_tiers="hot=1024,warm=16384",
+                 verify_sample=0)
+#: ``[serve tier]``'s cell in the default run: TIER_FULL cut to a quarter
+#: to fit the script's time.  16,384 documents at ``hot=256,warm=4096``
+#: (slots (192, 48, 12, 3, 2)) keep the 64x over-subscription and the 16:1
+#: warm to hot ratio.
+TIER_CELL = dict(TIER_FULL, n_docs=16384, serve_tiers="hot=256,warm=4096")
+#: ``[serve tier ab]``'s tiers: SERVE_CELL's fleet at slots
+#: (192, 48, 12, 3, 2), 16 times over-subscribed, with a warm tier of 1024.
+TIER_AB = "hot=256,warm=1024"
+#: Pairs of prefetch and no-prefetch drains ``[serve tier ab]`` runs in
+#: turns in the default run, one in each order (a pair takes ~25-30 s on
+#: an H100 host, and the script has a time limit); ``--ab-pairs 10`` is
+#: the measurement.
+TIER_AB_PAIRS = 2
+#: Dispatches of the second, instrumented tier drain traced by the
+#: profiler for the device's idle share.  That drain stops at the window's
+#: end once it has kept the operands of every (class, rows) pair the timed
+#: drain used.
+TIER_PROFILED = (128, 512)
+
+
+def serve_tier_phases(dev, bound, cell=TIER_CELL,
+                      ab_pairs=TIER_AB_PAIRS) -> list[dict]:
+    """Three-tier residency on the card.
+
+    ``[serve tier]``: ``cell`` through ``run_serve_bench`` with every count
+    set to 0 just before the drain and read just after, verified against
+    the oracle, its residency block, host phases and CUDA-event spans (as
+    ``[serve]``); the timed drain only notes each dispatch's (class, rows)
+    pair and the host clock at ``TIER_PROFILED``'s edges.  A second drain
+    of the same fleet keeps each pair's first operands and runs the
+    profiler over ``TIER_PROFILED``: the device's idle share is its busy
+    time over the timed drain's wall time across the same dispatches.
+    ``[serve tier kernels]``: the kept operands of each pair through one
+    K1 per-row launch and one K4 launch held against
+    ``resolve_range_rows_plain`` and ``serve_macro_plain``, and timed.
+    ``[serve tier ab]``: SERVE_CELL's fleet at ``TIER_AB``'s slot table,
+    ``ab_pairs`` pairs of drains with the warm tier and the prefetcher and
+    with the warm tier and no prefetcher, in turns (the first of each pair
+    alternates), then once through the two-tier pool: each side's median,
+    least and largest rate and moves; every tiered drain agrees with the
+    first on every fact no thread timing can move, and the first pair and
+    the two-tier drain verify byte-identical.  Returns the two kernels'
+    rows of the ``kernels`` line for the tier drain."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from crdt_benches_tpu_torch.ops import resolve_range as rr
+    from crdt_benches_tpu_torch.ops import serve_fused as sf
+    from crdt_benches_tpu_torch.ops.apply2 import PackedState
+    from crdt_benches_tpu_torch.ops.packing import widen_ops
+    from crdt_benches_tpu_torch.oracle.text_oracle import replay_trace
+    from crdt_benches_tpu_torch.serve import bench as bench_mod
+    from crdt_benches_tpu_torch.serve import pool as pool_mod
+    from crdt_benches_tpu_torch.serve import prefetch as prefetch_mod
+    from crdt_benches_tpu_torch.serve import scheduler as sched_mod
+    from crdt_benches_tpu_torch.serve.bench import (
+        parse_tier_spec,
+        run_serve_bench,
+    )
+    from crdt_benches_tpu_torch.serve.workload import build_fleet
+
+    label = f"serve/tier/{cell['mix']}/{cell['n_docs']}"
+    tier_slots, tier_warm = parse_tier_spec(cell["serve_tiers"],
+                                            cell["slots"])
+
+    @contextlib.contextmanager
+    def fleet(sessions, cfg, slots, warm, prefetch=True):
+        """A pool (``warm`` docs warm, the prefetch thread if ``prefetch``)
+        and a scheduler over ``sessions``; the pool is closed on exit."""
+        pool = pool_mod.DocPool(classes=cfg["classes"], slots=slots,
+                                device=dev, warm_docs=warm,
+                                prefetch=prefetch)
+        try:
+            streams = sched_mod.prepare_streams(
+                sessions, pool, batch=cfg["batch"],
+                batch_chars=cfg["batch_chars"])
+            yield pool, sched_mod.FleetScheduler(
+                pool, streams, batch=cfg["batch"], macro_k=cfg["macro_k"],
+                batch_chars=cfg["batch_chars"])
+        finally:
+            pool.close()
+
+    # ---- [serve tier]: the tier cell through the bench's entry point ----
+    t0 = time.perf_counter()
+    lo, hi = TIER_PROFILED
+    held: dict = {}
+    used: set[tuple[int, int]] = set()  # the timed drain's (class, rows)
+    stamps: dict[int, float] = {}  # its host clock at the window's edges
+
+    def arm(p):
+        """Spans on; each dispatch's (class, rows) pair noted and the host
+        clock read at the window's edges (no copy, no synchronize, no
+        profiler); counts to 0."""
+        p.spans = []
+        held["pool"] = p
+        step, n = p.macro_step, [0]
+
+        def noted_step(cls, kind, *rest, **kw):
+            if n[0] in TIER_PROFILED:
+                stamps[n[0]] = time.perf_counter()
+            n[0] += 1
+            used.add((cls, kind.shape[1]))
+            return step(cls, kind, *rest, **kw)
+
+        p.macro_step = noted_step
+        torch.cuda.synchronize()
+        zero_all_counts()
+
+    build = bench_mod.build_fleet
+
+    def kept_fleet(*a, **kw):
+        """The bench's fleet, kept for the second drain."""
+        held["sessions"] = build(*a, **kw)
+        return held["sessions"]
+
+    bench_mod.build_fleet = kept_fleet
+    try:
+        rep = run_serve_bench(**cell, device=dev, pool_hook=arm,
+                              log=lambda m: print(f"[serve tier] {m}",
+                                                  flush=True))
+    finally:
+        bench_mod.build_fleet = build
+    launches = read_all_counts("serve tier drain")
+    n = rep["dispatches"]
+    if launches != {"resolve_range_rows": n, "serve_macro_fused": n}:
+        fail(f"serve tier drain: launches {launches} for {n} dispatches")
+    res = rep["residency"]
+    if not (rep["verify_ok"] and set(rep["verified_per_class"]) == set(map(
+            str, cell["classes"])) and (cell["verify_sample"] or (
+                rep["verified_docs"] == cell["n_docs"]))):
+        fail(f"serve tier drain: verify {rep['verify']} ok "
+             f"{rep['verify_ok']} on {rep['verified_docs']} docs, per class "
+             f"{rep['verified_per_class']}")
+    if tuple(rep["slots"]) != tier_slots or res["prefetch_errors"] or not (
+            rep["evictions"] and rep["promotions"] and res["warm_hits"]
+            and res["warm_evictions"] and res["prefetch_submitted"]):
+        fail(f"serve tier drain: slots {rep['slots']}, evictions "
+             f"{rep['evictions']}, promotions {rep['promotions']}, "
+             f"residency {res}")
+    if len(stamps) != 2:
+        fail(f"serve tier drain: {n} dispatches, the profiled window "
+             f"{TIER_PROFILED} runs past them")
+    tpool = held.pop("pool")
+    spans: dict[str, float] = {}
+    for name, a, b in tpool.spans:
+        spans[name] = spans.get(name, 0.0) + a.elapsed_time(b)
+    del tpool
+    timed_s = time.perf_counter() - t0
+
+    # the second drain: each pair's first operands kept (host op arrays
+    # and a device copy of the tier's rows, taken before the step), the
+    # profiler over dispatches lo to hi - 1, each edge after a synchronize
+    t0 = time.perf_counter()
+    keep: dict[tuple[int, int], tuple] = {}
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    win = {"n": 0}
+
+    def instrument(p):
+        step = p.macro_step
+
+        def kept_step(cls, kind, pos, rlen, slot0, nbits):
+            i = win["n"]
+            if i in TIER_PROFILED:
+                torch.cuda.synchronize()
+                win[i] = time.perf_counter()
+                (prof.start if i == lo else prof.stop)()
+            if i >= hi and used <= keep.keys():
+                raise _WindowEnd
+            Rt = kind.shape[1]
+            if (cls, Rt) not in keep:
+                st = p.buckets[cls].state
+                keep[cls, Rt] = ((kind.copy(), pos.copy(), rlen.copy(),
+                                  slot0.copy()),
+                                 PackedState(st.doc[:Rt].clone(),
+                                             st.length[:Rt].clone(),
+                                             st.nvis[:Rt].clone()))
+            win["n"] = i + 1
+            return step(cls, kind, pos, rlen, slot0, nbits)
+
+        p.macro_step = kept_step
+
+    try:
+        with fleet(held.pop("sessions"), cell, tier_slots,
+                   tier_warm) as (pool, sched):
+            instrument(pool)
+            sched.run()
+    except _WindowEnd:
+        pass
+    read_all_counts("serve tier instrumented drain")  # no plain version
+    if hi not in win or not used <= keep.keys():
+        fail(f"serve tier instrumented drain: window {TIER_PROFILED}, "
+             f"kept {sorted(keep)} of {sorted(used)}")
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+    wall = (stamps[hi] - stamps[lo]) * 1e3
+    idle = (f"device busy {busy:.2f} ms over dispatches {lo}-{hi - 1} of a "
+            f"second, profiled drain (its window {1e3 * (win[hi] - win[lo]):.2f}"
+            f" ms wall), of {wall:.2f} ms wall over the same dispatches of "
+            f"the timed drain: idle {100 * (1 - busy / wall):.1f}%"
+            if busy > 0 else "idle not measured (no device time in the "
+            "window)")
+    lat = rep["batch_latency"]
+    print(f"[serve tier] {label} ({cell['serve_tiers']}, slots "
+          f"{tier_slots}, zipf arrivals over {cell['arrival_span']} rounds):"
+          f" {rep['patches_per_sec']:.1f} patches/s ({rep['patches']} "
+          f"patches in {rep['wall_time']:.4f} s); macro-round latency p50 "
+          f"{lat['p50'] * 1e3:.2f} ms, p95 {lat['p95'] * 1e3:.2f}, p99 "
+          f"{lat['p99'] * 1e3:.2f}; {rep['rounds']} rounds, "
+          f"{rep['device_rounds']} slices, {n} dispatches, pad fraction "
+          f"{rep['pad_fraction']:.4f}; evictions {rep['evictions']}, "
+          f"restores {rep['restores']}, promotions {rep['promotions']}, "
+          f"admissions {rep['admissions']}, fresh admits "
+          f"{rep['fresh_admits']}, limbo pulls {rep['limbo_pulls']}; "
+          f"verify {rep['verify']} ok on {rep['verified_docs']} docs "
+          f"({rep['verified_per_class']}, {rep['verify_seconds']:.1f} s); "
+          f"launches {launches}, plain calls 0; set-up "
+          f"{rep['setup_seconds']:.1f} s; host phase s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rep["phase_seconds"].items())
+          + "; device span ms (CUDA events, include device waits on the "
+          "host): " + ", ".join(f"{k} {v:.2f}" for k, v in spans.items())
+          + f"; {idle} ({timed_s:.1f} s, second drain to dispatch "
+          f"{win['n']}: {time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"[serve tier] residency: {json.dumps(res)}", flush=True)
+
+    # ---- [serve tier kernels]: every (class, tier) pair of the drain ----
+    t0 = time.perf_counter()
+    err = {"k1": 0, "k4": 0}
+    at: dict[tuple[int, int], tuple] = {}
+    for (C, Rt), (ops, st) in sorted(keep.items()):
+        kd, pd, ld, sd = torch.from_numpy(
+            np.stack(widen_ops(*ops))).to(dev).unbind(0)
+        args = (kd, pd, ld, sd, st.nvis)
+        got = rr.resolve_range_rows(*args)
+        want = rr.resolve_range_rows_plain(*args)
+        e1 = max_err((*got[0], *got[1], got[2]),
+                     (*want[0], *want[1], want[2]))
+        tokens, dints, _ = got
+        inputs = sf.serve_round_inputs(tokens, dints, st.length, st.nvis)
+        new = sf.serve_macro_fused(st, tokens, dints, inputs=inputs)
+        ref = sf.serve_macro_plain(st, tokens, dints)
+        e4 = max_err((new.doc, new.length, new.nvis),
+                     (ref.doc, ref.length, ref.nvis))
+        if e1 or e4:
+            fail(f"serve tier kernels at (C, Rt) = {(C, Rt)}: K1 rows "
+                 f"error {e1}, K4 error {e4}")
+        err["k1"], err["k4"] = max(err["k1"], e1), max(err["k4"], e4)
+        at[C, Rt] = (args, st, tokens, dints, inputs)
+    pairs = sorted(at)
+    if {C for C, _ in pairs} != set(cell["classes"]):
+        fail(f"serve tier kernels: classes {sorted({C for C, _ in pairs})}")
+    # K1's per-row form timed at the pair with the most rows, K4 at every
+    # pair, its row at the largest class's widest tier
+    C1, R1 = max(pairs, key=lambda p: (p[1], p[0]))
+    args = at[C1, R1][0]
+    K1r, _, B1r = args[0].shape
+    T1r = rr.effective_token_list_size(B1r, None)
+    k1_ms = elapsed_ms(lambda: rr.resolve_range_rows(*args), 10)
+    k1_plain_ms = elapsed_ms(lambda: rr.resolve_range_rows_plain(*args), 1)
+    k1_bound = bound(4 * args[0].numel() * 4 + R1 * 4
+                     + K1r * R1 * (4 * T1r + 3 * B1r + 1) * 4,
+                     k1_rows_ops(*args))
+    k4_at = {}
+    for C, Rt in pairs:
+        _, st, tokens, dints, inputs = at[C, Rt]
+        sf.serve_macro_fused(st, tokens, dints, inputs=inputs)  # warm-up
+        ms = elapsed_ms(lambda: sf.serve_macro_fused(st, tokens, dints,
+                                                     inputs=inputs), 20)
+        k4_at[C, Rt] = (tokens[0].shape[0], ms, k4_bound(
+            bound, st.length, inputs[5], dints[0].shape[2],
+            tokens[0].shape[2], C))
+    top = max(C for C, _ in pairs)
+    wtop = max(Rt for C, Rt in pairs if C == top)
+    _, st, tokens, dints, _ = at[top, wtop]
+    k4_plain_ms = elapsed_ms(lambda: sf.serve_macro_plain(st, tokens, dints),
+                             3)
+    print(f"[serve tier kernels] {label}: K1 per-row and K4 equal "
+          f"resolve_range_rows_plain and serve_macro_plain (max abs error "
+          f"{err['k1']}, {err['k4']}) at all {len(pairs)} (class, rows) "
+          f"pairs the drain launched: "
+          + ", ".join(f"C={C} Rt={Rt}: K={v[0]}, K4 {v[1]:.4f} ms, bound "
+                      f"{v[2][0]:.4f} ms ({v[2][1]})"
+                      for (C, Rt), v in sorted(k4_at.items()))
+          + f"; K1 per-row at (K, R, B, T) = {(K1r, R1, B1r, T1r)}: "
+          f"{k1_ms:.4f} ms, plain {k1_plain_ms:.1f} ms, bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}); K4 plain at (Rt, C) = "
+          f"{(wtop, top)}: {k4_plain_ms:.3f} ms "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    K4, k4_ms, k4_bnd = k4_at[top, wtop]
+    del keep, at, args, st, tokens, dints
+
+    # ---- [serve tier ab]: one slot table, pairs in turns, two tiers ----
+    t0 = time.perf_counter()
+    ab = SERVE_CELL
+    ab_slots, ab_warm = parse_tier_spec(TIER_AB, ab["slots"])
+    sessions = build_fleet(ab["n_docs"], mix=ab["mix"], seed=ab["seed"],
+                           arrival_span=ab["arrival_span"])
+    oracle: dict[int, str] = {}  # id(trace) -> content
+    io = {"writes": 0, "reads": 0, "thread_reads": 0}
+    loads = (sched_mod.load_state, pool_mod.load_state,
+             prefetch_mod.load_state)
+
+    def counted(key):
+        real = loads[1]
+
+        def load(path):
+            io[key] += 1  # the thread's key has one writer: the thread
+            return real(path)
+        return load
+
+    def ab_drain(tag, warm, prefetch, verify):
+        """One drain of the A/B fleet at ``ab_slots``: spool writes and
+        reads counted, every count set to 0 just before it and read just
+        after, every doc verified if ``verify``; returns its numbers and
+        the facts no thread timing moves."""
+        with fleet(sessions, ab, ab_slots, warm, prefetch) as (pool, sched):
+            save = pool.spool_save
+
+            def spool_save(*a, **kw):
+                io["writes"] += 1
+                return save(*a, **kw)
+
+            pool.spool_save = spool_save
+            io.update(writes=0, reads=0, thread_reads=0)
+            sched_mod.load_state = pool_mod.load_state = counted("reads")
+            prefetch_mod.load_state = counted("thread_reads")
+            torch.cuda.synchronize()
+            zero_all_counts()
+            try:
+                stats = sched.run()
+            finally:
+                (sched_mod.load_state, pool_mod.load_state,
+                 prefetch_mod.load_state) = loads
+            got = read_all_counts(f"serve tier ab {tag}")
+            if not sched.done or got != {
+                    "resolve_range_rows": stats.dispatches,
+                    "serve_macro_fused": stats.dispatches}:
+                fail(f"serve tier ab {tag}: done {sched.done}, launches "
+                     f"{got} for {stats.dispatches} dispatches")
+            pf = pool.prefetcher
+            if pf is not None and pf.errors:
+                fail(f"serve tier ab {tag}: prefetch errors {pf.errors}")
+            bad = []
+            for s in sessions if verify else ():
+                want = oracle.get(id(s.trace))
+                if want is None:
+                    want = oracle[id(s.trace)] = replay_trace(s.trace)
+                if pool.decode(s.doc_id) != want:
+                    bad.append(s.doc_id)
+            if bad:
+                fail(f"serve tier ab {tag}: docs {bad[:16]} differ from the "
+                     "oracle")
+            hits = pool.warm_hits
+            return {
+                "rate": stats.patches / stats.wall_time,
+                "wall": stats.wall_time, "phases": dict(stats.phase_seconds),
+                "io": dict(io), "restores": pool.restores,
+                "hit_rate": (hits / (hits + pool.restores) if warm and (
+                    hits + pool.restores) else None),
+                "facts": {
+                    "rounds": stats.rounds, "slices": stats.slices,
+                    "dispatches": stats.dispatches, "range ops": stats.ops,
+                    "evictions": pool.evictions,
+                    "promotions": pool.promotions,
+                    "admissions": stats.admissions,
+                    "fresh admits": pool.fresh_admits,
+                    "limbo pulls": sched.limbo_pulls,
+                    "warm hits + restores": hits + pool.restores,
+                    "doc records": {d: (r.cls, r.row, r.length, r.last_sched)
+                                for d, r in pool.docs.items()},
+                    "buckets": {c: (list(b.rows), b.state.doc.clone(),
+                                    b.state.length.clone(),
+                                    b.state.nvis.clone())
+                                for c, b in pool.buckets.items()},
+                },
+            }
+
+    def differ(a, b):
+        """The facts in which two drains differ."""
+        out = [k for k in a if k != "buckets" and a[k] != b[k]]
+        for c, (rows, *st) in a["buckets"].items():
+            rows_b, *st_b = b["buckets"][c]
+            if rows != rows_b or not all(map(torch.equal, st, st_b)):
+                out.append(f"bucket c{c}")
+        return out
+
+    sides = {True: "warm+prefetch", False: "warm, no prefetch"}
+    runs: dict[bool, list[dict]] = {True: [], False: []}
+    first = None
+    for k in range(ab_pairs):
+        for prefetch in ((True, False) if k % 2 == 0 else (False, True)):
+            r = ab_drain(f"{sides[prefetch]} {k}", ab_warm, prefetch,
+                         verify=k == 0)
+            first = first or r["facts"]
+            if differ(first, r["facts"]):
+                fail(f"serve tier ab: pair {k}, {sides[prefetch]}, differs "
+                     f"from the first drain in {differ(first, r['facts'])}")
+            del r["facts"]
+            runs[prefetch].append(r)
+        on, off = runs[True][-1], runs[False][-1]
+        print(f"[serve tier ab] pair {k} ("
+              + ("prefetch first" if k % 2 == 0 else "no prefetch first")
+              + f"): warm+prefetch {on['rate']:.1f} patches/s (moves "
+              f"{on['phases']['moves']:.4f} s), no prefetch "
+              f"{off['rate']:.1f} (moves {off['phases']['moves']:.4f} s)",
+              flush=True)
+    two = ab_drain("two-tier", 0, False, verify=True)
+    for tag, r in ((sides[True], runs[True][0]), (sides[False],
+                   runs[False][0]), ("two-tier", two)):
+        io_ = r["io"]
+        print(f"[serve tier ab] {ab['mix']}/{ab['n_docs']} at slots "
+              f"{ab_slots}, {tag}" + (" (pair 0)" if r is not two else "")
+              + f": {r['rate']:.1f} patches/s ({r['wall']:.4f} s), phases "
+              + ", ".join(f"{k} {v:.4f}" for k, v in r["phases"].items())
+              + f"; spool writes {io_['writes']}, reads {io_['reads']} "
+              f"(prefetch thread {io_['thread_reads']}); restores "
+              f"{r['restores']}; hit rate "
+              + (f"{r['hit_rate']:.4f}" if r["hit_rate"] is not None
+                 else "n/a") + f"; {ab['n_docs']} docs byte-identical to "
+              "the oracle", flush=True)
+
+    def spread(xs):
+        return (f"median {statistics.median(xs):.4f} (least {min(xs):.4f}, "
+                f"largest {max(xs):.4f})")
+
+    ratio = [a["rate"] / b["rate"] for a, b in zip(runs[True], runs[False])]
+    print(f"[serve tier ab] {ab_pairs} pairs in turns: "
+          + "; ".join(f"{sides[p]}: patches/s "
+                      + spread([r["rate"] for r in runs[p]]) + ", moves s "
+                      + spread([r["phases"]["moves"] for r in runs[p]])
+                      + ", hit rate "
+                      + spread([r["hit_rate"] for r in runs[p]])
+                      for p in (True, False))
+          + f"; prefetch over no prefetch, per pair: {spread(ratio)}, "
+          f"the prefetch drain faster in {sum(x > 1 for x in ratio)} of "
+          f"{ab_pairs}; every tiered drain agrees with the first on "
+          f"{', '.join(k for k in first if k != 'buckets')}, every bucket "
+          f"state and row map ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return [
+        kernel_row(f"resolve_range_rows ({label}, (K, R, B) = "
+                   f"({K1r}, {R1}, {B1r}))", "resolve_range.cu",
+                   "resolve_range_pallas.py:255",
+                   launches["resolve_range_rows"], err["k1"], k1_ms,
+                   k1_plain_ms, k1_bound),
+        kernel_row(f"serve_macro_fused ({label}, (K, Rt, C) = "
+                   f"({K4}, {wtop}, {top}))", "serve_macro.cu",
+                   "serve_fused.py:685", launches["serve_macro_fused"],
+                   err["k4"], k4_ms, k4_plain_ms, k4_bnd),
     ]
 
 
@@ -1995,7 +2484,22 @@ def entry_phase(dev) -> None:
           flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Drive the PyTorch port on one NVIDIA GPU; with no "
+        "arguments, every phase.")
+    ap.add_argument("--tier-only", action="store_true",
+                    help="run only the device, build and three-tier phases "
+                    "([serve tier], [serve tier kernels], [serve tier ab])")
+    ap.add_argument("--tier-full", action="store_true",
+                    help="[serve tier] on TIER_FULL (65,536 docs, "
+                    "hot=1024,warm=16384) instead of TIER_CELL")
+    ap.add_argument("--ab-pairs", type=int, default=TIER_AB_PAIRS,
+                    help="prefetch and no-prefetch drain pairs of [serve "
+                    "tier ab] (default %(default)s)")
+    opts = ap.parse_args(argv)
+    tier_cell = TIER_FULL if opts.tier_full else TIER_CELL
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2062,6 +2566,12 @@ def main() -> int:
     for ln in _build.build_log.splitlines():
         if "registers" in ln or "bytes stack" in ln:
             print(f"[build] {ln.strip()}", flush=True)
+    if opts.tier_only:
+        rows = serve_tier_phases(dev, bound, tier_cell, opts.ab_pairs)
+        print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(json.dumps({"kernels": rows}))
+        print(smi_line)
+        return 0
 
     traces = {n: load_testing_data(n)
               for n in ("sveltecomponent", "automerge-paper")}
@@ -3028,6 +3538,10 @@ def main() -> int:
         })
     # ---- the serving fleet: K1's per-row form and K4 ----
     rows += serve_phases(dev, bound)
+    t0 = time.perf_counter()
+    rows += serve_tier_phases(dev, bound, tier_cell, opts.ab_pairs)
+    print(f"[serve tier] all tier phases {time.perf_counter() - t0:.1f} s",
+          flush=True)
     # ---- the concurrent merges and the run-granular downstream ----
     t0 = time.perf_counter()
     merge_rows, traces = merge_phases(dev, bound)

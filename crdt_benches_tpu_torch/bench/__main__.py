@@ -13,7 +13,8 @@
         [--serve-macro 8] [--serve-batch-chars 256]
         [--serve-classes 256,...] [--serve-slots 2048,...]
         [--serve-arrival-span 8] [--serve-verify-sample 0] [--seed 0]
-        [--serve-kernel fused|scan]                          (serve)
+        [--serve-kernel fused|scan] [--serve-tiers hot=ROWS,warm=DOCS]
+        [--serve-arrival-dist uniform|zipf]                  (serve)
 
 The default is the headline range replay (1024 replicas, batch 1536);
 ``--layout unit --batch 256`` is the unit-op engine (the JAX package's
@@ -35,8 +36,12 @@ documents of the ``mixed`` band table, macro depth 8) and verifies every
 document against the oracle (``--serve-verify-sample N``: a seeded sample of about
 N spread over the classes; ``--serve-kernel scan`` applies the rounds one
 after another through ``engine/merge_fleet.py`` instead of the fused macro
-apply); its metric is fleet patches/sec over the
-drain's wall time, and it exits non-zero when verification fails.  A flag
+apply; ``--serve-tiers hot=ROWS,warm=DOCS`` scales the device rows to about
+ROWS and keeps up to DOCS evicted documents in a host warm tier, with a
+prefetch thread and a compressed cold spool, under the id
+``serve/tier/<mix>/<fleet>``; ``--serve-arrival-dist zipf`` skews the
+arrivals toward the start of the span); its metric is fleet patches/sec
+over the drain's wall time, and it exits non-zero when verification fails.  A flag
 of another group is an error.
 
 Metric: aggregate throughput of the trace across many replicas on one GPU,
@@ -218,14 +223,16 @@ def _serve(args) -> int:
             arrival_span=args.serve_arrival_span, macro_k=args.serve_macro,
             batch_chars=args.serve_batch_chars,
             verify_sample=args.serve_verify_sample,
-            serve_kernel=args.serve_kernel, device=args.device,
+            serve_kernel=args.serve_kernel, serve_tiers=args.serve_tiers,
+            arrival_dist=args.serve_arrival_dist, device=args.device,
             log=lambda m: print(m, file=sys.stderr),
         )
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    family = "serve/tier" if args.serve_tiers else "serve"
     out = {
-        "metric": (f"serve/{args.serve_mix}/{args.serve_docs} fleet "
+        "metric": (f"{family}/{args.serve_mix}/{args.serve_docs} fleet "
                    f"patches/sec, K={args.serve_macro}, torch-"
                    f"{torch.device(args.device).type} ({rep['device']})"),
         "value": round(rep["patches_per_sec"], 1),
@@ -276,6 +283,8 @@ def main(argv=None) -> int:
         ("--serve-arrival-span", int, 8),
         ("--serve-verify-sample", int, 0), ("--seed", int, 0),
         ("--serve-kernel", str, "fused", SERVE_KERNELS),
+        ("--serve-tiers", str, None),
+        ("--serve-arrival-dist", str, "uniform", ("uniform", "zipf")),
     )
     for flag, typ, default, *choices in serve_flags:
         ap.add_argument(flag, type=typ, choices=choices[0] if choices else None,
@@ -310,6 +319,13 @@ def main(argv=None) -> int:
             key = flag[2:].replace("-", "_")
             if getattr(args, key) is None:
                 setattr(args, key, default)
+        if args.serve_tiers is not None:
+            from ..serve.bench import parse_tier_spec
+
+            try:
+                parse_tier_spec(args.serve_tiers, _ints(args.serve_slots))
+            except ValueError as e:
+                ap.error(f"--serve-tiers: {e}")
         return _serve(args)
     if given:
         ap.error(f"{', '.join(given)} belong to --group serve")

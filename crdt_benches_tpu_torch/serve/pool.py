@@ -1,5 +1,5 @@
 """DocPool: N independent documents in a few batched device states (the
-JAX package's ``serve/pool.py``: its device surface and two-tier
+JAX package's ``serve/pool.py``: its device surface and three-tier
 residency).
 
 Each row of a ``PackedState`` stack is a different document with its own
@@ -7,10 +7,18 @@ Each row of a ``PackedState`` stack is a different document with its own
 bucketed by **capacity class** (256 / 1024 / ... slots) so a small doc
 never pays a wide apply; a doc is admitted into a free row of its class,
 **promoted** to a larger class before its slot need outgrows the current
-one (the need is host-known, so no device sync), and **evicted** to the
-checkpoint spool (``utils/checkpoint.py`` .npz, uncompressed) when its
-bucket is full — a cold doc restores into any free row later.  Residency
-is two-tier: device rows and the spool.
+one (the need is host-known, so no device sync), and **evicted** when its
+bucket is full.  Residency has two or three tiers:
+
+- ``warm_docs=0`` (the default): device rows and the checkpoint spool
+  (``utils/checkpoint.py`` .npz, uncompressed); an evicted doc restores
+  from its spool into any free row later;
+- ``warm_docs > 0``: device rows (hot), host copies of evicted rows
+  (:class:`WarmTier`, warm: an LRU by the round each doc was last
+  scheduled) and the compressed spool (cold), which takes the warm tier's
+  overflow.  With ``prefetch`` a worker thread (``serve/prefetch.py``)
+  reads the cold spools of docs the scheduler will soon admit into the
+  warm tier.
 
 The hot path is :meth:`DocPool.macro_step`: K staged rounds of per-row
 range ops for the first ``Rt`` rows of one class (a row tier from
@@ -44,6 +52,7 @@ from ..ops.packing import op_lane_dtypes, widen_ops
 from ..ops.resolve_range import resolve_range_rows
 from ..ops.serve_fused import serve_macro_fused, serve_round_inputs
 from ..utils.checkpoint import CorruptCheckpointError, load_state, save_state
+from .prefetch import Prefetcher
 
 I32 = torch.int32
 #: The serve step's kernels: "fused" (K1's per-row form over the K rounds,
@@ -135,13 +144,76 @@ class Bucket:
         heapq.heappush(self._heap, row)
 
 
+@dataclass
+class WarmEntry:
+    """One warm-tier document: a packed row ready to upload (host numpy,
+    trimmed to its used ``length`` prefix; the tail is the constant ``2``
+    an install re-pads).  Entries never change once deposited (a doc's
+    state evolves only while hot), so a ``shadow`` (an on-disk copy of
+    the same bytes) stays valid for the entry's whole warm lifetime and
+    makes its demotion to cold free."""
+
+    doc_row: np.ndarray
+    length: int
+    nvis: int
+    origin: str = "evict"  # "evict" | "prefetch" | "recover"
+    shadow: str | None = None  # spool file with the same bytes, if any
+    last_sched: int = -1  # LRU key: round the doc was last scheduled
+    token: int = 0  # heap-entry invalidation tag
+
+
+class WarmTier:
+    """The bounded host tier: doc_id -> :class:`WarmEntry`, evicted least
+    recently scheduled first.  The eviction heap is invalidated lazily (a
+    doc deposited again gets a new token; stale heap entries are skipped
+    on pop), so put, take and pop stay O(log n).  Owned by the hot thread:
+    the prefetch thread never touches it."""
+
+    def __init__(self, budget: int):
+        self.budget = max(0, int(budget))
+        self.entries: dict[int, WarmEntry] = {}
+        self._heap: list[tuple[int, int, int]] = []  # (last_sched, doc, token)
+        self._tokens = 0
+
+    def __contains__(self, doc_id: int) -> bool:
+        return doc_id in self.entries
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def put(self, doc_id: int, entry: WarmEntry) -> None:
+        self._tokens += 1
+        entry.token = self._tokens
+        self.entries[doc_id] = entry
+        heapq.heappush(self._heap, (entry.last_sched, doc_id, entry.token))
+
+    def take(self, doc_id: int) -> WarmEntry | None:
+        """Remove and return the doc's entry (its heap entry goes stale)."""
+        return self.entries.pop(doc_id, None)
+
+    def pop_lru(self) -> tuple[int, WarmEntry] | None:
+        """Remove and return the least recently scheduled entry."""
+        while self._heap:
+            _, doc_id, token = heapq.heappop(self._heap)
+            e = self.entries.get(doc_id)
+            if e is not None and e.token == token:
+                del self.entries[doc_id]
+                return doc_id, e
+        return None
+
+    def over_budget(self) -> int:
+        return max(0, len(self.entries) - self.budget)
+
+
 class DocPool:
     """The document fleet: buckets, admit/evict/promote and the macro step.
 
     ``classes``: ascending capacity classes, each a multiple of 128;
     ``slots``: resident rows per class.  Buckets live on ``device`` (CUDA
     by default; the CPU only when asked).  ``serve_kernel`` names the
-    serve step, one of :data:`SERVE_KERNELS`."""
+    serve step, one of :data:`SERVE_KERNELS`.  ``warm_docs`` bounds the
+    warm tier (0: two tiers); with a warm tier, ``prefetch`` starts the
+    prefetch thread."""
 
     def __init__(
         self,
@@ -150,6 +222,8 @@ class DocPool:
         spool_dir: str | None = None,
         serve_kernel: str = "fused",
         device: str | torch.device = "cuda",
+        warm_docs: int = 0,
+        prefetch: bool = True,
     ):
         if serve_kernel not in SERVE_KERNELS:
             raise ValueError(f"unknown serve kernel {serve_kernel!r}")
@@ -173,12 +247,27 @@ class DocPool:
         #: staged op-lane dtypes (ops/packing.py), static per pool
         self.op_dtypes = op_lane_dtypes(max(classes))
         self.evictions = 0
-        self.restores = 0
+        self.restores = 0  # admissions that read a cold spool
         self.promotions = 0
+        self.fresh_admits = 0  # admissions installed from the initial text
+        self.warm_hits = 0  # admissions served from the warm tier
+        self.prefetch_hits = 0  # warm hits the prefetcher deposited
+        self.warm_evictions = 0  # warm-to-cold demotions
+        self.warm = WarmTier(warm_docs)
+        #: per-doc spool write generation, bumped at every spool_save: a
+        #: prefetch read that raced a re-eviction is stale
+        self._spool_gens: dict[int, int] = {}
+        #: docs whose live copy is a spool; every ``rec.spool`` write goes
+        #: through :meth:`_set_spool`, which keeps this count
+        self._n_cold = 0
         #: when a list on a CUDA pool, each macro step appends its
         #: (name, start, end) CUDA-event pairs: upload, resolve, inputs, k4
         #: (fused); upload, then a "round" span for each round (scan)
         self.spans: list | None = None
+        self.prefetcher: Prefetcher | None = None
+        if warm_docs > 0 and prefetch:
+            self.prefetcher = Prefetcher()
+            self.prefetcher.start()
 
     # ---- registration / class arithmetic ----
 
@@ -246,35 +335,58 @@ class DocPool:
     def spool_path(self, doc_id: int) -> str:
         return os.path.join(self.spool_dir, f"doc{doc_id}.npz")
 
+    def _set_spool(self, rec: DocRecord, path: str | None) -> None:
+        """The one place ``rec.spool`` changes: a doc entering or leaving
+        the cold tier moves the O(1) :attr:`cold_docs` count."""
+        if (rec.spool is None) != (path is None):
+            self._n_cold += 1 if path is not None else -1
+        rec.spool = path
+
+    def recount_cold(self) -> int:
+        """Derive the cold count again from the records (and keep it)."""
+        self._n_cold = sum(1 for rec in self.docs.values()
+                           if rec.spool is not None)
+        return self._n_cold
+
+    def spool_gen(self, doc_id: int) -> int:
+        """The doc's spool write generation (bumped by every spool_save):
+        the staleness tag a prefetch submission carries."""
+        return self._spool_gens.get(doc_id, 0)
+
     def spool_save(self, doc_id: int, doc_row: np.ndarray, length: int,
-                   nvis: int) -> str:
+                   nvis: int, compress: bool = False) -> str:
         """Write one doc's checkpoint (only the used ``length`` prefix;
-        the tail is the constant ``2`` an install re-pads), uncompressed."""
+        the tail is the constant ``2`` an install re-pads).  Uncompressed
+        unless ``compress``: the cold tier's writes (warm-to-cold
+        demotions, direct evictions with a warm tier) are compressed."""
         path = self.spool_path(doc_id)
         save_state(path, PackedState(
             doc=np.ascontiguousarray(doc_row[None, :length]),
             length=np.asarray([length], np.int32),
             nvis=np.asarray([nvis], np.int32),
-        ), compress=False)
+        ), compress=compress)
+        self._spool_gens[doc_id] = self._spool_gens.get(doc_id, 0) + 1
         return path
 
     def evict(self, doc_id: int) -> str:
         """Move a resident doc to the spool and free its row (direct pool
-        users; the drain spools evictions from its own bucket pull)."""
+        users; the drain moves evictions from its own bucket pull)."""
         rec = self.docs[doc_id]
         if rec.cls is None:
             raise ValueError(f"doc {doc_id} is not resident")
         doc, length, nvis = self._pull_row(rec)
-        rec.spool = self.spool_save(doc_id, doc, length, nvis)
+        self._set_spool(rec, self.spool_save(
+            doc_id, doc, length, nvis, compress=self.warm.budget > 0))
         self._free_row(rec)
         self.evictions += 1
         return rec.spool
 
     def admit(self, doc_id: int, need: int) -> tuple[int, int]:
         """Make ``doc_id`` resident in the class covering ``need`` slots:
-        promote it from a smaller class, restore its spool, or install it
-        fresh.  The target bucket must have a free row (eviction policy is
-        the scheduler's).  Returns (class, row)."""
+        promote it from a smaller class, compose its warm entry, restore
+        its spool, or install it fresh.  The target bucket must have a
+        free row (eviction policy is the scheduler's).  Returns (class,
+        row)."""
         rec = self.docs[doc_id]
         cls = self.class_for(max(need, rec.length, 1))
         if rec.cls is not None:
@@ -284,6 +396,10 @@ class DocPool:
             self._free_row(rec)
             self.promotions += 1
             return self._install(rec, cls, doc, length, nvis)
+        entry = self.take_warm_hit(doc_id)
+        if entry is not None:
+            return self._install(rec, cls, entry.doc_row, entry.length,
+                                 entry.nvis)
         if rec.spool is not None:
             try:
                 st = load_state(rec.spool)
@@ -294,10 +410,129 @@ class DocPool:
             self.restores += 1
             out = self._install(rec, cls, st.doc[0], int(st.length[0]),
                                 int(st.nvis[0]))
-            rec.spool = None  # the file stays until a re-eviction replaces it
+            # cleared only once the doc is resident, so it is never
+            # without a copy; the file stays until a re-eviction's
+            # atomic save replaces it
+            self._set_spool(rec, None)
             return out
+        self.fresh_admits += 1
         return self._install(rec, cls, _fresh_row_np(cls, rec.n_init),
                              rec.n_init, rec.n_init)
+
+    # ---- the warm tier (host rows; owned by the hot thread) ----
+
+    def take_warm_hit(self, doc_id: int) -> WarmEntry | None:
+        """The warm-hit rule of :meth:`admit` and the scheduler's plan:
+        remove the doc's warm entry (a memory compose follows, no disk
+        read), count the hit and clear the doc's spool claim (a shadow
+        file stays behind, stale, until the next eviction replaces it).
+        None when the doc is not warm."""
+        entry = self.warm.take(doc_id)
+        if entry is None:
+            return None
+        self.warm_hits += 1
+        if entry.origin == "prefetch":
+            self.prefetch_hits += 1
+        self._set_spool(self.docs[doc_id], None)
+        return entry
+
+    def warm_deposit(self, doc_id: int, doc_row: np.ndarray, length: int,
+                     nvis: int, origin: str = "evict",
+                     last_sched: int = -1) -> int:
+        """Deposit an evicted doc into the warm tier (a trimmed host copy,
+        no disk write) and keep the budget: the overflow demotes the least
+        recently scheduled entries to the compressed spool.  Returns the
+        number demoted."""
+        rec = self.docs[doc_id]
+        self.warm.put(doc_id, WarmEntry(
+            doc_row=np.array(doc_row[:length], np.int32),
+            length=int(length), nvis=int(nvis), origin=origin,
+            last_sched=last_sched if last_sched >= 0 else rec.last_sched,
+        ))
+        return self._enforce_warm_budget()
+
+    def _enforce_warm_budget(self) -> int:
+        """Demote the warm tier's overflow, least recently scheduled
+        first, to cold: free for an entry with a shadow, one compressed
+        spool write otherwise.  Returns the number demoted."""
+        demoted = 0
+        for _ in range(self.warm.over_budget()):
+            hit = self.warm.pop_lru()
+            if hit is None:
+                break
+            doc_id, e = hit
+            self._set_spool(self.docs[doc_id], e.shadow if e.shadow
+                            is not None else self.spool_save(
+                                doc_id, e.doc_row, e.length, e.nvis,
+                                compress=True))
+            self.warm_evictions += 1
+            demoted += 1
+        return demoted
+
+    def store_prefetched(self, doc_id: int, doc_row: np.ndarray,
+                         length: int, nvis: int, round_no: int,
+                         gen: int | None = None) -> bool:
+        """Adopt one harvested prefetch payload into the warm tier.  A doc
+        that is hot, already warm or not cold keeps its state and the
+        payload is refused, as is a payload whose spool generation moved.
+        The doc's spool becomes the entry's shadow (the same bytes).  The
+        entry's LRU key is ``round_no``, the round it was fetched for, so
+        it outranks stale entries; the overflow past the budget is demoted
+        at the next boundary moves, where disk writes belong."""
+        rec = self.docs.get(doc_id)
+        if (rec is None or rec.cls is not None or doc_id in self.warm
+                or rec.spool is None):
+            return False
+        if gen is not None and self.spool_gen(doc_id) != gen:
+            return False  # the read raced a re-eviction
+        shadow = rec.spool
+        self._set_spool(rec, None)
+        self.warm.put(doc_id, WarmEntry(
+            doc_row=doc_row[:length], length=int(length), nvis=int(nvis),
+            origin="prefetch", shadow=shadow, last_sched=int(round_no),
+        ))
+        return True
+
+    def warm_restore(self, doc_id: int, doc_row: np.ndarray, length: int,
+                     nvis: int, shadow: str | None) -> None:
+        """A recovered doc's warm residency comes back warm, with its
+        snapshot copy as the shadow (so its demotion is free)."""
+        rec = self.docs[doc_id]
+        self._set_spool(rec, None)
+        self.warm.put(doc_id, WarmEntry(
+            doc_row=np.asarray(doc_row[:length], np.int32),
+            length=int(length), nvis=int(nvis), origin="recover",
+            shadow=shadow, last_sched=rec.last_sched,
+        ))
+        self._enforce_warm_budget()
+
+    @property
+    def cold_docs(self) -> int:
+        """Docs whose only live copy is a cold spool (O(1))."""
+        return self._n_cold
+
+    @property
+    def hot_rows(self) -> int:
+        """Occupied device rows across every class."""
+        return sum(b.R - b.n_free for b in self.buckets.values())
+
+    def tier_status(self) -> dict:
+        """The residency in small scalars."""
+        pf = self.prefetcher
+        return {
+            "hot_rows": self.hot_rows,
+            "hot_budget": sum(b.R for b in self.buckets.values()),
+            "warm_docs": len(self.warm),
+            "warm_budget": self.warm.budget,
+            "cold_docs": self.cold_docs,
+            "warm_hits": self.warm_hits,
+            "warm_evictions": self.warm_evictions,
+            "cold_restores": self.restores,
+            "prefetch_hits": self.prefetch_hits,
+            "prefetch_inflight": pf.inflight if pf is not None else 0,
+            "prefetch_submitted": pf.submitted if pf is not None else 0,
+            "prefetch_dropped": pf.dropped if pf is not None else 0,
+        }
 
     # ---- boundary bulk movement (one sync, one upload per class) ----
 
@@ -380,10 +615,13 @@ class DocPool:
     # ---- decode / verify (off the hot path) ----
 
     def decode(self, doc_id: int) -> str:
-        """The doc's visible content, resident or spooled."""
+        """The doc's visible content: resident, warm or spooled."""
         rec = self.docs[doc_id]
         if rec.cls is not None:
             doc, length, nvis = self._pull_row(rec)
+        elif doc_id in self.warm:
+            e = self.warm.entries[doc_id]
+            doc, length, nvis = e.doc_row, e.length, e.nvis
         elif rec.spool is not None:
             st = load_state(rec.spool)
             doc, length, nvis = st.doc[0], int(st.length[0]), int(st.nvis[0])
@@ -395,7 +633,9 @@ class DocPool:
         return {c: 1.0 - b.n_free / b.R for c, b in self.buckets.items()}
 
     def close(self) -> None:
-        """Delete the spool directory if this pool created it (spooled
-        docs become undecodable)."""
+        """Stop the prefetch thread, then delete the spool directory if
+        this pool created it (spooled docs become undecodable)."""
+        if self.prefetcher is not None:
+            self.prefetcher.stop()
         if self._owns_spool and os.path.isdir(self.spool_dir):
             shutil.rmtree(self.spool_dir, ignore_errors=True)

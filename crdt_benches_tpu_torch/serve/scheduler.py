@@ -1,5 +1,6 @@
 """Admission and batching scheduler of the document fleet: macro-rounds
-(the JAX package's ``serve/scheduler.py``, its core drain).
+(the JAX package's ``serve/scheduler.py``, its core drain and its tiered
+residency).
 
 Every macro-round each active capacity class gets one ``(K_eff, Rt, B)``
 range-op tensor — K_eff staged rounds of up to B ops for the doc in each
@@ -19,8 +20,13 @@ same lanes, row placements, evictions, restores and promotions):
   host-known, so it is promoted before the round that would overflow it;
 - **eviction**: a selected doc whose bucket has no free row evicts a
   resident not selected this round — finished docs first, then the least
-  recently scheduled — through the pool's checkpoint spool;
-- **arrival**: each doc becomes active at its session's arrival round.
+  recently scheduled — to the pool's checkpoint spool, or, with a warm
+  tier, to the warm tier (whose overflow goes to the compressed spool);
+- **arrival**: each doc becomes active at its session's arrival round;
+- **prefetch** (warm tier with a prefetcher): after each round's moves
+  the cold docs at the front of the rotation are submitted to the
+  prefetch thread, and the loaded rows are adopted into the warm tier at
+  the start of the next round, before it is planned.
 
 The macro depth of a class's tensor trims exactly to its deepest lane (the
 JAX host form's rule): nothing in the port is keyed by K.
@@ -123,7 +129,8 @@ def prepare_streams(sessions, pool: DocPool, batch: int = 64,
     return streams
 
 
-#: Host phases of a macro-round, timed by the host clock.
+#: Host phases of a macro-round, timed by the host clock; a pool with a
+#: prefetcher adds "prefetch" (the harvest and the submissions).
 PHASES = ("plan", "stage", "moves", "dispatch")
 
 
@@ -182,8 +189,13 @@ class _Plan:
     # data movement, planned on the host and executed at the boundary
     pull_classes: set[int] = field(default_factory=set)
     evictions: list[tuple[int, int, int]] = field(default_factory=list)
+    # warm-mode victims whose state stays in their old bucket row until
+    # the moves: a larger class selecting such a doc this round pulls it
+    # from there (see _place), and its eviction is cancelled
+    limbo: dict[int, tuple[int, int]] = field(default_factory=dict)
+    cancelled_evictions: set[int] = field(default_factory=set)
     # target class -> [(doc_id, row, source)]; source is ("fresh",),
-    # ("spool", path) or ("pull", src_cls, src_row)
+    # ("warm", entry), ("spool", path) or ("pull", src_cls, src_row)
     installs: dict[int, list[tuple[int, int, tuple]]] = field(
         default_factory=dict)
 
@@ -204,6 +216,18 @@ class FleetScheduler:
             streams, key=lambda d: (streams[d].arrival, d)))
         self.stats = ServeStats(
             patches=sum(s.n_patches for s in streams.values()))
+        # predictive prefetch (a pool with a prefetcher): doc ->
+        # (submit round, seq) of the reads in flight, so reads whose
+        # results never arrive are reaped by seq
+        self._prefetch_inflight: dict[int, tuple[int, int]] = {}
+        #: the rotation's front scanned for cold docs each round
+        self._prefetch_lookahead = max(
+            32, sum(b.R for b in pool.buckets.values()))
+        self.prefetch_wasted = 0  # harvested but stale or superseded
+        self.prefetch_missed = 0  # dropped by an injected fault (none yet)
+        self.limbo_pulls = 0  # same-round victim-to-promotion pulls
+        if pool.prefetcher is not None:
+            self.stats.phase_seconds["prefetch"] = 0.0
 
     # ---- planning (host only; no device syncs) ----
 
@@ -307,20 +331,40 @@ class FleetScheduler:
                     b_old.release_row(rec.row)
                     rec.cls = rec.row = None
                     pool.promotions += 1
+                elif lane.stream.doc_id in plan.limbo:
+                    # a smaller class's victim earlier this round: warm
+                    # mode moves it at the boundary, so its bytes are
+                    # still in the old row (the moves read pre-compose
+                    # snapshots): pull it from there, as a promotion
+                    src = plan.limbo.pop(lane.stream.doc_id)
+                    plan.cancelled_evictions.add(lane.stream.doc_id)
+                    pending.append((i, ("pull", *src)))
+                    pool.promotions += 1
+                    self.limbo_pulls += 1
+                elif lane.stream.doc_id in pool.warm:
+                    # taken now, so nothing before the moves can demote it
+                    pending.append(
+                        (i, ("warm", pool.take_warm_hit(lane.stream.doc_id))))
                 elif rec.spool is not None:
                     pending.append((i, ("spool", rec.spool)))
-                    rec.spool = None
+                    pool._set_spool(rec, None)
                     pool.restores += 1
                 else:
                     pending.append((i, ("fresh",)))
+                    pool.fresh_admits += 1
                 self.stats.admissions += 1
-            # make room: one victim per missing free row, to the spool
+            # make room: one victim per missing free row; to the spool,
+            # or with a warm tier to limbo (deposited at the boundary)
+            warm_mode = pool.warm.budget > 0
             while b.n_free < len(pending):
                 victim = self._pick_victim(cls, selected, selected_all)
                 vrec = pool.docs[victim]
                 plan.evictions.append((victim, cls, vrec.row))
                 plan.pull_classes.add(cls)
-                vrec.spool = pool.spool_path(victim)
+                if warm_mode:
+                    plan.limbo[victim] = (cls, vrec.row)
+                else:
+                    pool._set_spool(vrec, pool.spool_path(victim))
                 b.rows[vrec.row] = None
                 b.release_row(vrec.row)
                 vrec.cls = vrec.row = None
@@ -417,16 +461,28 @@ class FleetScheduler:
     # ---- boundary moves (the only syncs of a round) ----
 
     def _execute_moves(self, plan: _Plan) -> None:
-        """The plan's row movement: pull each affected bucket once, write
-        the evictions' spools, compose the installs on the host from the
-        pre-compose snapshots, upload each touched bucket once."""
+        """The plan's row movement: pull each affected bucket once, move
+        the evictions (to the spool, or to the warm tier, whose overflow
+        is demoted to the compressed spool here), compose the installs on
+        the host from the pre-compose snapshots, upload each touched
+        bucket once."""
         pool = self.pool
         snaps = {cls: pool.pull_bucket(cls)
                  for cls in sorted(plan.pull_classes)}
+        warm_mode = pool.warm.budget > 0
         for doc_id, cls, row in plan.evictions:
+            if doc_id in plan.cancelled_evictions:
+                continue  # pulled into a larger class this round
             doc, length, nvis = snaps[cls]
-            pool.spool_save(doc_id, doc[row], int(length[row]),
-                            int(nvis[row]))
+            if warm_mode:
+                pool.warm_deposit(doc_id, doc[row], int(length[row]),
+                                  int(nvis[row]),
+                                  last_sched=pool.docs[doc_id].last_sched)
+            else:
+                pool.spool_save(doc_id, doc[row], int(length[row]),
+                                int(nvis[row]))
+        if warm_mode:
+            pool._enforce_warm_budget()  # the harvest's overflow too
         for cls, items in plan.installs.items():
             if not items:
                 continue
@@ -443,7 +499,10 @@ class FleetScheduler:
                     doc_w[row] = _fresh_row_np(C, n_init)
                     len_w[row] = nvis_w[row] = n_init
                     continue
-                if source[0] == "spool":
+                if source[0] == "warm":  # a memory compose, no disk read
+                    e = source[1]
+                    src_doc, L, nv = e.doc_row, e.length, e.nvis
+                elif source[0] == "spool":
                     st = load_state(source[1])
                     src_doc, L, nv = st.doc[0], int(st.length[0]), int(
                         st.nvis[0])
@@ -457,6 +516,67 @@ class FleetScheduler:
                 len_w[row] = L
                 nvis_w[row] = nv
             pool.upload_bucket(cls, doc_w, len_w, nvis_w)
+
+    # ---- predictive prefetch (never blocks the hot thread) ----
+
+    def _harvest_prefetch(self) -> None:
+        """Adopt the completed reads into the warm tier (start of a round,
+        before its plan).  A payload with an error is left to the
+        synchronous admission, which reads the spool itself; a stale or
+        superseded one is counted and dropped."""
+        pf = self.pool.prefetcher
+        if pf is None:
+            return
+        for payload in pf.drain():
+            doc_id = payload["doc"]
+            self._prefetch_inflight.pop(doc_id, None)
+            if payload["error"] is not None:
+                continue
+            if not self.pool.store_prefetched(
+                    doc_id, payload["row"], payload["length"],
+                    payload["nvis"], round_no=self.round,
+                    gen=payload["gen"]):
+                self.prefetch_wasted += 1
+
+    def _plan_prefetch(self) -> None:
+        """Submit the cold docs the next rounds will admit: the front of
+        the rotation (after ``_select`` it is the next round's admission
+        order), those arriving within the next macro-round, up to the
+        lookahead, the warm budget and the worker's queue depth."""
+        pf = self.pool.prefetcher
+        if pf is None:
+            return
+        pool = self.pool
+        horizon = self.round + self.macro_k
+        # reap reads whose results never arrived (the worker's bounded
+        # publish dropped them): they would pin the budget for good
+        reap_before = self.round - 32 * self.macro_k
+        stale = [(d, seq) for d, (r0, seq) in self._prefetch_inflight.items()
+                 if r0 < reap_before]
+        if stale:
+            for d, _ in stale:
+                del self._prefetch_inflight[d]
+            pf.note_lost([seq for _, seq in stale])
+        space = (min(self._prefetch_lookahead, pool.warm.budget, pf.capacity)
+                 - len(self._prefetch_inflight))
+        wanted: list[tuple[int, str, int]] = []
+        for scanned, doc_id in enumerate(self._rr, 1):
+            if scanned > self._prefetch_lookahead or len(wanted) >= space:
+                break
+            if doc_id in self._prefetch_inflight:
+                continue
+            rec = pool.docs[doc_id]
+            if (rec.spool is None or rec.cls is not None
+                    or doc_id in pool.warm):
+                continue
+            st = self.streams[doc_id]
+            if st.remaining == 0 or st.arrival > horizon:
+                continue
+            wanted.append((doc_id, rec.spool, pool.spool_gen(doc_id)))
+        for doc_id, path, gen in wanted:
+            seq = pf.submit(doc_id, path, gen)
+            if seq:
+                self._prefetch_inflight[doc_id] = (self.round, seq)
 
     # ---- dispatch and host mirrors ----
 
@@ -487,25 +607,35 @@ class FleetScheduler:
     # ---- the drain loop ----
 
     def run_round(self) -> bool:
-        """One macro-round (plan -> stage -> boundary moves -> one
-        dispatch per class).  Returns False when no work remains."""
+        """One macro-round (prefetch harvest -> plan -> stage -> boundary
+        moves -> prefetch submissions -> one dispatch per class ->
+        advance).  Returns False when no work remains."""
         t0 = time.perf_counter()
         ph = self.stats.phase_seconds
+        self._harvest_prefetch()
+        th = time.perf_counter()
+        timed_prefetch = "prefetch" in ph
+        if timed_prefetch:
+            ph["prefetch"] += th - t0
         plan = self._plan()
         t1 = time.perf_counter()
-        ph["plan"] += t1 - t0
+        ph["plan"] += t1 - th
         if plan is None:
             return False
         tensors = self._stage(plan)
         t2 = time.perf_counter()
         self._execute_moves(plan)
         t3 = time.perf_counter()
+        self._plan_prefetch()
+        tp = time.perf_counter()
         self._dispatch(plan, tensors)
         self._advance(plan)
         t4 = time.perf_counter()
+        if timed_prefetch:
+            ph["prefetch"] += tp - t3
         ph["stage"] += t2 - t1
         ph["moves"] += t3 - t2
-        ph["dispatch"] += t4 - t3
+        ph["dispatch"] += t4 - tp
         self.stats.rounds += 1
         self.stats.round_latencies.append(t4 - t0)
         return True

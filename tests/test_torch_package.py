@@ -98,12 +98,13 @@ def test_port_imports_no_jax_and_no_reference_module():
     )
     assert done.returncode == 0, done.stderr
     n, old = done.stdout.split(" ", 1)
-    assert int(n) >= 59  # every module of the port was imported
+    assert int(n) >= 60  # every module of the port was imported
     assert old.strip() == "[]"
     for mod in ("ops.idpos", "ops.apply", "engine.downstream",
                 "ops.packing", "ops.serve_fused", "oracle.text_oracle",
                 "traces.synth", "utils.checkpoint", "serve.workload",
                 "serve.pool", "serve.scheduler", "serve.bench",
+                "serve.prefetch",
                 "engine.merge", "engine.downstream_range",
                 "engine.merge_range", "engine.downstream_flat",
                 "utils.digest", "bench.merge", "bench.nocv_versus",

@@ -110,6 +110,15 @@ def test_tiny_drain_counters_equal_jax(drained):
     assert set(stats.latency_quantiles()) == {"p50", "p95", "p99"}
 
 
+def test_tiny_drain_fresh_admits_equal_jax(drained):
+    pool, jpool = drained["pool"], drained["jpool"]
+    assert pool.fresh_admits == jpool.fresh_admits == FLEET["n_docs"]
+    # the two-tier pool: no warm tier, no thread, every cold doc counted
+    assert pool.prefetcher is None and pool.warm_hits == 0
+    assert pool.cold_docs == pool.recount_cold() == sum(
+        r.spool is not None for r in jpool.docs.values())
+
+
 def test_tiny_drain_bucket_states_equal_jax(drained):
     pool, jpool = drained["pool"], drained["jpool"]
     want = buckets_from_jax({
