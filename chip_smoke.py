@@ -116,7 +116,7 @@ Phases (one line each; any failure exits non-zero):
     equal to the fused drain's, its latency and spans; K1's per-row form
     and K4 at K = 1 held against their plain versions and timed on round 0
     of the fused drain's kept dispatches; then three-tier residency:
-    ``[serve tier]``, the README's tiered cell cut to 16,384 documents
+    ``[serve tier]``, the README's tiered cell cut to 8,192 documents
     (``TIER_CELL``: zipf arrivals over 32 rounds, ``--serve-tiers
     hot=256,warm=4096``, 64 times over-subscribed) through
     ``run_serve_bench``: both kernels once per dispatch, no plain version,
@@ -134,7 +134,21 @@ Phases (one line each; any failure exits non-zero):
     the first pair's and the two-tier drain's spool writes, reads and hit
     rate; every tiered drain equal to the first in every fact no thread
     timing moves, the first pair and the two-tier drain byte-identical to
-    the oracle;
+    the oracle (one pair by default); then the journal
+    (``journal_phases``): ``[serve journal]``, the cell journaled (a
+    barrier every 4 rounds, every 4th full) with the measured recovery
+    leg, both kernels once per dispatch of the drain and the resumed
+    drain, the barrier counts and times, the WAL, the rate against
+    ``[serve]``'s, ``recover_ms``, ``redo_ms``, a seeded sample of 512
+    docs verified after each; ``[serve crash]``, the drain stopped after
+    round 10 and recovered from a delta at chain depth 2 with a redo tail;
+    ``[serve tier crash]``, the ``[serve tier ab]`` fleet crashed the same
+    way, warm members restored; each crash-recovered fleet byte-identical
+    to the oracle in every document; ``[journal
+    rebuild]``, 8 documents of each class rebuilt by ``rebuild_doc`` from
+    their snapshot base and from nothing (K1's per-row form and K4 once
+    per slice, each byte-identical), and both kernels held against their
+    plain versions and timed on one slice of the largest class at R = 1;
 15. the concurrent merges (``bench/merge.py``, ``--group merge``):
     merge/traces (rustcode and seph-blog1, 1,348,053 delivered ops)
     through the unit, run and flat engines at 64 replicas and through the
@@ -154,7 +168,8 @@ Phases (one line each; any failure exits non-zero):
     byte-identical; K7 held against its plain version on one ``range``
     batch;
 17. ``[runner]``: the bench matrix runner (``bench/runner.py``) in-process
-    with ``--verify --samples 2 --warmup 1``: the upstream columns
+    with ``--verify --samples 1 --warmup 1`` (2 samples until the journal
+    phases needed the time): the upstream columns
     ``cpp-rope``, ``cpp-crdt``, ``cpp-cola``, ``torch`` (1024 replicas,
     batch 1536) and ``torch-unit`` (batch 256) on sveltecomponent and
     automerge-paper, the downstream columns ``cpp-crdt``, ``torch``,
@@ -311,7 +326,7 @@ def kernel_row(name, cu, replaces, launches, err, ms, plain_ms, bound,
     }
 
 
-def serve_phases(dev, bound) -> list[dict]:
+def serve_phases(dev, bound) -> tuple[float, list[dict]]:
     """The serving fleet's fused macro step on ``SERVE_CELL``.
 
     ``[k1 rows]``/``[k4]``: one drain in which every dispatch's per-row
@@ -325,8 +340,8 @@ def serve_phases(dev, bound) -> list[dict]:
     read just after, every document verified against the oracle, and
     CUDA-event stage spans; a third drain
     under the profiler gives the device's idle share.  ``bound(bytes,
-    ops)`` gives (ms, "bytes" or "operations").  Returns the two kernels'
-    rows of the ``kernels`` line."""
+    ops)`` gives (ms, "bytes" or "operations").  Returns the timed drain's
+    patches/s and the kernels' rows of the ``kernels`` line."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -669,7 +684,7 @@ def serve_phases(dev, bound) -> list[dict]:
                           if isinstance(k, tuple)))
           + f"; K4 plain at (Rt, C) = {(widest[top], top)}: "
           f"{scan_at['k4_plain_ms']:.3f} ms", flush=True)
-    return [
+    return rep["patches_per_sec"], [
         kernel_row("resolve_range_rows", "resolve_range.cu",
                    "resolve_range_pallas.py:255",
                    launches["resolve_range_rows"], err["k1rows"], k1_ms,
@@ -698,19 +713,19 @@ def serve_phases(dev, bound) -> list[dict]:
 TIER_FULL = dict(SERVE_CELL, n_docs=65536, arrival_span=32,
                  arrival_dist="zipf", serve_tiers="hot=1024,warm=16384",
                  verify_sample=0)
-#: ``[serve tier]``'s cell in the default run: TIER_FULL cut to a quarter
-#: to fit the script's time.  16,384 documents at ``hot=256,warm=4096``
-#: (slots (192, 48, 12, 3, 2)) keep the 64x over-subscription and the 16:1
-#: warm to hot ratio.
-TIER_CELL = dict(TIER_FULL, n_docs=16384, serve_tiers="hot=256,warm=4096")
+#: ``[serve tier]``'s cell in the default run: TIER_FULL cut to an eighth
+#: to fit the script's time (a quarter until the journal phases came).
+#: 8,192 documents at ``hot=128,warm=2048`` (slots (96, 24, 6, 2, 2)) keep
+#: the 64x over-subscription and the 16:1 warm to hot ratio.
+TIER_CELL = dict(TIER_FULL, n_docs=8192, serve_tiers="hot=128,warm=2048")
 #: ``[serve tier ab]``'s tiers: SERVE_CELL's fleet at slots
 #: (192, 48, 12, 3, 2), 16 times over-subscribed, with a warm tier of 1024.
 TIER_AB = "hot=256,warm=1024"
 #: Pairs of prefetch and no-prefetch drains ``[serve tier ab]`` runs in
-#: turns in the default run, one in each order (a pair takes ~25-30 s on
-#: an H100 host, and the script has a time limit); ``--ab-pairs 10`` is
-#: the measurement.
-TIER_AB_PAIRS = 2
+#: the default run: one, the prefetch drain first (a pair takes ~25-30 s
+#: on an H100 host, and the script has a time limit that the journal
+#: phases share); ``--ab-pairs 10`` is the measurement.
+TIER_AB_PAIRS = 1
 #: Dispatches of the second, instrumented tier drain traced by the
 #: profiler for the device's idle share.  That drain stops at the window's
 #: end once it has kept the operands of every (class, rows) pair the timed
@@ -1150,6 +1165,332 @@ def serve_tier_phases(dev, bound, cell=TIER_CELL,
                    f"({K4}, {wtop}, {top}))", "serve_macro.cu",
                    "serve_fused.py:685", launches["serve_macro_fused"],
                    err["k4"], k4_ms, k4_plain_ms, k4_bnd),
+    ]
+
+
+#: The journal's cadence on SERVE_CELL (the README's journal row): a
+#: snapshot barrier every 4 macro-rounds, every 4th of them full.
+JOURNAL = dict(snapshot_every=4, snapshot_full_every=4)
+#: ``[serve crash]``'s crash: SERVE_CELL drains in 14 macro-rounds, with
+#: barriers after rounds 4 (full), 8 (delta) and 12 (delta); stopped after
+#: round 10 it recovers from the delta at chain depth 2 and redoes rounds 9
+#: and 10 from the WAL.
+CRASH_ROUND = 10
+#: ``[journal rebuild]``'s seeded sample: documents of each final class.
+REBUILD_PER_CLASS = 8
+#: ``[serve journal]``'s seeded verify sample (the bench's per-class rule),
+#: checked after the clean drain and again after its recovery: the
+#: crash-recovered fleets verify every document.
+JOURNAL_VERIFY_SAMPLE = 512
+
+
+def journal_phases(dev, bound, serve_rate) -> list[dict]:
+    """The write-ahead journal and crash recovery on the card.
+
+    ``[serve journal]``: SERVE_CELL through ``run_serve_bench`` with the
+    journal (``JOURNAL``) and the measured recovery leg, every count set to
+    0 just before the drain and read after the run: K1's per-row form and
+    K4 once per dispatch of the drain and of the resumed drain, no plain
+    version; the barrier counts and times, the WAL's records and bytes,
+    the drain's rate beside ``[serve]``'s unjournaled ``serve_rate``, and
+    the recovery's ``recover_ms``, ``redo_ms``, ``redo_ops`` and chain
+    depth; a seeded sample (``JOURNAL_VERIFY_SAMPLE``, every class)
+    byte-identical to the oracle after the drain and after the recovery.
+    ``[serve crash]``: the same with the crash after
+    ``CRASH_ROUND`` macro-rounds (a delta at chain depth 2 and a redo
+    tail); every recovered document byte-identical to the oracle (the
+    uninterrupted drain of ``[serve]`` verified every document too, so
+    the two fleets agree document by document).  ``[serve tier
+    crash]``: the ``[serve tier ab]`` fleet (``TIER_AB``, prefetcher on)
+    with the same journal and crash: warm members restored, every
+    document byte-identical.  ``[journal rebuild]``: on ``[serve
+    crash]``'s journal directory, a seeded sample of ``REBUILD_PER_CLASS``
+    documents of each class rebuilt to their final cursor at K = 8, B = 64
+    (``rebuild_doc``), once from their ``SnapshotBases`` base and once
+    from nothing: K1's per-row form and K4 once per slice, no plain
+    version, each document byte-identical to the oracle, the ms per
+    document and its dispatches; on the first slice of the largest
+    class's longest stream, K1's per-row form (R = 1) and K4 (K = 1, Rt =
+    1) held against their plain versions and timed, queued behind a
+    device sleep and back to back, beside their bounds.  Returns those two
+    kernels' rows of the ``kernels`` line."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from crdt_benches_tpu_torch.ops import resolve_range as rr
+    from crdt_benches_tpu_torch.ops import serve_fused as sf
+    from crdt_benches_tpu_torch.ops.apply2 import PackedState
+    from crdt_benches_tpu_torch.oracle.text_oracle import replay_trace
+    from crdt_benches_tpu_torch.serve import journal as journal_mod
+    from crdt_benches_tpu_torch.serve.bench import run_serve_bench
+    from crdt_benches_tpu_torch.serve.pool import (
+        DocPool,
+        _fresh_row_np,
+        decode_row_np,
+    )
+    from crdt_benches_tpu_torch.serve.scheduler import prepare_streams
+    from crdt_benches_tpu_torch.serve.workload import build_fleet
+    from crdt_benches_tpu_torch.traces.tensorize import PAD
+
+    cell = SERVE_CELL
+    n_docs = cell["n_docs"]
+
+    def zero(_pool):
+        torch.cuda.synchronize()
+        zero_all_counts()
+
+    def bench(tag, **kw):
+        """One bench run with the journal, its launches checked: K1's
+        per-row form and K4 once per dispatch of the drain and of the
+        resumed drain, no plain version; every doc verified after the
+        recovery (and after the drain, when it was not crashed)."""
+        t0 = time.perf_counter()
+        rep = run_serve_bench(**{**cell, **kw}, **JOURNAL, device=dev,
+                              pool_hook=zero,
+                              log=lambda m: print(f"[{tag}] {m}", flush=True))
+        launches = read_all_counts(tag)
+        rec, redo = rep["recovery"], rep["recovery_drain"]
+        n = rep["dispatches"] + redo["dispatches"]
+        if launches != {"resolve_range_rows": n, "serve_macro_fused": n}:
+            fail(f"{tag}: launches {launches} for {rep['dispatches']} + "
+                 f"{redo['dispatches']} dispatches")
+        want = n_docs if rep["crashed"] else rep["verified_docs"]
+        if not (rep["verify_ok"] and rec["verify_ok"]
+                and rec["verified_docs"] == want > 0
+                and set(rep["verified_per_class"]) == (
+                    set() if rep["crashed"] else set(map(str,
+                                                         cell["classes"])))):
+            fail(f"{tag}: verify {rep['verify_ok']} on "
+                 f"{rep['verified_docs']} docs, recovered "
+                 f"{rec['verify_ok']} on {rec['verified_docs']}")
+        return rep, rec, redo, launches, time.perf_counter() - t0
+
+    def recovery_line(rep, rec, redo):
+        return (f"recover_ms {rec['recover_ms']:.3f} (snapshot round "
+                f"{rec['snapshot_round']}, chain depth {rec['chain_depth']},"
+                f" {rec['chain_fallbacks']} fallbacks; restored "
+                f"{rec['docs_restored']} resident, {rec['spools_restored']} "
+                f"spooled, {rec['warm_restored']} warm), redo_ms "
+                f"{rec['redo_ms']:.3f} for {rec['redo_ops']} redo ops over "
+                f"{redo['rounds']} rounds and {redo['dispatches']} "
+                f"dispatches (resumed drain's host phase s: "
+                + ", ".join(f"{k} {v:.4f}"
+                            for k, v in redo["phase_seconds"].items())
+                + f"); journal on disk {rec['journal_disk_bytes']} B; "
+                + ("all " if rep["crashed"] else "the sample's ")
+                + f"{rec['verified_docs']} recovered docs byte-identical to "
+                "the oracle")
+
+    # ---- [serve journal]: the journaled drain and its recovery ----
+    rep, rec, redo, launches, secs = bench(
+        "serve journal", journal_dir="auto", measure_recovery=True,
+        verify_sample=JOURNAL_VERIFY_SAMPLE)
+    j = rep["journal"]
+    if not (j["snapshots_full"] and j["snapshots_delta"]):
+        fail(f"serve journal: barriers {j}")
+    lat, ph = rep["batch_latency"], rep["phase_seconds"]
+    print(f"[serve journal] serve/{cell['mix']}/{n_docs} journaled (a barrier"
+          f" every {JOURNAL['snapshot_every']} rounds, full every "
+          f"{JOURNAL['snapshot_full_every']}): {rep['patches_per_sec']:.1f} "
+          f"patches/s ({rep['wall_time']:.4f} s), {rep['patches_per_sec'] / serve_rate:.4f}"
+          f" of [serve]'s unjournaled {serve_rate:.1f} in this run; "
+          f"{rep['rounds']} rounds, {rep['dispatches']} dispatches; "
+          f"barriers {j['snapshots']} ({j['snapshots_full']} full, "
+          f"{j['snapshots_delta']} delta), snapshot_time "
+          f"{j['snapshot_time']:.4f} s, barrier rounds' time "
+          f"{rep['barrier_time']:.4f} s over {rep['barrier_rounds']} rounds;"
+          f" WAL {j['records']} records, {j['bytes']} B, "
+          f"{j['segments_sealed']} segments sealed, {j['gc_segments']} "
+          f"collected, {j['disk_bytes']} B on disk; steady macro-round "
+          f"latency p50 {lat['p50'] * 1e3:.2f} ms, p95 {lat['p95'] * 1e3:.2f}"
+          f", p99 {lat['p99'] * 1e3:.2f}; host phase s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ph.items())
+          + f"; a seeded sample of {rep['verified_docs']} docs "
+          f"({rep['verified_per_class']}) byte-identical to the oracle; "
+          f"launches {launches}, plain calls 0; recovery leg: "
+          + recovery_line(rep, rec, redo) + f" ({secs:.1f} s)", flush=True)
+
+    jd = tempfile.mkdtemp(prefix="chip_smoke_journal_")
+    try:
+        # ---- [serve crash]: stopped between two barriers, recovered ----
+        rep, rec, redo, launches, secs = bench(
+            "serve crash", journal_dir=jd, crash_after=CRASH_ROUND)
+        if not (rep["crashed"] and rep["rounds"] == CRASH_ROUND
+                and rec["chain_depth"] == 2 and rec["snapshot_round"] >= 0
+                and rec["redo_ops"] > 0 and rec["chain_fallbacks"] == 0):
+            fail(f"serve crash: crashed {rep['crashed']} after "
+                 f"{rep['rounds']} rounds, recovery {rec}")
+        print(f"[serve crash] serve/{cell['mix']}/{n_docs} stopped after "
+              f"{rep['rounds']} macro-rounds ({rep['dispatches']} "
+              f"dispatches, {rep['journal']['snapshots']} barriers); "
+              + recovery_line(rep, rec, redo) + f"; launches {launches}, "
+              f"plain calls 0 ({secs:.1f} s)", flush=True)
+
+        # ---- [serve tier crash]: the tier A/B fleet, warm members ----
+        trep, trec, tredo, tlaunches, tsecs = bench(
+            "serve tier crash", serve_tiers=TIER_AB, journal_dir="auto",
+            crash_after=CRASH_ROUND)
+        if not (trep["crashed"] and trec["warm_restored"] > 0
+                and trec["redo_ops"] > 0):
+            fail(f"serve tier crash: crashed {trep['crashed']}, recovery "
+                 f"{trec}")
+        print(f"[serve tier crash] serve/{cell['mix']}/{n_docs} at slots "
+              f"{tuple(trep['slots'])}, {TIER_AB}, prefetcher on, stopped "
+              f"after {trep['rounds']} macro-rounds; "
+              + recovery_line(trep, trec, tredo) + f"; launches "
+              f"{tlaunches}, plain calls 0 ({tsecs:.1f} s)", flush=True)
+
+        # ---- [journal rebuild]: rebuild_doc on [serve crash]'s journal --
+        t0 = time.perf_counter()
+        B, chars, K = cell["batch"], cell["batch_chars"], cell["macro_k"]
+        sessions = build_fleet(n_docs, mix=cell["mix"], seed=cell["seed"],
+                               arrival_span=cell["arrival_span"])
+        pool = DocPool(classes=cell["classes"], slots=cell["slots"],
+                       device=dev)
+        try:
+            streams = prepare_streams(sessions, pool, batch=B,
+                                      batch_chars=chars)
+            records = dict(pool.docs)
+        finally:
+            pool.close()
+        by_class: dict[int, list[int]] = {}
+        for d, r in records.items():
+            by_class.setdefault(pool.class_for(r.capacity_need), []).append(d)
+        rng = np.random.default_rng(cell["seed"] + 3)
+        picks = {C: sorted(int(x) for x in rng.choice(
+                     ids, size=min(REBUILD_PER_CLASS, len(ids)),
+                     replace=False))
+                 for C, ids in sorted(by_class.items())}
+        if set(picks) != set(cell["classes"]) or min(
+                map(len, picks.values())) < REBUILD_PER_CLASS:
+            fail(f"journal rebuild: sample {picks}")
+        bases = journal_mod.SnapshotBases(jd)
+        base_of = {d: bases.base(d) for ids in picks.values() for d in ids}
+        bases.release()
+
+        def n_slices(st, c):
+            n = 0
+            while c < st.n_total:
+                c = st.slice_end(c, B, chars, st.n_total)
+                n += 1
+            return n
+
+        session_of = {s.doc_id: s for s in sessions}
+        # each doc rebuilt from its newest snapshot base (a doc finished
+        # at the barrier has nothing to replay) and from nothing (a doc
+        # that no snapshot holds): the repair's two ends
+        n_sl = 0
+        modes = {}
+        torch.cuda.synchronize()
+        zero_all_counts()
+        for mode in ("snapshot", "fresh"):
+            per_class: dict[int, tuple[float, int, int]] = {}
+            for C, ids in picks.items():
+                for d in ids:
+                    base = base_of[d] if mode == "snapshot" else None
+                    n_sl += n_slices(streams[d], 0 if base is None
+                                     else base[3])
+                    t1 = time.perf_counter()
+                    row, L, nv, disp = journal_mod.rebuild_doc(
+                        streams[d], C, base, streams[d].n_total,
+                        n_init=records[d].n_init, batch=B,
+                        batch_chars=chars, macro_k=K, device=dev)
+                    dt = time.perf_counter() - t1
+                    if decode_row_np(row, L, nv, records[d].chars) != \
+                            replay_trace(session_of[d].trace):
+                        fail(f"journal rebuild: doc {d} ({mode}) differs "
+                             "from the oracle")
+                    ms, n, k = per_class.get(C, (0.0, 0, 0))
+                    per_class[C] = (ms + dt * 1e3, n + 1, k + disp)
+            modes[mode] = per_class
+        rlaunches = read_all_counts("journal rebuild")
+        if rlaunches != {"resolve_range_rows": n_sl,
+                         "serve_macro_fused": n_sl}:
+            fail(f"journal rebuild: launches {rlaunches} for {n_sl} slices")
+        n_docs_r = sum(map(len, picks.values()))
+        for mode, per_class in modes.items():
+            ms = sum(v[0] for v in per_class.values())
+            disp = sum(v[2] for v in per_class.values())
+            print(f"[journal rebuild] {n_docs_r} docs ({REBUILD_PER_CLASS} "
+                  f"of each class) from {'their newest snapshot base' if mode == 'snapshot' else 'nothing (cursor 0)'}"
+                  f" to their final cursor at K = {K}, B = {B}: {ms:.2f} ms,"
+                  f" {ms / n_docs_r:.3f} ms and {disp / n_docs_r:.2f} "
+                  f"dispatches a document; by class (ms a document, "
+                  f"dispatches): " + ", ".join(
+                      f"C={C} {v[0] / v[1]:.3f}, {v[2]}"
+                      for C, v in per_class.items())
+                  + "; every doc byte-identical to the oracle", flush=True)
+        print(f"[journal rebuild] launches {rlaunches} for {n_sl} slices, "
+              f"plain calls 0 ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+        # one slice of the largest class (the first slice of its longest
+        # stream): K1 per-row at R = 1 and K4 at K = 1
+        top = max(picks)
+        d0 = max(picks[top], key=lambda d: streams[d].n_total)
+        st = streams[d0]
+        row, L, nv, c = (_fresh_row_np(top, records[d0].n_init),
+                         records[d0].n_init, records[d0].n_init, 0)
+        state = PackedState(
+            torch.as_tensor(journal_mod._pad_row(row, top)[None], device=dev),
+            torch.tensor([L], dtype=torch.int32, device=dev),
+            torch.tensor([nv], dtype=torch.int32, device=dev))
+        e = st.slice_end(c, B, chars, st.n_total)
+        ops = np.zeros((4, 1, 1, B), np.int32)
+        ops[0], ops[3] = PAD, -1
+        for i, lane in enumerate((st.kind, st.pos, st.rlen, st.slot0)):
+            ops[i, 0, 0, :e - c] = lane[c:e]
+        kd, pd, ld, sd = torch.from_numpy(ops).to(dev)
+        args = (kd, pd, ld, sd, state.nvis)
+        k1 = rr.resolve_range_rows(*args)
+        k1p = rr.resolve_range_rows_plain(*args)
+        err1 = max_err((*k1[0], *k1[1], k1[2]), (*k1p[0], *k1p[1], k1p[2]))
+        tokens, dints, _ = k1
+        inputs = sf.serve_round_inputs(tokens, dints, state.length,
+                                       state.nvis)
+        k4 = sf.serve_macro_fused(state, tokens, dints, inputs=inputs)
+        k4p = sf.serve_macro_plain(state, tokens, dints)
+        err4 = max_err(tuple(k4), tuple(k4p))
+        if err1 or err4:
+            fail(f"journal rebuild slice: K1 per-row error {err1}, K4 error "
+                 f"{err4}")
+        T = tokens[0].shape[2]
+        k1_fn = lambda: rr.resolve_range_rows(*args)
+        k4_fn = lambda: sf.serve_macro_fused(state, tokens, dints,
+                                             inputs=inputs)
+        k1_q, k1_b2b = queued_ms(k1_fn, 20), elapsed_ms(k1_fn, 20)
+        k1_plain = elapsed_ms(lambda: rr.resolve_range_rows_plain(*args), 3)
+        k4_q, k4_b2b = queued_ms(k4_fn, 20), elapsed_ms(k4_fn, 20)
+        k4_plain = elapsed_ms(lambda: sf.serve_macro_plain(state, tokens,
+                                                           dints), 3)
+        k1_b = bound(4 * kd.numel() * 4 + 4 + (4 * T + 3 * B + 1) * 4,
+                     k1_rows_ops(*args))
+        k4_b = k4_bound(bound, state.length, inputs[5], B, T, top)
+        print(f"[journal rebuild] one slice of doc {d0} (C = {top}, "
+              f"{e - c} ops from cursor {c}, length {L}): K1 per-row at "
+              f"(K, R, B, T) = (1, 1, {B}, {T}) equal to its plain version, "
+              f"{k1_q:.4f} ms queued ({k1_b2b:.4f} back to back), plain "
+              f"{k1_plain:.3f} ms, bound {k1_b[0]:.6f} ms ({k1_b[1]}); K4 at "
+              f"(K, Rt, C) = (1, 1, {top}) equal, {k4_q:.4f} ms queued "
+              f"({k4_b2b:.4f} back to back), plain {k4_plain:.3f} ms, bound "
+              f"{k4_b[0]:.6f} ms ({k4_b[1]}), geometry (n, slice, smem "
+              f"bytes, resident, active clusters) "
+              f"{sf.serve_macro_launch_geometry(1, top)}", flush=True)
+    finally:
+        shutil.rmtree(jd, ignore_errors=True)
+    return [
+        kernel_row(f"resolve_range_rows (rebuild_doc, K = 1, (R, B) = "
+                   f"(1, {B}), C = {top})", "resolve_range.cu",
+                   "resolve_range_pallas.py:255",
+                   rlaunches["resolve_range_rows"], err1, k1_q, k1_plain,
+                   k1_b),
+        kernel_row(f"serve_macro_fused (rebuild_doc, K = 1, (Rt, C) = "
+                   f"(1, {top}))", "serve_macro.cu", "serve_fused.py:685",
+                   rlaunches["serve_macro_fused"], err4, k4_q, k4_plain,
+                   k4_b),
     ]
 
 
@@ -1676,9 +2017,10 @@ def merge_phases(dev, bound) -> tuple[list[dict], dict]:
     spans (arrangement, chain or fragments, query, producer, K7, snapshot,
     delete fold, digest; after a warm-up run except on the unit merge,
     which runs for many seconds); the device's idle share from a run under
-    the profiler (on the unit merges over the middle 256 batches, whose
-    wall time the timed run takes between two synchronizes: a whole
-    profiled unit merge takes minutes).  The engines' documents must be identical to each
+    the profiler (on the unit merges over batches 128-383, whose wall
+    time the timed run takes between two synchronizes: a whole profiled
+    unit merge takes minutes, and the profiled run stops at the window's
+    end).  The engines' documents must be identical to each
     other.  K7 is held against its plain version on one unit-merge batch's
     operands at 64 replicas.  Returns the rows of the ``kernels`` line (K7
     on the merge, K5 in the generation), and merge/traces' simulation with
@@ -1780,9 +2122,11 @@ def merge_phases(dev, bound) -> tuple[list[dict], dict]:
             sp = Spans(spans_of[engine],
                        keep={"K7": want_k7 - 2} if (
                            engine == "unit" and config == "traces") else None)
-            # the unit merge's idle-share window: the middle 256 batches,
-            # timed here between two synchronizes
-            lo = max(0, want_k7 // 2 - 128)
+            # the unit merge's idle-share window: 256 batches after the
+            # first 128, timed here between two synchronizes (the profiled
+            # run stops at its end; the middle of the merge cost ~30 s
+            # more on the script's clock)
+            lo = min(128, want_k7 // 4)
             hi = min(want_k7 - 1, lo + 256)
             edges = {}
 
@@ -2246,7 +2590,7 @@ RUNNER_CALLS = (
 
 def runner_phase(dev) -> dict[str, int]:
     """``[runner]``: the port's bench matrix runner in-process with
-    ``--verify``, ``--samples 2 --warmup 1``, on ``RUNNER_CALLS``.  Each
+    ``--verify``, ``--samples 1 --warmup 1``, on ``RUNNER_CALLS``.  Each
     call runs with every count set to 0 just before and read just after
     (its kernels launched, no plain version called); a verify mismatch, a
     skipped cell, a cell left unverified (every cell but the merge's
@@ -2263,7 +2607,7 @@ def runner_phase(dev) -> dict[str, int]:
              "would be skipped")
     records, launches = [], {}
     for argv, want_kernels in RUNNER_CALLS:
-        argv = argv + ["--samples", "2", "--warmup", "1", "--verify"]
+        argv = argv + ["--samples", "1", "--warmup", "1", "--verify"]
         err = io.StringIO()
         t0 = time.perf_counter()
         zero_all_counts()
@@ -3537,11 +3881,17 @@ def main(argv=None) -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
         })
     # ---- the serving fleet: K1's per-row form and K4 ----
-    rows += serve_phases(dev, bound)
+    serve_rate, serve_rows = serve_phases(dev, bound)
+    rows += serve_rows
     t0 = time.perf_counter()
     rows += serve_tier_phases(dev, bound, tier_cell, opts.ab_pairs)
     print(f"[serve tier] all tier phases {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # ---- the journal, crash recovery and rebuild_doc ----
+    t0 = time.perf_counter()
+    rows += journal_phases(dev, bound, serve_rate)
+    print(f"[serve journal] all journal phases "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     # ---- the concurrent merges and the run-granular downstream ----
     t0 = time.perf_counter()
     merge_rows, traces = merge_phases(dev, bound)

@@ -14,7 +14,11 @@
         [--serve-classes 256,...] [--serve-slots 2048,...]
         [--serve-arrival-span 8] [--serve-verify-sample 0] [--seed 0]
         [--serve-kernel fused|scan] [--serve-tiers hot=ROWS,warm=DOCS]
-        [--serve-arrival-dist uniform|zipf]                  (serve)
+        [--serve-arrival-dist uniform|zipf]
+        [--serve-journal DIR|auto] [--serve-snapshot-every 32]
+        [--serve-snapshot-keep 2] [--serve-full-every 4]
+        [--serve-wal-segment-bytes 1048576] [--serve-longhaul H]
+        [--serve-recover] [--serve-crash-round N]            (serve)
 
 The default is the headline range replay (1024 replicas, batch 1536);
 ``--layout unit --batch 256`` is the unit-op engine (the JAX package's
@@ -40,8 +44,13 @@ apply; ``--serve-tiers hot=ROWS,warm=DOCS`` scales the device rows to about
 ROWS and keeps up to DOCS evicted documents in a host warm tier, with a
 prefetch thread and a compressed cold spool, under the id
 ``serve/tier/<mix>/<fleet>``; ``--serve-arrival-dist zipf`` skews the
-arrivals toward the start of the span); its metric is fleet patches/sec
-over the drain's wall time, and it exits non-zero when verification fails.  A flag
+arrivals toward the start of the span; ``--serve-journal`` arms the
+write-ahead journal and snapshot barriers, ``--serve-recover`` adds the
+measured recovery leg, ``--serve-crash-round N`` stops the drain after N
+macro-rounds and gates the run on the recovered fleet, and
+``--serve-longhaul H`` is the ``serve/longhaul/<mix>/<fleet>`` family);
+its metric is fleet patches/sec over the drain's wall time, and it exits
+non-zero when verification fails (2 when the flags are refused).  A flag
 of another group is an error.
 
 Metric: aggregate throughput of the trace across many replicas on one GPU,
@@ -224,13 +233,22 @@ def _serve(args) -> int:
             batch_chars=args.serve_batch_chars,
             verify_sample=args.serve_verify_sample,
             serve_kernel=args.serve_kernel, serve_tiers=args.serve_tiers,
-            arrival_dist=args.serve_arrival_dist, device=args.device,
+            arrival_dist=args.serve_arrival_dist,
+            journal_dir=args.serve_journal,
+            snapshot_every=args.serve_snapshot_every,
+            snapshot_keep=args.serve_snapshot_keep,
+            snapshot_full_every=args.serve_full_every,
+            wal_segment_bytes=args.serve_wal_segment_bytes,
+            longhaul=args.serve_longhaul,
+            measure_recovery=bool(args.serve_recover),
+            crash_after=args.serve_crash_round, device=args.device,
             log=lambda m: print(m, file=sys.stderr),
         )
-    except RuntimeError as e:
+    except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    family = "serve/tier" if args.serve_tiers else "serve"
+    family = ("serve/longhaul" if args.serve_longhaul
+              else "serve/tier" if args.serve_tiers else "serve")
     out = {
         "metric": (f"{family}/{args.serve_mix}/{args.serve_docs} fleet "
                    f"patches/sec, K={args.serve_macro}, torch-"
@@ -289,6 +307,50 @@ def main(argv=None) -> int:
     for flag, typ, default, *choices in serve_flags:
         ap.add_argument(flag, type=typ, choices=choices[0] if choices else None,
                         help=f"serve (default {default})")
+    # the journal's flags, with the JAX runner's defaults and help
+    journal_flags = (
+        ("--serve-journal", str, None, "DIR",
+         "enable the write-ahead op journal + snapshot barriers in DIR "
+         "('auto' = an owned temp dir, removed after the run)"),
+        ("--serve-snapshot-every", int, 32, "N",
+         "fleet snapshot barrier period in macro-rounds (journal mode "
+         "only)"),
+        ("--serve-snapshot-keep", int, 2, "N",
+         "retained snapshot CHAINS (a delta's base links always survive "
+         "with it; <=0 = never prune).  Also the WAL GC floor: segments "
+         "are kept back to the oldest retained barrier so chain fallback "
+         "always finds its redo tail"),
+        ("--serve-full-every", int, 4, "N",
+         "every Nth barrier is a chain-rooting FULL snapshot; the "
+         "barriers between persist only rows dirty since the previous "
+         "one as a CRC-chained DELTA (1 = every barrier full, the "
+         "pre-delta behavior)"),
+        ("--serve-wal-segment-bytes", int, 1 << 20, "BYTES",
+         "roll the active WAL file into a sealed numbered segment past "
+         "this size; segments fully covered by a committed snapshot are "
+         "garbage-collected crash-safely (0 = never roll, the "
+         "pre-segmentation behavior)"),
+        ("--serve-longhaul", int, 0, "H",
+         "the serve/longhaul/<mix>/<fleet> durability family: synthetic "
+         "streams carry H-times the band op count (days-of-edits "
+         "scale), the journal is required, and the run ends with a "
+         "measured recovery leg (recover_ms + redo span + chain depth "
+         "in the report)"),
+        ("--serve-crash-round", int, 0, "N",
+         "inject a crash: kill the drain after N macro-rounds and gate "
+         "the run on the recovered fleet's oracle byte-verify (implies "
+         "--serve-recover)"),
+    )
+    for flag, typ, _default, metavar, text in journal_flags:
+        ap.add_argument(flag, type=typ, metavar=metavar, help=text)
+    ap.add_argument("--serve-recover", action="store_true", default=None,
+                    help="measure the recovery-time objective after the "
+                    "drain: drop the live fleet, recover a fresh one from "
+                    "the journal directory, resume the redo tail, "
+                    "byte-verify vs the oracle (requires --serve-journal)")
+    serve_flags += tuple((flag, typ, default)
+                         for flag, typ, default, *_ in journal_flags)
+    serve_flags += (("--serve-recover", bool, False),)
     args = ap.parse_args(argv)
     flag_set = lambda flags: [f for f, *_ in flags
                               if getattr(args, f[2:].replace("-", "_"))

@@ -117,7 +117,8 @@ def serve_apply_round_plain(state: PackedState, tokens, dints) -> PackedState:
     n_ins = torch.where(live, tlen, 0).sum(1, dtype=I32)
     n_del = torch.where(has_del, dcount, 0).sum(1, dtype=I32)
     new_len = state.length + n_ins
-    C = min(C_full, -(-int(new_len.max()) // 128) * 128)
+    # at least one tile: rows that stay empty still take the round
+    C = min(C_full, max(1, -(-int(new_len.max()) // 128)) * 128)
     drop = C + 7
     col = torch.arange(C, dtype=I32, device=state.doc.device)[None, :]
     length = state.length[:, None]

@@ -1,10 +1,19 @@
 """The serving fleet's benchmark (the JAX package's ``serve/bench.py``
-``run_serve_bench``, its core and its tiered residency): build the fleet,
-construct the pool, prepare the streams, drain once, verify against the
-oracle, report.  ``serve_tiers`` (``hot=ROWS,warm=DOCS``,
+``run_serve_bench``, its core, its tiered residency and its journal):
+build the fleet, construct the pool, prepare the streams, drain once,
+verify against the oracle, report.  ``serve_tiers`` (``hot=ROWS,warm=DOCS``,
 :func:`parse_tier_spec`) scales the device rows and arms the warm tier
 and its prefetcher; the report then gains a ``residency`` block and the
 metric id is ``serve/tier/<mix>/<fleet>``.
+
+``journal_dir`` arms the write-ahead journal and snapshot barriers (the
+report's ``journal`` block).  ``measure_recovery`` adds the recovery
+leg: a fresh pool recovers from the journal directory alone
+(``recover_ms``), resumes the redo tail (``redo_ms``) and is verified
+against the oracle (the ``recovery`` block).  ``crash_after`` stops the
+drain after that many macro-rounds, and the verdict then rides on the
+recovered fleet alone; ``longhaul`` (``serve/longhaul/<mix>/<fleet>``)
+multiplies the synthetic streams' op counts and implies the leg.
 
 Timed region: the drain, from the first macro-round to the final device
 fence (``FleetScheduler.run``).  The metric is fleet patches per second
@@ -16,6 +25,8 @@ per-class sample of ``verify_sample`` docs.
 
 from __future__ import annotations
 
+import shutil
+import tempfile
 import time
 
 import numpy as np
@@ -24,6 +35,7 @@ import torch
 from .._build import kernels
 from ..device import resolve_device
 from ..oracle.text_oracle import replay_trace
+from .journal import DEFAULT_SEGMENT_BYTES, OpJournal, recover_fleet
 from .pool import DocPool
 from .scheduler import FleetScheduler, prepare_streams
 from .workload import build_fleet
@@ -110,6 +122,15 @@ def run_serve_bench(
     verify_sample: int = 0,
     serve_kernel: str = "fused",
     serve_tiers: str | None = None,
+    journal_dir: str | None = None,
+    snapshot_every: int = 32,
+    snapshot_keep: int = 2,
+    snapshot_full_every: int = 4,
+    wal_segment_bytes: int = DEFAULT_SEGMENT_BYTES,
+    journal_fsync: bool = False,
+    longhaul: int = 0,
+    measure_recovery: bool = False,
+    crash_after: int = 0,
     device: str | torch.device = "cuda",
     pool_hook=None,
     log=print,
@@ -117,29 +138,62 @@ def run_serve_bench(
     """Build, drain and verify one fleet through ``serve_kernel``
     (``serve/pool.py SERVE_KERNELS``), with three-tier residency when
     ``serve_tiers`` is given (:func:`parse_tier_spec`); returns the
-    report.  ``pool_hook(pool)``, if given, runs on the pool just before
-    the drain (``chip_smoke.py`` arms the pool's CUDA-event spans
-    there)."""
+    report.  ``journal_dir`` (``"auto"``: an owned temp dir, removed after
+    the run) arms the journal with a barrier every ``snapshot_every``
+    macro-rounds (a full one every ``snapshot_full_every``-th, keeping
+    ``snapshot_keep`` chains) and WAL segments of ``wal_segment_bytes``;
+    ``measure_recovery``, ``crash_after`` and ``longhaul`` as the module
+    says.  ``pool_hook(pool)``, if given, runs on the pool just before
+    the drain (``chip_smoke.py`` arms the pool's CUDA-event spans or
+    zeroes the kernels' counts there)."""
     warm_docs = 0
     if serve_tiers:
         slots, warm_docs = parse_tier_spec(serve_tiers, slots)
+    longhaul = max(0, int(longhaul))
+    if longhaul or crash_after:
+        measure_recovery = True
+    if measure_recovery and not journal_dir:
+        raise ValueError(
+            "the recovery leg (--serve-recover / --serve-longhaul / "
+            "--serve-crash-round) measures journal recovery: "
+            "--serve-journal is required"
+        )
+    if warm_docs and longhaul:
+        raise ValueError(
+            "--serve-tiers and --serve-longhaul are separate bench "
+            "families (serve/tier/* vs serve/longhaul/*); pick one"
+        )
     dev = resolve_device(device)
     if dev.type == "cuda":
         kernels()  # build and load the kernels before the clock starts
-    t0 = time.perf_counter()
-    sessions = build_fleet(n_docs, mix=mix, seed=seed,
-                           arrival_span=arrival_span,
-                           arrival_dist=arrival_dist)
-    pool = DocPool(classes=classes, slots=slots, serve_kernel=serve_kernel,
-                   device=dev, warm_docs=warm_docs)
+    owns_journal = journal_dir == "auto"
+    if owns_journal:
+        journal_dir = tempfile.mkdtemp(prefix="crdt_journal_")
+    journal = (OpJournal(journal_dir, fsync=journal_fsync,
+                         segment_bytes=wal_segment_bytes)
+               if journal_dir else None)
+    pool = None
     try:
+        t0 = time.perf_counter()
+        sessions = build_fleet(n_docs, mix=mix, seed=seed,
+                               arrival_span=arrival_span,
+                               arrival_dist=arrival_dist,
+                               horizon=max(1, longhaul))
+        pool = DocPool(classes=classes, slots=slots,
+                       serve_kernel=serve_kernel, device=dev,
+                       warm_docs=warm_docs)
         streams = prepare_streams(sessions, pool, batch=batch,
                                   batch_chars=batch_chars)
         sched = FleetScheduler(pool, streams, batch=batch, macro_k=macro_k,
-                               batch_chars=batch_chars)
+                               batch_chars=batch_chars, journal=journal,
+                               snapshot_every=snapshot_every,
+                               snapshot_keep=snapshot_keep,
+                               snapshot_full_every=snapshot_full_every)
         setup_s = time.perf_counter() - t0
         total_ops = sum(s.remaining for s in streams.values())
-        log(f"serve: {n_docs} docs ({mix}, seed {seed}), {total_ops} range "
+        log(f"serve: {n_docs} docs ({mix}, seed {seed}"
+            + (f", horizon x{longhaul}" if longhaul else "")
+            + f"), {total_ops} range "
             f"ops, classes {classes} slots {slots} batch {batch} chars "
             f"{batch_chars} K {macro_k} kernel {serve_kernel} on {dev}; "
             f"set-up {setup_s:.1f} s")
@@ -148,26 +202,47 @@ def run_serve_bench(
                 f"({'/'.join(map(str, slots))}), warm {warm_docs} docs, "
                 f"cold spool compressed, prefetch "
                 f"{'armed' if pool.prefetcher is not None else 'off'}")
+        if journal is not None:
+            log(f"serve: journal {'(owned temp dir)' if owns_journal else journal_dir}"
+                f": a barrier every {snapshot_every} macro-rounds, full "
+                f"every {snapshot_full_every}, keep {snapshot_keep}, WAL "
+                f"segments {wal_segment_bytes} B, fsync "
+                f"{'on' if journal_fsync else 'off'}")
         if pool_hook is not None:
             pool_hook(pool)
-        stats = sched.run()
-        if not sched.done:
+        # crash_after > 0: the injected crash stops the drain after that
+        # many macro-rounds; the recovery leg resumes from the journal
+        stats = sched.run(max_rounds=crash_after or None)
+        crashed = crash_after > 0 and not sched.done
+        if crash_after:
+            log(f"serve: CRASH injected after {stats.rounds} macro-rounds "
+                f"({'work pending' if crashed else 'drained'}); the "
+                "recovery leg resumes from the journal")
+        elif not sched.done:
             raise RuntimeError("scheduler stopped with pending work")
         lat = stats.latency_quantiles()
         rate = stats.patches / stats.wall_time
 
         t1 = time.perf_counter()
-        ids = _verify_ids(pool, sessions, verify_sample, seed)
         session_of = {s.doc_id: s for s in sessions}
         oracle: dict[int, str] = {}  # id(trace) -> content (shared windows)
-        failures = []
-        for d in ids:
-            tr = session_of[d].trace
-            want = oracle.get(id(tr))
-            if want is None:
-                want = oracle[id(tr)] = replay_trace(tr)
-            if pool.decode(d) != want:
-                failures.append(d)
+
+        def mismatches(p: DocPool, ids) -> list[int]:
+            out = []
+            for d in ids:
+                tr = session_of[d].trace
+                want = oracle.get(id(tr))
+                if want is None:
+                    want = oracle[id(tr)] = replay_trace(tr)
+                if p.decode(d) != want:
+                    out.append(d)
+            return out
+
+        # an interrupted drain's pool is mid-stream by design: the
+        # recovered fleet carries the oracle gate
+        ids = [] if crashed else _verify_ids(pool, sessions, verify_sample,
+                                             seed)
+        failures = mismatches(pool, ids)
         verify_s = time.perf_counter() - t1
         docs_per_class: dict[int, int] = {}
         for d in ids:
@@ -178,9 +253,10 @@ def run_serve_bench(
         log(f"serve: drained in {stats.wall_time:.3f} s over {stats.rounds} "
             f"macro-rounds ({stats.slices} device rounds, "
             f"{stats.dispatches} dispatches) -> {rate:,.0f} patches/s; "
-            f"verified {len(ids)} docs in {verify_s:.1f} s: "
-            + ("all byte-identical to the oracle" if verify_ok
-               else f"MISMATCH on docs {failures[:16]}"))
+            + ("in-run verify skipped (injected crash)" if crashed else
+               f"verified {len(ids)} docs in {verify_s:.1f} s: "
+               + ("all byte-identical to the oracle" if verify_ok
+                  else f"MISMATCH on docs {failures[:16]}")))
         pf = pool.prefetcher
         hits, restores = pool.warm_hits, pool.restores
         residency = None if not warm_docs else {
@@ -217,6 +293,115 @@ def run_serve_bench(
                 f"{sched.limbo_pulls}; hit rate "
                 + (f"{residency['hit_rate']:.3f}" if hits + restores
                    else "n/a"))
+        journal_block = None
+        if journal is not None:
+            journal_block = {
+                "dir": None if owns_journal else journal_dir,
+                "records": journal.records,
+                "bytes": journal.bytes_written,
+                "fsync": journal_fsync,
+                "snapshots": stats.snapshots,
+                "snapshots_full": stats.snapshots_full,
+                "snapshots_delta": stats.snapshots_delta,
+                "snapshot_every": snapshot_every,
+                "snapshot_full_every": snapshot_full_every,
+                "snapshot_time": stats.snapshot_time,
+                "segment_bytes": wal_segment_bytes,
+                "segments_sealed": journal.segments_sealed,
+                "gc_segments": journal.gc_segments,
+                "disk_bytes": journal.on_disk_bytes(),
+            }
+            log(f"serve: journal: {journal.records} records, "
+                f"{journal.bytes_written} B; {stats.snapshots} barriers "
+                f"({stats.snapshots_full} full, {stats.snapshots_delta} "
+                f"delta) in {stats.snapshot_time:.3f} s, barrier rounds "
+                f"{stats.barrier_time:.3f} s; {journal.segments_sealed} "
+                f"segments sealed, {journal.gc_segments} collected, "
+                f"{journal_block['disk_bytes']} B of WAL on disk")
+
+        # ---- the measured recovery leg: a fresh fleet recovers from the
+        # journal directory alone, resumes the redo tail, is verified ----
+        recovery_block = None
+        recovery_drain = None
+        if measure_recovery:
+            journal.close()  # flushed: the host state is disk-only now
+            rpool = DocPool(classes=classes, slots=slots,
+                            serve_kernel=serve_kernel, device=dev,
+                            warm_docs=warm_docs)
+            try:
+                rstreams = prepare_streams(sessions, rpool, batch=batch,
+                                           batch_chars=batch_chars)
+                t_rec = time.perf_counter()
+                rep = recover_fleet(rpool, rstreams, journal_dir)
+                rpool.block()  # the restored buckets are on the device
+                recover_ms = (time.perf_counter() - t_rec) * 1e3
+                rsched = FleetScheduler(rpool, rstreams, batch=batch,
+                                        macro_k=macro_k,
+                                        batch_chars=batch_chars,
+                                        start_round=rep.resume_round)
+                t_redo = time.perf_counter()
+                rstats = rsched.run()
+                redo_ms = (time.perf_counter() - t_redo) * 1e3
+                if not rsched.done:
+                    raise RuntimeError(
+                        "recovered scheduler left pending work")
+                rlossy = {d for d, st in rstreams.items() if st.lossy}
+                rsample = [d for d in (ids or [s.doc_id for s in sessions])
+                           if d not in rlossy]
+                if crashed and verify_sample > 0:
+                    cand = sorted(rsample)
+                    rsample = [int(x) for x in np.random.default_rng(
+                        seed + 2).choice(cand, size=min(verify_sample,
+                                                        len(cand)),
+                                         replace=False)] if cand else []
+                rfail = mismatches(rpool, rsample)
+                recovered_ok = not rfail and bool(rsample)
+                wal_disk = journal.on_disk_bytes()
+                recovery_block = {
+                    "version": 1,
+                    "recover_ms": recover_ms,
+                    "redo_ms": redo_ms,
+                    "redo_ops": rep.ops_replayed,
+                    "chain_depth": rep.chain_depth,
+                    "chain_fallbacks": rep.chain_fallbacks,
+                    "snapshot_round": rep.snapshot_round,
+                    "resume_round": rep.resume_round,
+                    "torn_records": rep.torn_records,
+                    "gc_segments_completed": rep.gc_segments_completed,
+                    "staging_removed": rep.staging_removed,
+                    "cold_start": rep.snapshot_round < 0,
+                    "docs_restored": rep.docs_restored,
+                    "spools_restored": rep.spools_restored,
+                    "warm_restored": rep.warm_restored,
+                    "journal_disk_bytes": wal_disk,
+                    "verified_docs": len(rsample),
+                    "verify_ok": recovered_ok,
+                    "reshard_retired": rep.reshard_retired,
+                    "reshard_docs_moved": rep.reshard_docs_moved,
+                    "reshard_completed": rep.reshard_completed,
+                }
+                recovery_drain = {
+                    "rounds": rstats.rounds,
+                    "device_rounds": rstats.slices,
+                    "dispatches": rstats.dispatches,
+                    "range_ops": rstats.ops,
+                    "wall_time": rstats.wall_time,
+                    "phase_seconds": dict(rstats.phase_seconds),
+                }
+            finally:
+                rpool.close()
+            log(f"serve: recovery: {recover_ms:.1f} ms to restore "
+                f"(snapshot round {rep.snapshot_round}, chain depth "
+                f"{rep.chain_depth}, {rep.chain_fallbacks} fallbacks, "
+                f"{rep.docs_restored} resident, {rep.spools_restored} "
+                f"spooled, {rep.warm_restored} warm), {rep.ops_replayed} "
+                f"redo ops in {redo_ms:.1f} ms ({rstats.rounds} rounds, "
+                f"{rstats.dispatches} dispatches), WAL on disk {wal_disk} "
+                f"B; {len(rsample)} recovered docs "
+                + ("byte-identical to the oracle" if recovered_ok
+                   else f"MISMATCH on {rfail[:16] or 'EMPTY SAMPLE'}"))
+            verify_ok = recovered_ok if crashed else (verify_ok
+                                                      and recovered_ok)
         return {
             "fleet_docs": n_docs, "mix": mix, "seed": seed,
             "batch": batch, "batch_chars": batch_chars, "macro_k": macro_k,
@@ -228,6 +413,8 @@ def run_serve_bench(
             "wall_time": stats.wall_time,
             "patches_per_sec": rate,
             "batch_latency": lat,
+            "barrier_time": stats.barrier_time,
+            "barrier_rounds": stats.barrier_rounds,
             "rounds": stats.rounds,
             "device_rounds": stats.slices,
             "dispatches": stats.dispatches,
@@ -248,10 +435,20 @@ def run_serve_bench(
                                    sorted(docs_per_class.items())},
             "verify_seconds": verify_s,
             "verify_ok": verify_ok,
+            "longhaul": longhaul,
+            "crashed": crashed,
+            "journal": journal_block,
+            "recovery": recovery_block,
+            "recovery_drain": recovery_drain,
             **({} if residency is None else {
                 "arrival_dist": arrival_dist,
                 "limbo_pulls": sched.limbo_pulls,
                 "residency": residency}),
         }
     finally:
-        pool.close()
+        if pool is not None:
+            pool.close()
+        if journal is not None:
+            journal.close()
+            if owns_journal:
+                shutil.rmtree(journal_dir, ignore_errors=True)

@@ -20,6 +20,9 @@ bucket is full.  Residency has two or three tiers:
   reads the cold spools of docs the scheduler will soon admit into the
   warm tier.
 
+Every write to a device row marks it dirty (:meth:`DocPool.take_dirty`):
+a delta snapshot barrier (``serve/journal.py``) persists only those rows.
+
 The hot path is :meth:`DocPool.macro_step`: K staged rounds of per-row
 range ops for the first ``Rt`` rows of one class (a row tier from
 :meth:`DocPool.tiers`; the scheduler compacts a macro-round's documents
@@ -51,6 +54,7 @@ from ..ops.apply2 import LANE, PackedState
 from ..ops.packing import op_lane_dtypes, widen_ops
 from ..ops.resolve_range import resolve_range_rows
 from ..ops.serve_fused import serve_macro_fused, serve_round_inputs
+from ..traces.tensorize import PAD
 from ..utils.checkpoint import CorruptCheckpointError, load_state, save_state
 from .prefetch import Prefetcher
 
@@ -268,6 +272,36 @@ class DocPool:
         if warm_docs > 0 and prefetch:
             self.prefetcher = Prefetcher()
             self.prefetcher.start()
+        #: rows whose device content changed since the last snapshot
+        #: barrier, per class: a delta snapshot persists exactly these
+        #: rows, and the barrier consumes the set (:meth:`take_dirty`)
+        self._dirty: dict[int, set[int]] = {c: set() for c in classes}
+
+    # ---- dirty tracking (the delta snapshots' substrate) ----
+
+    def note_rows_dirty(self, cls: int, rows) -> None:
+        """Mark rows of ``cls`` as touched since the last barrier."""
+        self._dirty[cls].update(int(r) for r in rows)
+
+    def take_dirty(self) -> dict[int, list[int]]:
+        """Consume the dirty set: ``{cls: sorted rows}`` for the classes
+        with a dirty row, cleared as a unit (every snapshot barrier, full
+        or delta, is the reset point)."""
+        out = {c: sorted(s) for c, s in self._dirty.items() if s}
+        for s in self._dirty.values():
+            s.clear()
+        return out
+
+    def dirty_rows(self, cls: int) -> set[int]:
+        """A copy of the class's dirty rows."""
+        return set(self._dirty[cls])
+
+    def _mark_op_rows(self, cls: int, kind: np.ndarray) -> None:
+        """Mark the rows a staged (K, Rt, B) op array touches: a row whose
+        every lane is PAD is a no-op end to end and stays clean.  The
+        tier's row r is the bucket's row r (one shard)."""
+        self._dirty[cls].update(
+            int(r) for r in np.flatnonzero((kind != PAD).any(axis=(0, 2))))
 
     # ---- registration / class arithmetic ----
 
@@ -330,6 +364,7 @@ class DocPool:
         b.state.nvis[row] = nvis
         b.rows[row] = rec.doc_id
         rec.cls, rec.row = cls, row
+        self._dirty[cls].add(row)
         return cls, row
 
     def spool_path(self, doc_id: int) -> str:
@@ -506,6 +541,17 @@ class DocPool:
         ))
         self._enforce_warm_budget()
 
+    def ensure_warm_shadow(self, doc_id: int) -> str:
+        """The warm entry's on-disk copy (a compressed spool write), which a
+        snapshot barrier adopts as it adopts a cold spool.  Written once in
+        the entry's warm lifetime: entries never change, so the shadow
+        never goes stale."""
+        e = self.warm.entries[doc_id]
+        if e.shadow is None:
+            e.shadow = self.spool_save(doc_id, e.doc_row, e.length, e.nvis,
+                                       compress=True)
+        return e.shadow
+
     @property
     def cold_docs(self) -> int:
         """Docs whose only live copy is a cold spool (O(1))."""
@@ -543,15 +589,22 @@ class DocPool:
         return _host(st.doc), _host(st.length), _host(st.nvis)
 
     def upload_bucket(self, cls: int, doc: np.ndarray, length: np.ndarray,
-                      nvis: np.ndarray) -> None:
+                      nvis: np.ndarray, dirty_rows=None) -> None:
         """Replace a bucket's device state from host arrays (the write
-        half of a boundary compose)."""
+        half of a boundary compose).  ``dirty_rows`` scopes the delta
+        snapshots' dirty marks to the rows the compose rewrote; None marks
+        every row (never wrong)."""
         b = self.buckets[cls]
         if (doc.shape != (b.R, b.C) or length.shape != (b.R,)
                 or nvis.shape != (b.R,)):
             raise ValueError(
                 f"bucket c{cls} holds ({b.R}, {b.C}) rows; got doc "
                 f"{doc.shape}, length {length.shape}, nvis {nvis.shape}")
+        if dirty_rows is None:
+            dirty_rows = range(b.R)
+        elif any(not 0 <= int(r) < b.R for r in dirty_rows):
+            raise ValueError(f"bucket c{cls}: dirty rows outside [0, {b.R})")
+        self._dirty[cls].update(int(r) for r in dirty_rows)
         up = lambda a: torch.from_numpy(
             np.ascontiguousarray(a, np.int32)).to(self.device)
         b.state = PackedState(up(doc), up(length), up(nvis))
@@ -572,6 +625,7 @@ class DocPool:
         K, Rt, B = kind.shape
         if not 1 <= Rt <= b.R:
             raise ValueError(f"tier {Rt} incompatible with bucket {b.R}")
+        self._mark_op_rows(cls, kind)
         spans = self.spans if self.device.type == "cuda" else None
         marks = []
 

@@ -26,7 +26,14 @@ same lanes, row placements, evictions, restores and promotions):
 - **prefetch** (warm tier with a prefetcher): after each round's moves
   the cold docs at the front of the rotation are submitted to the
   prefetch thread, and the loaded rows are adopted into the warm tier at
-  the start of the next round, before it is planned.
+  the start of the next round, before it is planned;
+- **write-ahead journal** (``journal``, ``serve/journal.py``): each
+  round's lane set is journaled after its plan and before its stage and
+  dispatch, and every ``snapshot_every`` rounds a snapshot barrier (a
+  full one every ``snapshot_full_every``-th time, a delta of the dirty
+  rows between) bounds the redo tail, followed by the WAL's GC pass.
+  Crash recovery is ``journal.recover_fleet``; the resumed scheduler
+  starts its clock at ``start_round``.
 
 The macro depth of a class's tensor trims exactly to its deepest lane (the
 JAX host form's rule): nothing in the port is keyed by K.
@@ -34,6 +41,7 @@ JAX host form's rule): nothing in the port is keyed by K.
 
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -44,6 +52,7 @@ from ..bench.harness import _quantile
 from ..ops.packing import pack_ops
 from ..traces.tensorize import INSERT, PAD, split_insert_runs, tensorize_ranges
 from ..utils.checkpoint import load_state
+from .journal import retained_floor, write_snapshot
 from .pool import DocPool, _fresh_row_np
 
 
@@ -51,7 +60,9 @@ from .pool import DocPool, _fresh_row_np
 class DocStream:
     """One doc's pending op queue: coalesced range ops, insert runs split
     to at most ``batch_chars`` chars, in the pool's packed lane dtypes,
-    with a cursor."""
+    with a cursor.  ``limit`` truncates the stream (a journaled
+    quarantine or shed decision re-applied by recovery) and ``lossy``
+    marks a doc whose ops were shed, which verification leaves out."""
 
     doc_id: int
     kind: np.ndarray  # [N] range ops
@@ -63,10 +74,18 @@ class DocStream:
     n_patches: int
     arrival: int = 0
     cursor: int = 0
+    limit: int | None = None  # stream truncation (shed / quarantine)
+    lossy: bool = False
+
+    @property
+    def n_total(self) -> int:
+        """Stream length after any truncation."""
+        n = len(self.kind)
+        return n if self.limit is None else min(self.limit, n)
 
     @property
     def remaining(self) -> int:
-        return len(self.kind) - self.cursor
+        return self.n_total - self.cursor
 
     def ins_before(self, i: int) -> int:
         """Inserted chars in ops [0, i)."""
@@ -75,14 +94,25 @@ class DocStream:
     def units_before(self, i: int) -> int:
         return int(self.unit_cum[i - 1]) if i > 0 else 0
 
-    def slice_end(self, c: int, batch: int, batch_chars: int) -> int:
-        """End cursor of ONE device slice starting at ``c``: up to
-        ``batch`` ops and ``batch_chars`` inserted chars (ops are
-        pre-split, so at least one always fits)."""
-        hi = min(c + batch, len(self.kind))
+    def slice_end(self, c: int, batch: int, batch_chars: int,
+                  n: int) -> int:
+        """End cursor of ONE device slice starting at ``c`` (bounded by
+        ``n``): up to ``batch`` ops and ``batch_chars`` inserted chars (ops
+        are pre-split, so at least one always fits).  THE slice-budget
+        rule: the scheduler's staging (``_sim_takes``) and the recovery
+        replayer (``journal.rebuild_doc``) must size slices identically,
+        so both call here."""
+        hi = min(c + batch, n)
         cap = self.ins_before(c) + batch_chars
         e = c + int(np.searchsorted(self.ins_cum[c:hi], cap, side="right"))
         return max(e, c + 1)
+
+    def clamp_redelivery(self, start: int, end: int) -> int:
+        """Admit a (re)delivered batch ``[start, end)``: ops below the
+        applied cursor are duplicates (or stale reorders) and are dropped,
+        the cursor being the idempotence high-water mark.  Returns the
+        dropped-op count; the stream always continues from ``cursor``."""
+        return max(0, min(end, self.cursor) - max(0, start))
 
 
 def _tensorize_trace(trace, batch_chars: int, max_class: int) -> tuple:
@@ -130,7 +160,8 @@ def prepare_streams(sessions, pool: DocPool, batch: int = 64,
 
 
 #: Host phases of a macro-round, timed by the host clock; a pool with a
-#: prefetcher adds "prefetch" (the harvest and the submissions).
+#: prefetcher adds "prefetch" (the harvest and the submissions), a
+#: journaled drain "wal" (the round record) and "snapshot" (the barriers).
 PHASES = ("plan", "stage", "moves", "dispatch")
 
 
@@ -151,13 +182,32 @@ class ServeStats:
     dispatches: int = 0  # macro steps (one per active class and round)
     wall_time: float = 0.0
     round_latencies: list[float] = field(default_factory=list)
+    #: per round: a snapshot barrier ran in it (a forced sync)
+    barrier_flags: list[bool] = field(default_factory=list)
     phase_seconds: dict[str, float] = field(
         default_factory=lambda: dict.fromkeys(PHASES, 0.0))
+    snapshots: int = 0
+    snapshots_full: int = 0  # chain-rooting full barriers
+    snapshots_delta: int = 0  # dirty-row delta barriers
+    snapshot_time: float = 0.0  # seconds in write_snapshot
 
     def latency_quantiles(self, ps=(0.5, 0.95, 0.99)) -> dict[str, float]:
-        """Quantiles of the per-macro-round wall latencies."""
-        s = sorted(self.round_latencies)
+        """Quantiles of the steady per-macro-round wall latencies: barrier
+        rounds are left out (all rounds when every round had one)."""
+        s = sorted(lat for lat, b in zip(self.round_latencies,
+                                         self.barrier_flags) if not b)
+        s = s or sorted(self.round_latencies)
         return {f"p{100 * p:g}": (_quantile(s, p) if s else 0.0) for p in ps}
+
+    @property
+    def barrier_time(self) -> float:
+        """Wall time of the rounds that ran a snapshot barrier."""
+        return sum(lat for lat, b in zip(self.round_latencies,
+                                         self.barrier_flags) if b)
+
+    @property
+    def barrier_rounds(self) -> int:
+        return sum(self.barrier_flags)
 
     @property
     def coalesce_ratio(self) -> float:
@@ -202,14 +252,25 @@ class _Plan:
 
 class FleetScheduler:
     def __init__(self, pool: DocPool, streams: dict[int, DocStream],
-                 batch: int = 64, macro_k: int = 1, batch_chars: int = 256):
+                 batch: int = 64, macro_k: int = 1, batch_chars: int = 256,
+                 journal=None, snapshot_every: int = 0,
+                 snapshot_keep: int = 2, snapshot_full_every: int = 4,
+                 start_round: int = 0):
         self.pool = pool
         self.streams = streams
         self.batch = batch
         self.macro_k = max(1, macro_k)
         self.batch_chars = batch_chars
         self.nbits = max(1, int(batch_chars).bit_length())
-        self.round = 0
+        self.round = start_round
+        self.journal = journal  # serve/journal.py OpJournal (or None)
+        self.snapshot_every = snapshot_every
+        self.snapshot_keep = snapshot_keep
+        #: every Nth barrier is a chain-rooting full snapshot, the ones
+        #: between deltas (<= 1: every barrier full)
+        self.snapshot_full_every = max(0, snapshot_full_every)
+        self._barrier_count = 0
+        self._n_rounds = 0  # macro-rounds advanced by this scheduler
         # FIFO of doc ids not yet arrived or with pending ops, in arrival
         # order (stable for determinism)
         self._rr: deque[int] = deque(sorted(
@@ -228,6 +289,9 @@ class FleetScheduler:
         self.limbo_pulls = 0  # same-round victim-to-promotion pulls
         if pool.prefetcher is not None:
             self.stats.phase_seconds["prefetch"] = 0.0
+        if journal is not None:
+            self.stats.phase_seconds["wal"] = 0.0
+            self.stats.phase_seconds["snapshot"] = 0.0
 
     # ---- planning (host only; no device syncs) ----
 
@@ -236,10 +300,11 @@ class FleetScheduler:
         cursor."""
         takes: list[int] = []
         c = st.cursor
+        n = st.n_total
         for _ in range(self.macro_k):
-            if c >= len(st.kind):
+            if c >= n:
                 break
-            e = st.slice_end(c, self.batch, self.batch_chars)
+            e = st.slice_end(c, self.batch, self.batch_chars, n)
             takes.append(e - c)
             c = e
         return takes, c
@@ -515,7 +580,8 @@ class FleetScheduler:
                 doc_w[row, L:] = 2
                 len_w[row] = L
                 nvis_w[row] = nv
-            pool.upload_bucket(cls, doc_w, len_w, nvis_w)
+            pool.upload_bucket(cls, doc_w, len_w, nvis_w,
+                               dirty_rows=[row for _d, row, _s in items])
 
     # ---- predictive prefetch (never blocks the hot thread) ----
 
@@ -603,13 +669,71 @@ class FleetScheduler:
                 rec.length = rec.n_init + st.ins_before(lane.end)
                 rec.last_sched = plan.base_round
         self.round = plan.base_round + max(plan.k_eff.values())
+        self._n_rounds += 1
+
+    # ---- the journal: write-ahead records and snapshot barriers ----
+
+    def _journal_round(self, plan: _Plan) -> None:
+        """The round's write-ahead record: per class, in the plan's lane
+        order, each lane's ``[doc, start_cursor, end_cursor]``."""
+        self.journal.round_record(plan.base_round, {
+            cls: [[l.stream.doc_id, int(l.stream.cursor), int(l.end)]
+                  for l in lanes]
+            for cls, lanes in plan.lanes.items()
+        })
+
+    def _maybe_snapshot(self) -> bool:
+        """The barrier's cadence (after ``_advance``); True when one ran."""
+        if self.journal is None or self.snapshot_every <= 0:
+            return False
+        if self._n_rounds % self.snapshot_every:
+            return False
+        self._snapshot_barrier()
+        return True
+
+    def _snapshot_barrier(self) -> None:
+        """Persist a consistent fleet state (a full barrier every
+        ``snapshot_full_every``-th time, a dirty-row delta between), then
+        run the WAL GC pass the barrier made safe, then journal the
+        ``snap`` marker.  The GC floor is the OLDEST retained snapshot's
+        round (chain fallback may land there); the marker comes after the
+        pass, which rolls the active file first, so it never pins a sealed
+        segment at the covered round."""
+        t0 = time.perf_counter()
+        self._barrier_count += 1
+        kind = "full"
+        if (self.snapshot_full_every > 1
+                and (self._barrier_count - 1) % self.snapshot_full_every):
+            kind = "delta"
+        d, m = write_snapshot(self.journal.dir, self.pool, self.streams,
+                              self.round, keep=self.snapshot_keep, kind=kind)
+        self.stats.snapshots += 1
+        self.stats.snapshot_time += time.perf_counter() - t0
+        kind = m["kind"]  # the committed kind (a delta may have re-rooted)
+        if kind == "full":
+            self.stats.snapshots_full += 1
+        else:
+            self.stats.snapshots_delta += 1
+        self.journal.note_snapshot(d)
+        floor = retained_floor(self.journal.dir)
+        self.journal.compact(self.round if floor is None else floor,
+                             crash_hook=self._gc_crash_hook)
+        self.journal.event("snap", r=self.round, dir=os.path.basename(d),
+                           snap_kind=kind, depth=int(m["depth"]))
+
+    def _gc_crash_hook(self) -> bool:
+        """The GC pass's kill point between its manifest commit and the
+        unlinks (the faults' ``crash_compact``): never fires until the
+        fault injector is ported."""
+        return False
 
     # ---- the drain loop ----
 
     def run_round(self) -> bool:
-        """One macro-round (prefetch harvest -> plan -> stage -> boundary
-        moves -> prefetch submissions -> one dispatch per class ->
-        advance).  Returns False when no work remains."""
+        """One macro-round (prefetch harvest -> plan -> WAL record ->
+        stage -> boundary moves -> prefetch submissions -> one dispatch
+        per class -> advance -> snapshot barrier).  Returns False when no
+        work remains."""
         t0 = time.perf_counter()
         ph = self.stats.phase_seconds
         self._harvest_prefetch()
@@ -622,6 +746,11 @@ class FleetScheduler:
         ph["plan"] += t1 - th
         if plan is None:
             return False
+        if self.journal is not None:
+            self._journal_round(plan)  # write-ahead: before the dispatch
+            tw = time.perf_counter()
+            ph["wal"] += tw - t1
+            t1 = tw
         tensors = self._stage(plan)
         t2 = time.perf_counter()
         self._execute_moves(plan)
@@ -631,13 +760,18 @@ class FleetScheduler:
         self._dispatch(plan, tensors)
         self._advance(plan)
         t4 = time.perf_counter()
+        barrier = self._maybe_snapshot()
+        t5 = time.perf_counter()
         if timed_prefetch:
             ph["prefetch"] += tp - t3
         ph["stage"] += t2 - t1
         ph["moves"] += t3 - t2
         ph["dispatch"] += t4 - tp
+        if self.journal is not None:
+            ph["snapshot"] += t5 - t4
         self.stats.rounds += 1
-        self.stats.round_latencies.append(t4 - t0)
+        self.stats.round_latencies.append(t5 - t0)
+        self.stats.barrier_flags.append(barrier)
         return True
 
     def run(self, max_rounds: int | None = None) -> ServeStats:

@@ -142,6 +142,7 @@ class FleetSpec:
 
     n_docs: int
     seed: int
+    horizon: int  # the longhaul multiplier on synthetic op counts
     names: tuple[str, ...]  # sorted band names; band_of indexes these
     table: dict  # band -> (source, sizing)
     band_of: np.ndarray  # int16 band index per doc
@@ -152,7 +153,8 @@ class FleetSpec:
     def build(n_docs: int, mix: str | dict[str, float] = "mixed",
               seed: int = 0, arrival_span: int = 8,
               bands: dict | None = None,
-              arrival_dist: str = "uniform") -> "FleetSpec":
+              arrival_dist: str = "uniform",
+              horizon: int = 1) -> "FleetSpec":
         """Draw the per-fleet vectors (band assignment, then arrivals) in
         the JAX package's order, so the same seed gives the same fleet."""
         weights = MIXES[mix] if isinstance(mix, str) else dict(mix)
@@ -182,7 +184,8 @@ class FleetSpec:
         if n_docs:
             np.cumsum(is_trace[:-1], out=trace_ord[1:])
         return FleetSpec(
-            n_docs=int(n_docs), seed=int(seed), names=tuple(names),
+            n_docs=int(n_docs), seed=int(seed),
+            horizon=max(1, int(horizon)), names=tuple(names),
             table=dict(table),
             band_of=np.ascontiguousarray(band_of, np.int16),
             arrivals=np.ascontiguousarray(arrivals, np.int32),
@@ -198,7 +201,7 @@ class FleetSpec:
         if source == "synth":
             lo, hi = sizing
             r = np.random.default_rng((self.seed, doc_id))
-            n_ops = int(r.integers(lo, hi + 1))
+            n_ops = int(r.integers(lo, hi + 1)) * self.horizon
             trace = synth_trace(seed=int(r.integers(1 << 31)), n_ops=n_ops)
             src = "synth"
         else:
@@ -213,12 +216,16 @@ class FleetSpec:
 def build_fleet(n_docs: int, mix: str | dict[str, float] = "mixed",
                 seed: int = 0, arrival_span: int = 8,
                 bands: dict | None = None,
-                arrival_dist: str = "uniform") -> list[Session]:
+                arrival_dist: str = "uniform",
+                horizon: int = 1) -> list[Session]:
     """N sessions drawn from the mix's band weights, arrivals staggered
     over ``arrival_span`` rounds (``"uniform"`` or ``"zipf"``-skewed).
     ``mix`` is a name from MIXES or a {band: weight} table; ``bands``
-    overrides the band sizing table (tests use tiny bands)."""
+    overrides the band sizing table (tests use tiny bands).  ``horizon``
+    is the longhaul multiplier (``serve/longhaul``): synthetic sessions
+    carry ``horizon`` times the band's op count, one valid edit history;
+    real-trace windows keep their band's sizing."""
     spec = FleetSpec.build(n_docs, mix=mix, seed=seed,
                            arrival_span=arrival_span, bands=bands,
-                           arrival_dist=arrival_dist)
+                           arrival_dist=arrival_dist, horizon=horizon)
     return [spec.session(i) for i in range(n_docs)]

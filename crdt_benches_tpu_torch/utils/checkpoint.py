@@ -16,10 +16,14 @@ the file holds it as JAX does, the bfloat16 bits as uint16 with dtype
 
 - **atomic write**: :func:`save_state` writes to a temp file in the same
   directory and ``os.replace``-s it over the target, so an interrupted
-  write never leaves a torn file;
+  write never leaves a torn file and every write lands on a new inode
+  (a snapshot barrier hard-links spool files, so an in-place rewrite
+  would change a committed snapshot).  ``durable=True`` also fsyncs the
+  file before the rename and the directory after it;
 - **verified read**: :func:`load_state` checks every array against the
-  CRC manifest and raises :class:`CorruptCheckpointError` on any damage.
-  Checkpoints without ``__crcs__`` load unverified.
+  CRC manifest and raises :class:`CorruptCheckpointError` on any damage
+  (``verify=False`` skips the check).  Checkpoints without ``__crcs__``
+  load unverified.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import torch
 from ..engine.downstream import DownPacked, DownState
 from ..ops.apply import DocState
 from ..ops.apply2 import PackedState, PackedState4, ReplayState
+from .fsdur import fsync_dir, fsync_file  # noqa: F401  (re-exported for
+# serve/journal.py, beside save_state and load_state)
 
 _CLASSES = {
     "DocState": DocState,
@@ -73,10 +79,14 @@ class CorruptCheckpointError(ValueError):
     CRC mismatch, or an undecodable archive."""
 
 
-def save_state(path: str, state, compress: bool = True) -> None:
+def save_state(path: str, state, compress: bool = True,
+               durable: bool = False) -> None:
     """Persist a state of one of the six classes (numpy arrays or tensors
     on any device).  ``compress=False`` skips zlib (``np.savez``), as the
-    eviction spool does; :func:`load_state` reads both forms."""
+    eviction spool does; :func:`load_state` reads both forms.
+    ``durable=True`` fsyncs the written file before the rename and the
+    directory after it (snapshot members); the default leaves flushing
+    to the OS (eviction spools: the journal's replay rebuilds them)."""
     cls = type(state).__name__
     if cls not in _CLASSES:
         raise TypeError(f"unsupported state type {cls}")
@@ -111,7 +121,12 @@ def save_state(path: str, state, compress: bool = True) -> None:
                 __crcs__=np.asarray(crcs, np.uint64),
                 **arrays,
             )
+            if durable:
+                fh.flush()
+                os.fsync(fh.fileno())
         os.replace(tmp, path)
+        if durable:
+            fsync_dir(d)
     except BaseException:
         try:
             os.unlink(tmp)
@@ -120,10 +135,11 @@ def save_state(path: str, state, compress: bool = True) -> None:
         raise
 
 
-def load_state(path: str):
+def load_state(path: str, verify: bool = True):
     """Restore a state saved by :func:`save_state` in either package (numpy
     arrays; a bfloat16 field as int16).  Every array is checked against the
-    CRC manifest; damage raises :class:`CorruptCheckpointError`."""
+    CRC manifest unless ``verify`` is False; damage raises
+    :class:`CorruptCheckpointError`."""
     try:
         z = np.load(path)
     except Exception as e:  # BadZipFile / OSError / EOFError / ValueError
@@ -146,7 +162,7 @@ def load_state(path: str):
             out = {}
             for i, (f, d) in enumerate(zip(fields, dtypes)):
                 a = z[f]
-                if crcs is not None:
+                if verify and crcs is not None:
                     got = zlib.crc32(np.ascontiguousarray(a).tobytes())
                     if got != int(crcs[i]):
                         raise CorruptCheckpointError(

@@ -60,6 +60,7 @@ from crdt_benches_tpu_torch.ops.apply2 import (
 from crdt_benches_tpu_torch.parallel.launch import run_ranks
 from crdt_benches_tpu_torch.parallel.mesh import device_memory_stats
 from crdt_benches_tpu_torch.serve.bench import run_serve_bench
+from crdt_benches_tpu_torch.serve.journal import rebuild_doc
 from crdt_benches_tpu_torch.serve.pool import DocPool
 from crdt_benches_tpu_torch.traces.tensorize import (
     tensorize,
@@ -98,7 +99,7 @@ def test_port_imports_no_jax_and_no_reference_module():
     )
     assert done.returncode == 0, done.stderr
     n, old = done.stdout.split(" ", 1)
-    assert int(n) >= 60  # every module of the port was imported
+    assert int(n) >= 62  # every module of the port was imported
     assert old.strip() == "[]"
     for mod in ("ops.idpos", "ops.apply", "engine.downstream",
                 "ops.packing", "ops.serve_fused", "oracle.text_oracle",
@@ -111,7 +112,8 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "bench.runner", "bench.report", "bench.dump_trace",
                 "bench.harness", "backends.reconcile", "backends.base",
                 "backends.native", "entry", "parallel.mesh",
-                "parallel.launch", "engine.merge_fleet"):
+                "parallel.launch", "engine.merge_fleet", "serve.journal",
+                "utils.fsdur"):
         assert os.path.exists(os.path.join(
             REPO, "crdt_benches_tpu_torch", *mod.split(".")) + ".py"), mod
 
@@ -170,9 +172,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: device_memory_stats(),
         lambda: DocPool(serve_kernel="scan"),
         lambda: run_serve_bench(n_docs=2, serve_kernel="scan"),
+        lambda: run_serve_bench(n_docs=2, journal_dir="auto",
+                                crash_after=1),
+        lambda: rebuild_doc(None, 256, None, 1, n_init=0, batch=16,
+                            batch_chars=64),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_journal_moves_no_state_to_the_cpu():
+    """``serve/journal.py`` reads a device tensor back to the host in one
+    place, ``rebuild_doc``'s result; recovery uploads each bucket to the
+    pool's device (``DocPool.upload_bucket``) and never computes on a CPU
+    copy of a CUDA state (the device tests are in test_torch_journal.py
+    and test_torch_recovery.py)."""
+    with open(os.path.join(REPO, "crdt_benches_tpu_torch", "serve",
+                           "journal.py")) as fh:
+        src = fh.read()
+    assert src.count(".cpu()") == 1
+    assert "return (state.doc[0].cpu().numpy()," in src
+    assert ".to(\"cpu\")" not in src and "device=\"cpu\"" not in src
 
 
 def test_bench_entry_without_cuda_exits_with_error():
