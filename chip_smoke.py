@@ -4,9 +4,9 @@ their plain PyTorch versions.
     python chip_smoke.py
 
 ``--tier-only`` runs the device, build and three-tier phases alone,
-``--tier-full`` drains the README's 65,536-document tier cell in
-``[serve tier]`` in place of its cut, and ``--ab-pairs N`` sets the pairs
-of ``[serve tier ab]``.
+``--chaos-only`` the device, build and fault phases alone, ``--tier-full``
+drains the README's 65,536-document tier cell in ``[serve tier]`` in place
+of its cut, and ``--ab-pairs N`` sets the pairs of ``[serve tier ab]``.
 
 Phases (one line each; any failure exits non-zero):
 
@@ -149,6 +149,19 @@ Phases (one line each; any failure exits non-zero):
     their snapshot base and from nothing (K1's per-row form and K4 once
     per slice, each byte-identical), and both kernels held against their
     plain versions and timed on one slice of the largest class at R = 1;
+    then the faults (``chaos_phases``): ``[serve chaos]``, the README's
+    chaos run (serve/mixed/512 at slots (256, 64, 16, 8, 4), the journal,
+    queue cap 512, seeded spool damage, a device loss, a queue overflow,
+    duplicate batches and a stall) drained clean and under the plan, K1's
+    per-row form and K4 once per dispatch and once per slice of every
+    rebuild (spool heals, the lost class's residents), every event fired
+    and recovered, no quarantine, every document byte-identical to the
+    oracle, the repairs' ms by kind, the chaos and clean rates; both
+    kernels held against their plain versions and timed on a slice of the
+    first rebuild; ``[serve chaos durability]``, the longhaul crash recipe
+    (a torn GC pass, a damaged delta, a crash after round 4) recovered
+    down the chain; ``[serve tier chaos]``, warm-tier pressure and a
+    dropped prefetch batch on a tiered fleet;
 15. the concurrent merges (``bench/merge.py``, ``--group merge``):
     merge/traces (rustcode and seph-blog1, 1,348,053 delivered ops)
     through the unit, run and flat engines at 64 replicas and through the
@@ -1184,6 +1197,70 @@ REBUILD_PER_CLASS = 8
 JOURNAL_VERIFY_SAMPLE = 512
 
 
+def rebuild_slice_check(dev, bound, st, C, base, n_init, B, chars, tag):
+    """K1's per-row form (R = 1) and K4 (K = 1, Rt = 1) on the first slice
+    a ``rebuild_doc`` of stream ``st`` at class ``C`` replays from ``base``
+    (``(row, length, nvis, cursor)``, or None: a fresh row at cursor 0):
+    each held against its plain version (fails on any difference) and
+    timed, queued behind a device sleep and back to back, beside its
+    bound; one line printed after ``tag``.  Returns (K1 error, K4 error,
+    K1's (queued ms, plain ms, bound), K4's)."""
+    import numpy as np
+    import torch
+
+    from crdt_benches_tpu_torch.ops import resolve_range as rr
+    from crdt_benches_tpu_torch.ops import serve_fused as sf
+    from crdt_benches_tpu_torch.ops.apply2 import PackedState
+    from crdt_benches_tpu_torch.serve import journal as journal_mod
+    from crdt_benches_tpu_torch.serve.pool import _fresh_row_np
+    from crdt_benches_tpu_torch.traces.tensorize import PAD
+
+    row, L, nv, c = ((_fresh_row_np(C, n_init), n_init, n_init, 0)
+                     if base is None else base)
+    state = PackedState(
+        torch.as_tensor(journal_mod._pad_row(row, C)[None], device=dev),
+        torch.tensor([L], dtype=torch.int32, device=dev),
+        torch.tensor([nv], dtype=torch.int32, device=dev))
+    e = st.slice_end(c, B, chars, st.n_total)
+    ops = np.zeros((4, 1, 1, B), np.int32)
+    ops[0], ops[3] = PAD, -1
+    for i, lane in enumerate((st.kind, st.pos, st.rlen, st.slot0)):
+        ops[i, 0, 0, :e - c] = lane[c:e]
+    kd, pd, ld, sd = torch.from_numpy(ops).to(dev)
+    args = (kd, pd, ld, sd, state.nvis)
+    k1 = rr.resolve_range_rows(*args)
+    k1p = rr.resolve_range_rows_plain(*args)
+    err1 = max_err((*k1[0], *k1[1], k1[2]), (*k1p[0], *k1p[1], k1p[2]))
+    tokens, dints, _ = k1
+    inputs = sf.serve_round_inputs(tokens, dints, state.length, state.nvis)
+    k4 = sf.serve_macro_fused(state, tokens, dints, inputs=inputs)
+    k4p = sf.serve_macro_plain(state, tokens, dints)
+    err4 = max_err(tuple(k4), tuple(k4p))
+    if err1 or err4:
+        fail(f"{tag}: K1 per-row error {err1}, K4 error {err4}")
+    T = tokens[0].shape[2]
+    k1_fn = lambda: rr.resolve_range_rows(*args)
+    k4_fn = lambda: sf.serve_macro_fused(state, tokens, dints, inputs=inputs)
+    k1_q, k1_b2b = queued_ms(k1_fn, 20), elapsed_ms(k1_fn, 20)
+    k1_plain = elapsed_ms(lambda: rr.resolve_range_rows_plain(*args), 3)
+    k4_q, k4_b2b = queued_ms(k4_fn, 20), elapsed_ms(k4_fn, 20)
+    k4_plain = elapsed_ms(lambda: sf.serve_macro_plain(state, tokens, dints),
+                          3)
+    k1_b = bound(4 * kd.numel() * 4 + 4 + (4 * T + 3 * B + 1) * 4,
+                 k1_rows_ops(*args))
+    k4_b = k4_bound(bound, state.length, inputs[5], B, T, C)
+    print(f"{tag} (C = {C}, {e - c} ops from cursor {c}, length {L}): K1 "
+          f"per-row at (K, R, B, T) = (1, 1, {B}, {T}) equal to its plain "
+          f"version, {k1_q:.4f} ms queued ({k1_b2b:.4f} back to back), "
+          f"plain {k1_plain:.3f} ms, bound {k1_b[0]:.6f} ms ({k1_b[1]}); K4 "
+          f"at (K, Rt, C) = (1, 1, {C}) equal, {k4_q:.4f} ms queued "
+          f"({k4_b2b:.4f} back to back), plain {k4_plain:.3f} ms, bound "
+          f"{k4_b[0]:.6f} ms ({k4_b[1]}), geometry (n, slice, smem bytes, "
+          f"resident, active clusters) "
+          f"{sf.serve_macro_launch_geometry(1, C)}", flush=True)
+    return err1, err4, (k1_q, k1_plain, k1_b), (k4_q, k4_plain, k4_b)
+
+
 def journal_phases(dev, bound, serve_rate) -> list[dict]:
     """The write-ahead journal and crash recovery on the card.
 
@@ -1220,20 +1297,12 @@ def journal_phases(dev, bound, serve_rate) -> list[dict]:
     import numpy as np
     import torch
 
-    from crdt_benches_tpu_torch.ops import resolve_range as rr
-    from crdt_benches_tpu_torch.ops import serve_fused as sf
-    from crdt_benches_tpu_torch.ops.apply2 import PackedState
     from crdt_benches_tpu_torch.oracle.text_oracle import replay_trace
     from crdt_benches_tpu_torch.serve import journal as journal_mod
     from crdt_benches_tpu_torch.serve.bench import run_serve_bench
-    from crdt_benches_tpu_torch.serve.pool import (
-        DocPool,
-        _fresh_row_np,
-        decode_row_np,
-    )
+    from crdt_benches_tpu_torch.serve.pool import DocPool, decode_row_np
     from crdt_benches_tpu_torch.serve.scheduler import prepare_streams
     from crdt_benches_tpu_torch.serve.workload import build_fleet
-    from crdt_benches_tpu_torch.traces.tensorize import PAD
 
     cell = SERVE_CELL
     n_docs = cell["n_docs"]
@@ -1431,66 +1500,262 @@ def journal_phases(dev, bound, serve_rate) -> list[dict]:
         # stream): K1 per-row at R = 1 and K4 at K = 1
         top = max(picks)
         d0 = max(picks[top], key=lambda d: streams[d].n_total)
-        st = streams[d0]
-        row, L, nv, c = (_fresh_row_np(top, records[d0].n_init),
-                         records[d0].n_init, records[d0].n_init, 0)
-        state = PackedState(
-            torch.as_tensor(journal_mod._pad_row(row, top)[None], device=dev),
-            torch.tensor([L], dtype=torch.int32, device=dev),
-            torch.tensor([nv], dtype=torch.int32, device=dev))
-        e = st.slice_end(c, B, chars, st.n_total)
-        ops = np.zeros((4, 1, 1, B), np.int32)
-        ops[0], ops[3] = PAD, -1
-        for i, lane in enumerate((st.kind, st.pos, st.rlen, st.slot0)):
-            ops[i, 0, 0, :e - c] = lane[c:e]
-        kd, pd, ld, sd = torch.from_numpy(ops).to(dev)
-        args = (kd, pd, ld, sd, state.nvis)
-        k1 = rr.resolve_range_rows(*args)
-        k1p = rr.resolve_range_rows_plain(*args)
-        err1 = max_err((*k1[0], *k1[1], k1[2]), (*k1p[0], *k1p[1], k1p[2]))
-        tokens, dints, _ = k1
-        inputs = sf.serve_round_inputs(tokens, dints, state.length,
-                                       state.nvis)
-        k4 = sf.serve_macro_fused(state, tokens, dints, inputs=inputs)
-        k4p = sf.serve_macro_plain(state, tokens, dints)
-        err4 = max_err(tuple(k4), tuple(k4p))
-        if err1 or err4:
-            fail(f"journal rebuild slice: K1 per-row error {err1}, K4 error "
-                 f"{err4}")
-        T = tokens[0].shape[2]
-        k1_fn = lambda: rr.resolve_range_rows(*args)
-        k4_fn = lambda: sf.serve_macro_fused(state, tokens, dints,
-                                             inputs=inputs)
-        k1_q, k1_b2b = queued_ms(k1_fn, 20), elapsed_ms(k1_fn, 20)
-        k1_plain = elapsed_ms(lambda: rr.resolve_range_rows_plain(*args), 3)
-        k4_q, k4_b2b = queued_ms(k4_fn, 20), elapsed_ms(k4_fn, 20)
-        k4_plain = elapsed_ms(lambda: sf.serve_macro_plain(state, tokens,
-                                                           dints), 3)
-        k1_b = bound(4 * kd.numel() * 4 + 4 + (4 * T + 3 * B + 1) * 4,
-                     k1_rows_ops(*args))
-        k4_b = k4_bound(bound, state.length, inputs[5], B, T, top)
-        print(f"[journal rebuild] one slice of doc {d0} (C = {top}, "
-              f"{e - c} ops from cursor {c}, length {L}): K1 per-row at "
-              f"(K, R, B, T) = (1, 1, {B}, {T}) equal to its plain version, "
-              f"{k1_q:.4f} ms queued ({k1_b2b:.4f} back to back), plain "
-              f"{k1_plain:.3f} ms, bound {k1_b[0]:.6f} ms ({k1_b[1]}); K4 at "
-              f"(K, Rt, C) = (1, 1, {top}) equal, {k4_q:.4f} ms queued "
-              f"({k4_b2b:.4f} back to back), plain {k4_plain:.3f} ms, bound "
-              f"{k4_b[0]:.6f} ms ({k4_b[1]}), geometry (n, slice, smem "
-              f"bytes, resident, active clusters) "
-              f"{sf.serve_macro_launch_geometry(1, top)}", flush=True)
+        err1, err4, k1_t, k4_t = rebuild_slice_check(
+            dev, bound, streams[d0], top, None, records[d0].n_init, B, chars,
+            f"[journal rebuild] one slice of doc {d0}")
     finally:
         shutil.rmtree(jd, ignore_errors=True)
     return [
         kernel_row(f"resolve_range_rows (rebuild_doc, K = 1, (R, B) = "
                    f"(1, {B}), C = {top})", "resolve_range.cu",
                    "resolve_range_pallas.py:255",
-                   rlaunches["resolve_range_rows"], err1, k1_q, k1_plain,
-                   k1_b),
+                   rlaunches["resolve_range_rows"], err1, *k1_t),
         kernel_row(f"serve_macro_fused (rebuild_doc, K = 1, (Rt, C) = "
                    f"(1, {top}))", "serve_macro.cu", "serve_fused.py:685",
-                   rlaunches["serve_macro_fused"], err4, k4_q, k4_plain,
-                   k4_b),
+                   rlaunches["serve_macro_fused"], err4, *k4_t),
+    ]
+
+
+#: ``[serve chaos]``'s cell, the README's chaos run: serve/mixed/512 at
+#: slots (256, 64, 16, 8, 4) (SERVE_CELL otherwise: B = 64, K = 8), the
+#: journal with a barrier every 4 macro-rounds, a queue cap of 512 and the
+#: README's seeded fault spec; every document that is not lossy verified.
+CHAOS_CELL = dict(SERVE_CELL, n_docs=512, slots=(256, 64, 16, 8, 4))
+CHAOS = dict(journal_dir="auto", snapshot_every=4, snapshot_full_every=4,
+             queue_cap=512,
+             faults="seed=7,span=8,spool_corrupt=1,spool_truncate=1,"
+                    "device_loss=1,queue_overflow=1,dup_batch=2,stall=1")
+#: ``[serve chaos durability]``: the JAX bench smoke's longhaul crash
+#: recipe (``tools/bench_smoke.sh``): the GC pass torn at the barrier of
+#: round 2, the newest delta damaged there, the drain killed after round 4.
+CHAOS_DURABILITY = dict(
+    mix="mixed", n_docs=16, batch=16, macro_k=4, batch_chars=64,
+    slots=(16, 6, 2, 2, 2), arrival_span=2, verify_sample=6,
+    journal_dir="auto", snapshot_every=2, snapshot_full_every=2,
+    wal_segment_bytes=256, longhaul=4, crash_after=4,
+    faults="seed=3,crash_compact@2=1,delta_corrupt@2=1")
+#: ``[serve tier chaos]``: the JAX bench smoke's tier recipe: zipf
+#: arrivals, warm-tier pressure and a dropped prefetch batch, the
+#: prefetcher on and the journal composing warm shadows.
+CHAOS_TIER = dict(
+    mix="mixed", n_docs=40, batch=16, macro_k=4, batch_chars=64,
+    slots=(16, 6, 2, 2, 2), serve_tiers="hot=14,warm=6",
+    arrival_dist="zipf", arrival_span=4, verify_sample=6,
+    journal_dir="auto", snapshot_every=3,
+    faults="seed=3,span=4,tier_evict_pressure=1,prefetch_miss=1")
+
+
+def chaos_phases(dev, bound) -> list[dict]:
+    """Fault injection and in-run repair on the card (``serve/faults.py``,
+    the scheduler's repair paths, the bench's chaos gate).
+
+    ``[serve chaos]``: ``CHAOS_CELL`` drained clean (the same journal and
+    queue cap, no faults) and then under ``CHAOS``'s seeded plan through
+    ``run_serve_bench``, every count set to 0 just before each drain.
+    Each rebuild the scheduler makes (``journal.rebuild_doc``, a spool heal
+    or a device-loss rebuild) is counted apart: K1's per-row form and K4
+    must launch once per dispatch of the drain plus once per slice of the
+    rebuilds, both in the drain and in the rebuilds, with no plain version.
+    It fails unless ``faults_ok`` and ``verify_ok`` hold, or on any
+    quarantine (the plan has no ``poison_rebuild``: a quarantine there
+    means a rebuild raised, a kernel's failure included).  It prints the
+    fired and recovered counts, recoveries, ops replayed, MTTR, degraded
+    rounds, the chaos and clean rates and their ratio, and the ms of each
+    repair by kind; K1's per-row form and K4 are held against their plain
+    versions and timed on the first slice of the first rebuild.
+    ``[serve chaos durability]`` (``CHAOS_DURABILITY``): both events fired
+    and closed by the recovery leg, ``chain_fallbacks`` >= 1, the recovered
+    sample byte-identical.  ``[serve tier chaos]`` (``CHAOS_TIER``): both
+    tier events fired and recovered, the sample byte-identical.  Returns
+    the two kernels' rows, their launches summed over the three phases."""
+    import torch
+
+    from crdt_benches_tpu_torch.serve import scheduler as sched_mod
+    from crdt_benches_tpu_torch.serve.bench import run_serve_bench
+
+    counts = {"resolve_range_rows": 0, "serve_macro_fused": 0}
+    rebuilds = []  # (why, docs, ms, launches) per repair
+    first = []  # the first rebuild with ops to replay: (stream, C, base,
+    # n_init)
+
+    def zero(_pool):
+        torch.cuda.synchronize()
+        zero_all_counts()
+
+    def launches_now():
+        kernels, _ = port_counters()
+        return {f.__name__: f.launches for f in kernels}
+
+    real_rebuild = sched_mod.rebuild_doc
+
+    def rebuild_counted(stream, C, base, target, **kw):
+        if not first and target > (0 if base is None else base[3]):
+            first.append((stream, C, base, kw["n_init"]))
+        return real_rebuild(stream, C, base, target, **kw)
+
+    real_heal = sched_mod.FleetScheduler._heal_spool
+    real_class = sched_mod.FleetScheduler._recover_class
+
+    def timed(why, fn, docs):
+        def run(self, *a):
+            n_docs, before = docs(self, a), launches_now()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *a)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = launches_now()
+            rebuilds.append((why, n_docs, ms, {
+                k: after[k] - before[k] for k in counts}))
+            return out
+        return run
+
+    def bench(tag, faults_expected=True, **kw):
+        t0 = time.perf_counter()
+        del rebuilds[:]
+        rep = run_serve_bench(**kw, device=dev, pool_hook=zero,
+                              log=lambda m: print(f"[{tag}] {m}", flush=True))
+        launches = read_all_counts(tag)
+        in_rebuilds = {k: sum(r[3][k] for r in rebuilds) for k in counts}
+        n = rep["dispatches"] + (rep["recovery_drain"] or {}).get(
+            "dispatches", 0)
+        want = {k: n + in_rebuilds[k] for k in counts}
+        if launches != {k: v for k, v in want.items() if v}:
+            fail(f"{tag}: launches {launches}, want {want} ({n} dispatches,"
+                 f" {in_rebuilds} in {len(rebuilds)} rebuilds)")
+        if faults_expected and not (rep["faults_ok"] and rep["verify_ok"]):
+            fail(f"{tag}: faults_ok {rep['faults_ok']}, verify_ok "
+                 f"{rep['verify_ok']}: {json.dumps(rep['faults'])}")
+        if not rep["verify_ok"] or rep["quarantines"]:
+            fail(f"{tag}: verify_ok {rep['verify_ok']}, quarantines "
+                 f"{rep['quarantines']} (the plan has no poison_rebuild)")
+        for k in counts:
+            counts[k] += launches.get(k, 0)
+        return rep, launches, in_rebuilds, time.perf_counter() - t0
+
+    def faults_line(rep):
+        f = rep["faults"]
+        return (f"{f['injected']} injected, {f['recovered']} recovered, "
+                f"{f['unrecovered']} unrecovered, {f['not_fired']} not fired"
+                f"; events " + "; ".join(
+                    f"{e['kind']} r{e['fired_round']} {e['detail']}"
+                    for e in f["events"]))
+
+    sched_mod.rebuild_doc = rebuild_counted
+    sched_mod.FleetScheduler._heal_spool = timed(
+        "spool heal", real_heal, lambda self, a: 1)
+    sched_mod.FleetScheduler._recover_class = timed(
+        "device loss", real_class,
+        lambda self, a: len(self.pool.residents(a[0])))
+    try:
+        # ---- [serve chaos]: the README's chaos run, clean then chaos ----
+        clean = {k: v for k, v in CHAOS.items() if k != "faults"}
+        crep, _, _, csecs = bench("serve chaos", faults_expected=False,
+                                  **CHAOS_CELL, **clean)
+        rep, launches, in_rebuilds, secs = bench("serve chaos", **CHAOS_CELL,
+                                                 **CHAOS)
+        if not (rebuilds and first and all(in_rebuilds.values())
+                and rep["lossy_docs"] == []
+                and rep["verified_docs"] == CHAOS_CELL["n_docs"]):
+            fail(f"serve chaos: rebuilds {rebuilds}, lossy "
+                 f"{rep['lossy_docs']}, verified {rep['verified_docs']}")
+        ratio = rep["patches_per_sec"] / crep["patches_per_sec"]
+        by_kind: dict[str, list] = {}
+        for why, docs, ms, _ in rebuilds:
+            by_kind.setdefault(why, []).append((docs, ms))
+        print(f"[serve chaos] serve/{CHAOS_CELL['mix']}/"
+              f"{CHAOS_CELL['n_docs']} at slots {CHAOS_CELL['slots']}, "
+              f"journal (a barrier every {CHAOS['snapshot_every']} rounds), "
+              f"queue cap {rep['queue_cap']}, faults {CHAOS['faults']}: "
+              + faults_line(rep) + f"; recoveries {rep['recoveries']}, ops "
+              f"replayed {rep['ops_replayed']} over "
+              f"{rep['replay_dispatches']} dispatches, MTTR rounds "
+              f"{rep['mttr_rounds']}, degraded rounds "
+              f"{rep['degraded_rounds']}, deferred ops "
+              f"{rep['deferred_ops']} over {rep['backpressure_rounds']} "
+              f"backpressure rounds, dup ops dropped "
+              f"{rep['dup_ops_dropped']}, stall rounds {rep['stall_rounds']}"
+              f", quarantines 0; {rep['patches_per_sec']:.1f} patches/s "
+              f"({rep['wall_time']:.4f} s, {rep['rounds']} rounds, "
+              f"{rep['dispatches']} dispatches) against the clean drain's "
+              f"{crep['patches_per_sec']:.1f} ({crep['wall_time']:.4f} s, "
+              f"{crep['rounds']} rounds) in this run: ratio {ratio:.4f}; "
+              f"repairs: " + "; ".join(
+                  f"{why} x{len(v)}: {sum(d for d, _ in v)} docs in "
+                  f"{sum(m for _, m in v):.3f} ms ("
+                  f"{sum(m for _, m in v) / max(1, sum(d for d, _ in v)):.3f}"
+                  f" ms a doc)" for why, v in by_kind.items())
+              + f"; host phase s: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in rep["phase_seconds"].items())
+              + f"; all {rep['verified_docs']} docs byte-identical to the "
+              f"oracle; launches {launches} ({in_rebuilds} in the "
+              f"rebuilds), plain calls 0 ({csecs + secs:.1f} s)",
+              flush=True)
+        stream, C, base, n_init = first[0]
+        err1, err4, k1_t, k4_t = rebuild_slice_check(
+            dev, bound, stream, C, base, n_init, CHAOS_CELL["batch"],
+            CHAOS_CELL["batch_chars"],
+            f"[serve chaos] the first slice of the first rebuild with ops to "
+            f"replay (doc "
+            f"{stream.doc_id}, from "
+            + ("nothing" if base is None else f"a base at cursor {base[3]}")
+            + ")")
+
+        # ---- [serve chaos durability]: torn GC, damaged delta, crash ----
+        drep, dlaunches, _, dsecs = bench("serve chaos durability",
+                                          **CHAOS_DURABILITY)
+        rec = drep["recovery"]
+        if not (drep["crashed"] and rec["chain_fallbacks"] >= 1 and all(
+                e["fired"] and e["recovered"]
+                for e in drep["faults"]["events"])):
+            fail(f"serve chaos durability: crashed {drep['crashed']}, "
+                 f"recovery {rec}, faults {drep['faults']}")
+        print(f"[serve chaos durability] serve/longhaul/"
+              f"{CHAOS_DURABILITY['mix']}/{CHAOS_DURABILITY['n_docs']}, "
+              f"faults {CHAOS_DURABILITY['faults']}, stopped after "
+              f"{drep['rounds']} macro-rounds: " + faults_line(drep)
+              + f"; recover_ms {rec['recover_ms']:.3f} (snapshot round "
+              f"{rec['snapshot_round']}, chain depth {rec['chain_depth']}, "
+              f"{rec['chain_fallbacks']} fallbacks, "
+              f"{rec['gc_segments_completed']} torn GC segments completed),"
+              f" redo_ms {rec['redo_ms']:.3f} for {rec['redo_ops']} ops; "
+              f"{rec['verified_docs']} recovered docs byte-identical to the "
+              f"oracle; launches {dlaunches}, plain calls 0 "
+              f"({dsecs:.1f} s)", flush=True)
+
+        # ---- [serve tier chaos]: warm-tier pressure, a dropped prefetch --
+        trep, tlaunches, _, tsecs = bench("serve tier chaos", **CHAOS_TIER)
+        res = trep["residency"]
+        if not (res["prefetch_missed"] >= 1 and all(
+                e["fired"] and e["recovered"]
+                for e in trep["faults"]["events"])):
+            fail(f"serve tier chaos: residency {res}, faults "
+                 f"{trep['faults']}")
+        print(f"[serve tier chaos] serve/tier/{CHAOS_TIER['mix']}/"
+              f"{CHAOS_TIER['n_docs']} ({CHAOS_TIER['serve_tiers']}, zipf, "
+              f"prefetcher on), faults {CHAOS_TIER['faults']}: "
+              + faults_line(trep) + f"; warm to cold "
+              f"{res['warm_evictions']}, prefetch missed "
+              f"{res['prefetch_missed']}, hit rate {res['hit_rate']}; "
+              f"{trep['patches_per_sec']:.1f} patches/s; "
+              f"{trep['verified_docs']} docs byte-identical to the oracle; "
+              f"launches {tlaunches}, plain calls 0 ({tsecs:.1f} s)",
+              flush=True)
+    finally:
+        sched_mod.rebuild_doc = real_rebuild
+        sched_mod.FleetScheduler._heal_spool = real_heal
+        sched_mod.FleetScheduler._recover_class = real_class
+    B = CHAOS_CELL["batch"]
+    return [
+        kernel_row(f"resolve_range_rows (chaos rebuild slice, K = 1, "
+                   f"(R, B) = (1, {B}), C = {C}; launches over the chaos "
+                   f"phases)", "resolve_range.cu",
+                   "resolve_range_pallas.py:255",
+                   counts["resolve_range_rows"], err1, *k1_t),
+        kernel_row(f"serve_macro_fused (chaos rebuild slice, K = 1, "
+                   f"(Rt, C) = (1, {C}); launches over the chaos phases)",
+                   "serve_macro.cu", "serve_fused.py:685",
+                   counts["serve_macro_fused"], err4, *k4_t),
     ]
 
 
@@ -2838,6 +3103,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tier-full", action="store_true",
                     help="[serve tier] on TIER_FULL (65,536 docs, "
                     "hot=1024,warm=16384) instead of TIER_CELL")
+    ap.add_argument("--chaos-only", action="store_true",
+                    help="run only the device, build and fault phases "
+                    "([serve chaos], [serve chaos durability], [serve tier "
+                    "chaos])")
     ap.add_argument("--ab-pairs", type=int, default=TIER_AB_PAIRS,
                     help="prefetch and no-prefetch drain pairs of [serve "
                     "tier ab] (default %(default)s)")
@@ -2910,8 +3179,9 @@ def main(argv=None) -> int:
     for ln in _build.build_log.splitlines():
         if "registers" in ln or "bytes stack" in ln:
             print(f"[build] {ln.strip()}", flush=True)
-    if opts.tier_only:
-        rows = serve_tier_phases(dev, bound, tier_cell, opts.ab_pairs)
+    if opts.tier_only or opts.chaos_only:
+        rows = (serve_tier_phases(dev, bound, tier_cell, opts.ab_pairs)
+                if opts.tier_only else chaos_phases(dev, bound))
         print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
         print(json.dumps({"kernels": rows}))
         print(smi_line)
@@ -3892,6 +4162,11 @@ def main(argv=None) -> int:
     rows += journal_phases(dev, bound, serve_rate)
     print(f"[serve journal] all journal phases "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # ---- fault injection and in-run repair ----
+    t0 = time.perf_counter()
+    rows += chaos_phases(dev, bound)
+    print(f"[serve chaos] all chaos phases {time.perf_counter() - t0:.1f} s",
+          flush=True)
     # ---- the concurrent merges and the run-granular downstream ----
     t0 = time.perf_counter()
     merge_rows, traces = merge_phases(dev, bound)

@@ -18,7 +18,9 @@
         [--serve-journal DIR|auto] [--serve-snapshot-every 32]
         [--serve-snapshot-keep 2] [--serve-full-every 4]
         [--serve-wal-segment-bytes 1048576] [--serve-longhaul H]
-        [--serve-recover] [--serve-crash-round N]            (serve)
+        [--serve-recover] [--serve-crash-round N]
+        [--serve-faults SPEC] [--serve-queue-cap N]
+        [--serve-overflow-policy defer|shed]                 (serve)
 
 The default is the headline range replay (1024 replicas, batch 1536);
 ``--layout unit --batch 256`` is the unit-op engine (the JAX package's
@@ -48,9 +50,13 @@ arrivals toward the start of the span; ``--serve-journal`` arms the
 write-ahead journal and snapshot barriers, ``--serve-recover`` adds the
 measured recovery leg, ``--serve-crash-round N`` stops the drain after N
 macro-rounds and gates the run on the recovered fleet, and
-``--serve-longhaul H`` is the ``serve/longhaul/<mix>/<fleet>`` family);
+``--serve-longhaul H`` is the ``serve/longhaul/<mix>/<fleet>`` family;
+``--serve-faults SPEC`` makes the drain a seeded chaos run
+(``serve/faults.py``), ``--serve-queue-cap N`` bounds each document's
+pending ops and ``--serve-overflow-policy`` decides at the cap);
 its metric is fleet patches/sec over the drain's wall time, and it exits
-non-zero when verification fails (2 when the flags are refused).  A flag
+non-zero when verification fails or, in a chaos run, when a fault event
+went unfired or unrecovered (2 when the flags are refused).  A flag
 of another group is an error.
 
 Metric: aggregate throughput of the trace across many replicas on one GPU,
@@ -241,7 +247,9 @@ def _serve(args) -> int:
             wal_segment_bytes=args.serve_wal_segment_bytes,
             longhaul=args.serve_longhaul,
             measure_recovery=bool(args.serve_recover),
-            crash_after=args.serve_crash_round, device=args.device,
+            crash_after=args.serve_crash_round,
+            faults=args.serve_faults, queue_cap=args.serve_queue_cap,
+            overflow_policy=args.serve_overflow_policy, device=args.device,
             log=lambda m: print(m, file=sys.stderr),
         )
     except (RuntimeError, ValueError) as e:
@@ -258,7 +266,7 @@ def _serve(args) -> int:
     }
     out.update(rep)
     print(json.dumps(out))
-    return 0 if rep["verify_ok"] else 1
+    return 0 if rep["verify_ok"] and rep["faults_ok"] else 1
 
 
 def main(argv=None) -> int:
@@ -343,6 +351,24 @@ def main(argv=None) -> int:
     )
     for flag, typ, _default, metavar, text in journal_flags:
         ap.add_argument(flag, type=typ, metavar=metavar, help=text)
+    # the chaos run's flags, with the JAX runner's defaults and help
+    fault_flags = (
+        ("--serve-faults", str, None, "SPEC", None,
+         "seeded chaos drain: serve/faults.py spec, e.g. "
+         "'seed=7,span=8,spool_corrupt=1,device_loss=1,queue_overflow=1,"
+         "dup_batch=1,stall=1'"),
+        ("--serve-queue-cap", int, 0, "N", None,
+         "bound each doc's pending op queue (0 = unbounded legacy "
+         "behavior; overflow past the cap is an explicit defer/shed "
+         "decision)"),
+        ("--serve-overflow-policy", str, "defer", None, ("defer", "shed"),
+         "decision at a queue-cap overflow: backpressure the producer "
+         "(defer) or tail-drop the session's remaining ops (shed; surfaced "
+         "as shed_ops + lossy_docs)"),
+    )
+    for flag, typ, _default, metavar, choices, text in fault_flags:
+        ap.add_argument(flag, type=typ, metavar=metavar, choices=choices,
+                        help=text)
     ap.add_argument("--serve-recover", action="store_true", default=None,
                     help="measure the recovery-time objective after the "
                     "drain: drop the live fleet, recover a fresh one from "
@@ -350,6 +376,8 @@ def main(argv=None) -> int:
                     "byte-verify vs the oracle (requires --serve-journal)")
     serve_flags += tuple((flag, typ, default)
                          for flag, typ, default, *_ in journal_flags)
+    serve_flags += tuple((flag, typ, default)
+                         for flag, typ, default, *_ in fault_flags)
     serve_flags += (("--serve-recover", bool, False),)
     args = ap.parse_args(argv)
     flag_set = lambda flags: [f for f, *_ in flags

@@ -15,6 +15,14 @@ drain after that many macro-rounds, and the verdict then rides on the
 recovered fleet alone; ``longhaul`` (``serve/longhaul/<mix>/<fleet>``)
 multiplies the synthetic streams' op counts and implies the leg.
 
+``faults`` (a ``serve/faults.py`` spec or FaultPlan) makes the drain a
+seeded chaos run; ``queue_cap`` bounds each doc's pending ops with
+``overflow_policy`` (defer or shed) deciding at the cap.  The report then
+carries the fault events and the robustness counters, and ``faults_ok``
+holds when every event fired and recovered.  Docs whose ops were shed by
+an explicit decision (overflow shed, quarantine) are lossy: verification
+leaves them out, and an empty verify set fails the gate.
+
 Timed region: the drain, from the first macro-round to the final device
 fence (``FleetScheduler.run``).  The metric is fleet patches per second
 (every session's trace patches over the drain's wall time).  Verification
@@ -33,8 +41,18 @@ import numpy as np
 import torch
 
 from .._build import kernels
+from ..bench.harness import summarize
 from ..device import resolve_device
 from ..oracle.text_oracle import replay_trace
+from .faults import (
+    INGEST_KINDS,
+    JOURNAL_KINDS,
+    REPLICATION_KINDS,
+    RESHARD_KINDS,
+    TIER_KINDS,
+    FaultInjector,
+    FaultPlan,
+)
 from .journal import DEFAULT_SEGMENT_BYTES, OpJournal, recover_fleet
 from .pool import DocPool
 from .scheduler import FleetScheduler, prepare_streams
@@ -87,14 +105,16 @@ def parse_tier_spec(spec: str, slots: tuple[int, ...]
 
 
 def _verify_ids(pool: DocPool, sessions, verify_sample: int,
-                seed: int) -> list[int]:
-    """Every doc id (``verify_sample`` 0), or a seeded sample of about
-    ``verify_sample`` docs spread over every final class (the JAX bench's
-    rule: ceil(sample / classes) per class, seed + 1)."""
+                seed: int, lossy: set[int]) -> list[int]:
+    """Every doc id not in ``lossy`` (``verify_sample`` 0), or a seeded
+    sample of about ``verify_sample`` of them spread over every final class
+    (the JAX bench's rule: ceil(sample / classes) per class, seed + 1)."""
     if verify_sample <= 0:
-        return [s.doc_id for s in sessions]
+        return [s.doc_id for s in sessions if s.doc_id not in lossy]
     by_class: dict[int, list[int]] = {}
     for s in sessions:
+        if s.doc_id in lossy:
+            continue
         rec = pool.docs[s.doc_id]
         cls = rec.cls or pool.class_for(max(rec.length, 1))
         by_class.setdefault(cls, []).append(s.doc_id)
@@ -108,6 +128,64 @@ def _verify_ids(pool: DocPool, sessions, verify_sample: int,
     return out
 
 
+def _check_fault_plan(plan: FaultPlan, *, warm_docs: int, journal_dir,
+                      snapshot_every: int, snapshot_full_every: int,
+                      wal_segment_bytes: int, queue_cap: int, batch: int,
+                      log) -> int:
+    """Refuse a plan whose kinds this drain never polls, or whose
+    injection points it cannot reach, with the JAX bench's messages: a
+    loud configuration error up front instead of a drain that ends with
+    ``not_fired`` events.  Returns the queue cap (``8 * batch`` for a
+    ``queue_overflow`` plan without one)."""
+    kinds = {e.kind for e in plan.events}
+    for group, text in (
+        (REPLICATION_KINDS, "need a replicated fleet (--serve-writers >= 2,"
+         " serve/replicate/); a plain serve drain never polls them"),
+        (INGEST_KINDS, "target the live ingest front: --serve-open is "
+         "required — a closed-loop replay never polls them"),
+        (RESHARD_KINDS, "kill the live-reshard coordinator between its "
+         "manifest commit and the per-doc moves: --serve-reshard is "
+         "required — a fixed shard map never reaches the injection "
+         "point"),
+    ):
+        hit = sorted(kinds & set(group))
+        if hit:
+            raise ValueError(f"fault kinds {hit} {text}; not ported yet "
+                             "(ROADMAP.md Queue 1 item 6.5)")
+    tier_kinds = sorted(kinds & set(TIER_KINDS))
+    if tier_kinds and not warm_docs:
+        raise ValueError(
+            f"fault kinds {tier_kinds} target the warm tier / prefetcher: "
+            "--serve-tiers is required — a two-tier drain never reaches "
+            "their injection points")
+    if queue_cap <= 0 and "queue_overflow" in kinds:
+        queue_cap = 8 * batch
+        log(f"serve: queue_overflow faults need a bounded queue; "
+            f"defaulting queue_cap={queue_cap}")
+    journal_kinds = sorted(kinds & set(JOURNAL_KINDS))
+    if journal_kinds:
+        if not journal_dir:
+            raise ValueError(
+                f"fault kinds {journal_kinds} target the durability "
+                "subsystem (WAL GC / delta chains): --serve-journal is "
+                "required — a journal-less drain never reaches their "
+                "injection points")
+        if snapshot_every <= 0:
+            raise ValueError(
+                f"fault kinds {journal_kinds} fire at snapshot barriers: "
+                "--serve-snapshot-every must be > 0")
+        if "delta_corrupt" in journal_kinds and snapshot_full_every <= 1:
+            raise ValueError(
+                "delta_corrupt needs delta barriers: --serve-full-every "
+                "must be > 1 (1 = every barrier full, so no delta ever "
+                "exists)")
+        if "crash_compact" in journal_kinds and wal_segment_bytes <= 0:
+            raise ValueError(
+                "crash_compact needs sealed WAL segments to collect: "
+                "--serve-wal-segment-bytes must be > 0")
+    return queue_cap
+
+
 def run_serve_bench(
     mix: str = "mixed",
     n_docs: int = 4096,
@@ -117,6 +195,7 @@ def run_serve_bench(
     seed: int = 0,
     arrival_span: int = 8,
     arrival_dist: str = "uniform",
+    bands: dict | None = None,
     macro_k: int = 8,
     batch_chars: int = 256,
     verify_sample: int = 0,
@@ -131,6 +210,10 @@ def run_serve_bench(
     longhaul: int = 0,
     measure_recovery: bool = False,
     crash_after: int = 0,
+    faults=None,
+    queue_cap: int = 0,
+    overflow_policy: str = "defer",
+    delivery: str | None = None,
     device: str | torch.device = "cuda",
     pool_hook=None,
     log=print,
@@ -143,9 +226,13 @@ def run_serve_bench(
     macro-rounds (a full one every ``snapshot_full_every``-th, keeping
     ``snapshot_keep`` chains) and WAL segments of ``wal_segment_bytes``;
     ``measure_recovery``, ``crash_after`` and ``longhaul`` as the module
-    says.  ``pool_hook(pool)``, if given, runs on the pool just before
-    the drain (``chip_smoke.py`` arms the pool's CUDA-event spans or
-    zeroes the kernels' counts there)."""
+    says.  ``faults``, ``queue_cap`` and ``overflow_policy`` as the module
+    says (a plan with ``queue_overflow`` and no cap gets ``8 * batch``);
+    ``delivery="banded"`` paces each session's producer (``workload.py
+    DELIVERY_BURST``); ``bands`` overrides the band sizing table.
+    ``pool_hook(pool)``, if given, runs on the pool just before the drain
+    (``chip_smoke.py`` arms the pool's CUDA-event spans or zeroes the
+    kernels' counts there)."""
     warm_docs = 0
     if serve_tiers:
         slots, warm_docs = parse_tier_spec(serve_tiers, slots)
@@ -163,6 +250,16 @@ def run_serve_bench(
             "--serve-tiers and --serve-longhaul are separate bench "
             "families (serve/tier/* vs serve/longhaul/*); pick one"
         )
+    plan = None
+    if faults is not None:
+        plan = (faults if isinstance(faults, FaultPlan)
+                else FaultPlan.from_spec(faults))
+        queue_cap = _check_fault_plan(
+            plan, warm_docs=warm_docs, journal_dir=journal_dir,
+            snapshot_every=snapshot_every,
+            snapshot_full_every=snapshot_full_every,
+            wal_segment_bytes=wal_segment_bytes, queue_cap=queue_cap,
+            batch=batch, log=log)
     dev = resolve_device(device)
     if dev.type == "cuda":
         kernels()  # build and load the kernels before the clock starts
@@ -177,15 +274,18 @@ def run_serve_bench(
         t0 = time.perf_counter()
         sessions = build_fleet(n_docs, mix=mix, seed=seed,
                                arrival_span=arrival_span,
-                               arrival_dist=arrival_dist,
-                               horizon=max(1, longhaul))
+                               arrival_dist=arrival_dist, bands=bands,
+                               horizon=max(1, longhaul), delivery=delivery)
         pool = DocPool(classes=classes, slots=slots,
                        serve_kernel=serve_kernel, device=dev,
                        warm_docs=warm_docs)
         streams = prepare_streams(sessions, pool, batch=batch,
                                   batch_chars=batch_chars)
+        injector = FaultInjector(plan) if plan is not None else None
         sched = FleetScheduler(pool, streams, batch=batch, macro_k=macro_k,
-                               batch_chars=batch_chars, journal=journal,
+                               batch_chars=batch_chars, queue_cap=queue_cap,
+                               overflow_policy=overflow_policy,
+                               faults=injector, journal=journal,
                                snapshot_every=snapshot_every,
                                snapshot_keep=snapshot_keep,
                                snapshot_full_every=snapshot_full_every)
@@ -208,6 +308,11 @@ def run_serve_bench(
                 f"every {snapshot_full_every}, keep {snapshot_keep}, WAL "
                 f"segments {wal_segment_bytes} B, fsync "
                 f"{'on' if journal_fsync else 'off'}")
+        if plan is not None or queue_cap:
+            log(f"serve: faults {plan.spec if plan is not None else 'none'}"
+                f" ({len(plan.events) if plan is not None else 0} events);"
+                f" queue cap {queue_cap or 'unbounded'}, overflow policy "
+                f"{overflow_policy}")
         if pool_hook is not None:
             pool_hook(pool)
         # crash_after > 0: the injected crash stops the drain after that
@@ -222,6 +327,14 @@ def run_serve_bench(
             raise RuntimeError("scheduler stopped with pending work")
         lat = stats.latency_quantiles()
         rate = stats.patches / stats.wall_time
+        if plan is not None or stats.recoveries or stats.shed_ops:
+            log(f"serve: faults: injected {stats.faults_injected}, "
+                f"recoveries {stats.recoveries} (replayed "
+                f"{stats.ops_replayed} ops over {stats.replay_dispatches} "
+                f"dispatches), shed {stats.shed_ops} deferred "
+                f"{stats.deferred_ops} dup-dropped {stats.dup_ops_dropped}, "
+                f"quarantines {len(stats.quarantines)}, degraded rounds "
+                f"{stats.degraded_rounds}, snapshots {stats.snapshots}")
 
         t1 = time.perf_counter()
         session_of = {s.doc_id: s for s in sessions}
@@ -238,10 +351,12 @@ def run_serve_bench(
                     out.append(d)
             return out
 
-        # an interrupted drain's pool is mid-stream by design: the
-        # recovered fleet carries the oracle gate
+        # docs whose ops an explicit decision shed cannot match a full
+        # oracle replay: left out and listed.  An interrupted drain's pool
+        # is mid-stream by design: the recovered fleet carries the gate
+        lossy = sorted(d for d, st in streams.items() if st.lossy)
         ids = [] if crashed else _verify_ids(pool, sessions, verify_sample,
-                                             seed)
+                                             seed, set(lossy))
         failures = mismatches(pool, ids)
         verify_s = time.perf_counter() - t1
         docs_per_class: dict[int, int] = {}
@@ -256,7 +371,10 @@ def run_serve_bench(
             + ("in-run verify skipped (injected crash)" if crashed else
                f"verified {len(ids)} docs in {verify_s:.1f} s: "
                + ("all byte-identical to the oracle" if verify_ok
-                  else f"MISMATCH on docs {failures[:16]}")))
+                  else "EMPTY SAMPLE (all docs lossy?)" if not ids
+                  else f"MISMATCH on docs {failures[:16]}")
+               + (f" ({len(lossy)} lossy docs left out: {lossy[:16]})"
+                  if lossy else "")))
         pf = pool.prefetcher
         hits, restores = pool.warm_hits, pool.restores
         residency = None if not warm_docs else {
@@ -356,6 +474,17 @@ def run_serve_bench(
                                          replace=False)] if cand else []
                 rfail = mismatches(rpool, rsample)
                 recovered_ok = not rfail and bool(rsample)
+                if plan is not None and recovered_ok:
+                    # the durability kinds close on a proven recovery, and
+                    # after a crash (the in-run sweep never ran) a full
+                    # journal recovery repairs every fired fault: the dead
+                    # pool's damage is irrelevant to the rebuilt fleet
+                    for e in plan.events:
+                        if e.fired and not e.recovered and (
+                                crashed or e.kind in JOURNAL_KINDS):
+                            e.recover(via="recovery_leg",
+                                      fallbacks=rep.chain_fallbacks,
+                                      gc_completed=rep.gc_segments_completed)
                 wal_disk = journal.on_disk_bytes()
                 recovery_block = {
                     "version": 1,
@@ -402,6 +531,14 @@ def run_serve_bench(
                    else f"MISMATCH on {rfail[:16] or 'EMPTY SAMPLE'}"))
             verify_ok = recovered_ok if crashed else (verify_ok
                                                       and recovered_ok)
+        fault_summary = plan.summary() if plan is not None else None
+        faults_ok = fault_summary is None or (
+            fault_summary["unrecovered"] == 0
+            and fault_summary["not_fired"] == 0)
+        if not faults_ok:
+            log(f"serve: FAULTS NOT CLEARED: "
+                f"{fault_summary['unrecovered']} unrecovered, "
+                f"{fault_summary['not_fired']} never fired")
         return {
             "fleet_docs": n_docs, "mix": mix, "seed": seed,
             "batch": batch, "batch_chars": batch_chars, "macro_k": macro_k,
@@ -437,6 +574,27 @@ def run_serve_bench(
             "verify_ok": verify_ok,
             "longhaul": longhaul,
             "crashed": crashed,
+            # the robustness surface (JAX's artifact keys)
+            "faults": fault_summary,
+            "faults_ok": faults_ok,
+            "fault_counts": None if injector is None else {
+                "fired": dict(injector.fired_counts),
+                "recovered": dict(injector.recovered_counts)},
+            "queue_cap": queue_cap,
+            "overflow_policy": overflow_policy,
+            "shed_ops": stats.shed_ops,
+            "deferred_ops": stats.deferred_ops,
+            "overflow_events": stats.overflow_events,
+            "backpressure_rounds": stats.backpressure_rounds,
+            "dup_ops_dropped": stats.dup_ops_dropped,
+            "stall_rounds": stats.stall_rounds,
+            "quarantines": stats.quarantines,
+            "recoveries": stats.recoveries,
+            "ops_replayed": stats.ops_replayed,
+            "replay_dispatches": stats.replay_dispatches,
+            "mttr_rounds": summarize(stats.mttr_rounds),
+            "degraded_rounds": stats.degraded_rounds,
+            "lossy_docs": lossy,
             "journal": journal_block,
             "recovery": recovery_block,
             "recovery_drain": recovery_drain,

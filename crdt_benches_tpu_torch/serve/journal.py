@@ -1051,6 +1051,8 @@ def _reset_fleet(pool, streams) -> None:
         st.cursor = 0
         st.limit = None
         st.lossy = False
+        if st.delivered is not None:
+            st.delivered = 0
 
 
 def _restore_snapshot(pool, streams, snap_dir: str, manifest: dict,
@@ -1117,6 +1119,8 @@ def _restore_snapshot(pool, streams, snap_dir: str, manifest: dict,
         st.cursor = 0 if doc_id in damaged else int(d["c"])
         st.limit = d["lim"]
         st.lossy = bool(d["lossy"])
+        if st.delivered is not None:
+            st.delivered = st.cursor
         rec = pool.docs[doc_id]
         rec.length = rec.n_init + st.ins_before(st.cursor)
         rec.last_sched = int(manifest["round"])

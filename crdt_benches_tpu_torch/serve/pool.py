@@ -486,12 +486,13 @@ class DocPool:
         ))
         return self._enforce_warm_budget()
 
-    def _enforce_warm_budget(self) -> int:
-        """Demote the warm tier's overflow, least recently scheduled
-        first, to cold: free for an entry with a shadow, one compressed
-        spool write otherwise.  Returns the number demoted."""
+    def _enforce_warm_budget(self, extra: int = 0) -> int:
+        """Demote the warm tier's overflow and ``extra`` more entries, least
+        recently scheduled first, to cold: free for an entry with a shadow,
+        one compressed spool write otherwise.  Returns the number
+        demoted."""
         demoted = 0
-        for _ in range(self.warm.over_budget()):
+        for _ in range(self.warm.over_budget() + max(0, extra)):
             hit = self.warm.pop_lru()
             if hit is None:
                 break
@@ -503,6 +504,12 @@ class DocPool:
             self.warm_evictions += 1
             demoted += 1
         return demoted
+
+    def warm_pressure(self, n: int) -> int:
+        """Force-demote up to ``n`` warm entries to cold (the
+        ``tier_evict_pressure`` fault: warm-tier churn under load).
+        Returns the number demoted."""
+        return self._enforce_warm_budget(extra=min(n, len(self.warm)))
 
     def store_prefetched(self, doc_id: int, doc_row: np.ndarray,
                          length: int, nvis: int, round_no: int,

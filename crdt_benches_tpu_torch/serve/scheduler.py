@@ -1,6 +1,6 @@
 """Admission and batching scheduler of the document fleet: macro-rounds
-(the JAX package's ``serve/scheduler.py``, its core drain and its tiered
-residency).
+(the JAX package's ``serve/scheduler.py``: its core drain, its tiered
+residency, its journal and its fault tolerance).
 
 Every macro-round each active capacity class gets one ``(K_eff, Rt, B)``
 range-op tensor — K_eff staged rounds of up to B ops for the doc in each
@@ -35,6 +35,25 @@ same lanes, row placements, evictions, restores and promotions):
   Crash recovery is ``journal.recover_fleet``; the resumed scheduler
   starts its clock at ``start_round``.
 
+Fault tolerance (``faults``, a ``serve/faults.py`` FaultInjector polled at
+fixed points of each round):
+
+- **bounded queues** (``queue_cap > 0``): a doc's pending window is capped
+  and delivery past the cap is an explicit decision, **defer** (producer
+  backpressure, nothing lost: ``deferred_ops``) or **shed** (the session's
+  remaining ops tail-dropped, the doc lossy and left out of verification:
+  ``shed_ops``);
+- **in-run repair**: a spool that fails its CRC at restore, or a class
+  whose device state is lost right after its dispatch, is rebuilt from the
+  last snapshot base and the stream (``journal.rebuild_doc``, K1's per-row
+  form and K4 on the pool's device); a doc whose rebuild also fails is
+  **quarantined** (its remaining ops shed, its row freed);
+- **degradation**: after ``degrade_after`` faults inside
+  ``degrade_window`` rounds the scheduler plans K = 1 rounds, fenced each,
+  for ``degrade_rounds`` rounds, then restores K;
+- **idempotent admission**: the cursor is the delivery high-water mark, so
+  a duplicated batch is clamped and dropped (``dup_ops_dropped``).
+
 The macro depth of a class's tensor trims exactly to its deepest lane (the
 JAX host form's rule): nothing in the port is keyed by K.
 """
@@ -51,8 +70,16 @@ import numpy as np
 from ..bench.harness import _quantile
 from ..ops.packing import pack_ops
 from ..traces.tensorize import INSERT, PAD, split_insert_runs, tensorize_ranges
-from ..utils.checkpoint import load_state
-from .journal import retained_floor, write_snapshot
+from ..utils.checkpoint import CorruptCheckpointError, load_state
+from .journal import (
+    SnapshotBases,
+    _read_manifest,
+    list_snapshots,
+    probe_recovery,
+    rebuild_doc,
+    retained_floor,
+    write_snapshot,
+)
 from .pool import DocPool, _fresh_row_np
 
 
@@ -60,9 +87,12 @@ from .pool import DocPool, _fresh_row_np
 class DocStream:
     """One doc's pending op queue: coalesced range ops, insert runs split
     to at most ``batch_chars`` chars, in the pool's packed lane dtypes,
-    with a cursor.  ``limit`` truncates the stream (a journaled
-    quarantine or shed decision re-applied by recovery) and ``lossy``
-    marks a doc whose ops were shed, which verification leaves out."""
+    with a cursor.  ``limit`` truncates the stream (a quarantine or shed
+    decision) and ``lossy`` marks a doc whose ops were shed, which
+    verification leaves out.  Under a bounded queue ``delivered`` is how
+    far the producer has pushed ops into the pending window (None: the
+    whole stream), ``burst`` the producer's ops a round and
+    ``deferred_high`` the highest op index ever refused."""
 
     doc_id: int
     kind: np.ndarray  # [N] range ops
@@ -74,8 +104,11 @@ class DocStream:
     n_patches: int
     arrival: int = 0
     cursor: int = 0
+    delivered: int | None = None  # bounded-queue fill point (None: all)
     limit: int | None = None  # stream truncation (shed / quarantine)
     lossy: bool = False
+    burst: int | None = None  # producer delivery rate (ops/round)
+    deferred_high: int = 0  # highest op index ever backpressured
 
     @property
     def n_total(self) -> int:
@@ -86,6 +119,14 @@ class DocStream:
     @property
     def remaining(self) -> int:
         return self.n_total - self.cursor
+
+    @property
+    def n_sched(self) -> int:
+        """Ops the scheduler may take: up to the bounded queue's fill
+        point (the whole stream when unbounded)."""
+        if self.delivered is None:
+            return self.n_total
+        return min(self.n_total, self.delivered)
 
     def ins_before(self, i: int) -> int:
         """Inserted chars in ops [0, i)."""
@@ -154,14 +195,17 @@ def prepare_streams(sessions, pool: DocPool, batch: int = 64,
         streams[s.doc_id] = DocStream(
             doc_id=s.doc_id, kind=kind, pos=pos, rlen=rlen, slot0=slot0,
             ins_cum=ins_cum, unit_cum=unit_cum, n_patches=rt.n_patches,
-            arrival=s.arrival,
+            arrival=s.arrival, burst=s.burst,
         )
     return streams
 
 
 #: Host phases of a macro-round, timed by the host clock; a pool with a
 #: prefetcher adds "prefetch" (the harvest and the submissions), a
-#: journaled drain "wal" (the round record) and "snapshot" (the barriers).
+#: journaled drain "wal" (the round record) and "snapshot" (the barriers),
+#: a drain with a fault injector "faults" (the injection hooks; repairs
+#: count in the phase they run in: spool heals in "moves", device-loss
+#: rebuilds and the degraded fence in "dispatch").
 PHASES = ("plan", "stage", "moves", "dispatch")
 
 
@@ -190,6 +234,21 @@ class ServeStats:
     snapshots_full: int = 0  # chain-rooting full barriers
     snapshots_delta: int = 0  # dirty-row delta barriers
     snapshot_time: float = 0.0  # seconds in write_snapshot
+    # ---- fault tolerance and degradation ----
+    shed_ops: int = 0  # ops dropped by an explicit shed decision
+    deferred_ops: int = 0  # ops backpressured at the bounded queue cap
+    overflow_events: int = 0
+    backpressure_rounds: int = 0
+    dup_ops_dropped: int = 0  # duplicated or stale redeliveries clamped
+    stall_rounds: int = 0
+    quarantines: list[dict] = field(default_factory=list)
+    recoveries: int = 0  # in-run repairs (spool heal / device loss)
+    ops_replayed: int = 0  # ops re-applied by the repairs
+    replay_dispatches: int = 0
+    mttr_rounds: list[int] = field(default_factory=list)  # per recovery
+    degraded_rounds: int = 0  # macro-rounds served at K = 1
+    faults_seen: int = 0  # faults the engine observed
+    faults_injected: int = 0  # events the injector fired
 
     def latency_quantiles(self, ps=(0.5, 0.95, 0.99)) -> dict[str, float]:
         """Quantiles of the steady per-macro-round wall latencies: barrier
@@ -253,9 +312,13 @@ class _Plan:
 class FleetScheduler:
     def __init__(self, pool: DocPool, streams: dict[int, DocStream],
                  batch: int = 64, macro_k: int = 1, batch_chars: int = 256,
-                 journal=None, snapshot_every: int = 0,
+                 queue_cap: int = 0, overflow_policy: str = "defer",
+                 faults=None, journal=None, snapshot_every: int = 0,
                  snapshot_keep: int = 2, snapshot_full_every: int = 4,
-                 start_round: int = 0):
+                 degrade_after: int = 3, degrade_window: int = 8,
+                 degrade_rounds: int = 4, start_round: int = 0):
+        if overflow_policy not in ("defer", "shed"):
+            raise ValueError(f"unknown overflow policy {overflow_policy!r}")
         self.pool = pool
         self.streams = streams
         self.batch = batch
@@ -263,6 +326,9 @@ class FleetScheduler:
         self.batch_chars = batch_chars
         self.nbits = max(1, int(batch_chars).bit_length())
         self.round = start_round
+        self.queue_cap = max(0, queue_cap)
+        self.overflow_policy = overflow_policy
+        self.faults = faults  # serve/faults.py FaultInjector (or None)
         self.journal = journal  # serve/journal.py OpJournal (or None)
         self.snapshot_every = snapshot_every
         self.snapshot_keep = snapshot_keep
@@ -270,11 +336,26 @@ class FleetScheduler:
         #: between deltas (<= 1: every barrier full)
         self.snapshot_full_every = max(0, snapshot_full_every)
         self._barrier_count = 0
+        self._pending_gc_ev = None  # crash_compact fired, GC pass torn
+        self.degrade_after = degrade_after
+        self.degrade_window = degrade_window
+        self.degrade_rounds = degrade_rounds
+        self._bases = SnapshotBases(journal.dir if journal else None)
+        self._fault_rounds: deque[int] = deque()
+        self._degrade_left = 0  # K = 1 rounds still to serve
+        self._planned_degraded = False  # this round was planned at K = 1
+        self._k_round = self.macro_k  # the macro depth frozen per plan
+        self._dead_lanes: set[int] = set()  # quarantined mid-round
+        self._bp_round = False  # a delivery was refused this round
         self._n_rounds = 0  # macro-rounds advanced by this scheduler
         # FIFO of doc ids not yet arrived or with pending ops, in arrival
         # order (stable for determinism)
         self._rr: deque[int] = deque(sorted(
             streams, key=lambda d: (streams[d].arrival, d)))
+        if self.queue_cap > 0:
+            for st in streams.values():
+                if st.delivered is None:
+                    st.delivered = st.cursor
         self.stats = ServeStats(
             patches=sum(s.n_patches for s in streams.values()))
         # predictive prefetch (a pool with a prefetcher): doc ->
@@ -285,23 +366,80 @@ class FleetScheduler:
         self._prefetch_lookahead = max(
             32, sum(b.R for b in pool.buckets.values()))
         self.prefetch_wasted = 0  # harvested but stale or superseded
-        self.prefetch_missed = 0  # dropped by an injected fault (none yet)
+        self.prefetch_missed = 0  # planned but dropped (prefetch_miss)
         self.limbo_pulls = 0  # same-round victim-to-promotion pulls
         if pool.prefetcher is not None:
             self.stats.phase_seconds["prefetch"] = 0.0
         if journal is not None:
             self.stats.phase_seconds["wal"] = 0.0
             self.stats.phase_seconds["snapshot"] = 0.0
+        if faults is not None:
+            faults.bind_metrics()
+            self.stats.phase_seconds["faults"] = 0.0
+
+    # ---- degradation (macro-K falls back to K = 1) ----
+
+    @property
+    def effective_k(self) -> int:
+        """The macro depth of the next planned round: 1 while degraded."""
+        return 1 if self._degrade_left > 0 else self.macro_k
+
+    def _note_fault(self) -> None:
+        """Track the fault density: ``degrade_after`` faults inside
+        ``degrade_window`` rounds trip (or extend) the K = 1 fallback for
+        ``degrade_rounds`` dispatched rounds, from the next planned round
+        on (journaled as a ``degrade`` event)."""
+        self.stats.faults_seen += 1
+        self._fault_rounds.append(self.round)
+        while (self._fault_rounds
+               and self._fault_rounds[0] < self.round - self.degrade_window):
+            self._fault_rounds.popleft()
+        if (self.macro_k > 1 and self.degrade_after > 0
+                and len(self._fault_rounds) >= self.degrade_after
+                and self._degrade_left < self.degrade_rounds):
+            self._degrade_left = self.degrade_rounds
+            if self.journal:
+                self.journal.event("degrade", r=self.round,
+                                   rounds=self.degrade_rounds)
+
+    # ---- bounded-queue delivery (backpressure is explicit) ----
+
+    def _push_delivery(self, st: DocStream, want: int) -> int:
+        """THE bounded-queue admission rule: a producer push is clamped at
+        ``queue_cap`` pending ops, each refused op counted once (by the
+        ``deferred_high`` mark) in ``deferred_ops``.  The per-round
+        delivery and the overflow fault both come here.  Returns the
+        deferred excess."""
+        lim = st.cursor + self.queue_cap
+        excess = max(0, want - lim)
+        if excess:
+            newly = max(0, want - max(lim, st.deferred_high))
+            if newly:
+                self.stats.deferred_ops += newly
+                st.deferred_high = max(st.deferred_high, want)
+            self._bp_round = True
+        st.delivered = max(st.delivered, min(want, lim))
+        return excess
+
+    def _deliver(self, st: DocStream) -> None:
+        """Advance the producer's delivery point into the bounded pending
+        window (``burst`` ops a round, or the whole stream)."""
+        if st.delivered is None:
+            return
+        n = st.n_total
+        want = n if st.burst is None else min(
+            n, max(st.delivered, st.cursor) + st.burst)
+        self._push_delivery(st, want)
 
     # ---- planning (host only; no device syncs) ----
 
     def _sim_takes(self, st: DocStream) -> tuple[list[int], int]:
-        """Per-slice op counts of one doc's next macro-round and its end
-        cursor."""
+        """Per-slice op counts of one doc's next macro-round (at the plan's
+        frozen depth, up to the delivered ops) and its end cursor."""
         takes: list[int] = []
         c = st.cursor
-        n = st.n_total
-        for _ in range(self.macro_k):
+        n = st.n_sched
+        for _ in range(self._k_round):
             if c >= n:
                 break
             e = st.slice_end(c, self.batch, self.batch_chars, n)
@@ -322,11 +460,28 @@ class FleetScheduler:
         while self._rr and open_classes:
             doc_id = self._rr.popleft()
             st = self.streams[doc_id]
+            self._deliver(st)
             if st.remaining == 0:
-                continue  # drained: out of the rotation for good
+                continue  # drained or shed: out of the rotation for good
             if st.arrival > self.round:
                 deferred.append(doc_id)
                 continue
+            if st.n_sched <= st.cursor:
+                # the bounded queue is empty under backpressure: next round
+                deferred.append(doc_id)
+                continue
+            if self.faults is not None:
+                dup = self.faults.dup_event(self.round, doc_id, st.cursor)
+                if dup is not None:
+                    depth = dup.param or min(st.cursor, self.batch)
+                    dropped = st.clamp_redelivery(st.cursor - depth,
+                                                  st.cursor)
+                    self.stats.dup_ops_dropped += dropped
+                    self.stats.faults_injected += 1
+                    dup.fire(self.round, doc=doc_id, depth=depth,
+                             dropped=dropped)
+                    dup.recover()  # clamped, nothing re-applied
+                    self._note_fault()
             takes, end = self._sim_takes(st)
             rec = pool.docs[doc_id]
             cls = pool.class_for(
@@ -437,7 +592,7 @@ class FleetScheduler:
             # the depth trims to the deepest lane; the row tier is the
             # lowest that holds the residents (relocating high ones into
             # free low rows) and the installs
-            k_eff = min(max(len(l.takes) for l in lanes), self.macro_k)
+            k_eff = min(max(len(l.takes) for l in lanes), self._k_round)
             resident = [lane for lane in lanes if lane.row >= 0]
             n_installs = len(pending)
             chosen_rt = b.R
@@ -483,8 +638,13 @@ class FleetScheduler:
 
     def _plan(self) -> _Plan | None:
         """One macro-round's host plan, or None when drained; the round
-        clock jumps over arrival gaps."""
+        clock jumps over arrival gaps.  The macro depth is frozen per plan
+        (``_k_round``): a fault that trips degradation inside the
+        selection (a dup event) takes effect from the next plan, never
+        under lanes already sized for the old depth."""
         while True:
+            self._k_round = self.effective_k
+            self._planned_degraded = self._degrade_left > 0
             plan = _Plan(base_round=self.round)
             self._select(plan)
             if plan.lanes:
@@ -523,6 +683,275 @@ class FleetScheduler:
             tensors[cls] = (kind, pos, rlen, slot0)
         return tensors
 
+    # ---- fault firing and repair (serve/faults.py, serve/journal.py) ----
+
+    def _maybe_stall(self, rnd: int) -> None:
+        """The ``stall`` fault: sleep the staging path."""
+        hit = self.faults.stall_event(rnd)
+        if hit is None:
+            return
+        ev, secs = hit
+        time.sleep(secs)
+        ev.fire(rnd, ms=secs * 1e3)
+        ev.recover()  # a stall is absorbed, not repaired
+        self.stats.stall_rounds += 1
+        self.stats.faults_injected += 1
+        self._note_fault()
+
+    def _fire_overflow(self) -> None:
+        """The ``queue_overflow`` fault: a producer bursts past the bounded
+        cap and the scheduler makes the explicit shed or defer decision
+        (pending until a doc with a bounded queue has work)."""
+        if self.queue_cap <= 0:
+            return
+        ev = self.faults.overflow_event(self.round)
+        if ev is None:
+            return
+        cands = sorted(d for d, s in self.streams.items()
+                       if s.remaining > 0 and s.delivered is not None)
+        if not cands:
+            return  # stays pending; retried next round
+        deep = [d for d in cands
+                if self.streams[d].remaining > self.queue_cap]
+        doc = self.faults.pick(deep or cands)
+        st = self.streams[doc]
+        burst = ev.param or self.faults.plan.burst or 4 * self.queue_cap
+        lim = st.cursor + self.queue_cap
+        want = min(st.n_total, lim + burst)
+        self.stats.overflow_events += 1
+        self.stats.faults_injected += 1
+        self._note_fault()
+        shed = 0
+        if self.overflow_policy == "shed":
+            # tail-drop the session's ops past the cap: an explicit loss,
+            # surfaced (the doc becomes lossy) and journaled
+            keep = min(st.n_total, lim)
+            shed = st.n_total - keep
+            if shed:
+                st.limit = keep
+                st.lossy = True
+                self.stats.shed_ops += shed
+                if self.journal:
+                    self.journal.event("shed", r=self.round, doc=doc,
+                                       at=keep, ops=shed)
+        else:
+            # defer: the queue refuses the burst, the producer holds it
+            ev.detail["deferred"] = self._push_delivery(st, want)
+        ev.fire(self.round, doc=doc, burst=burst,
+                policy=self.overflow_policy, shed=shed)
+        ev.recover()  # the decision is the recovery
+
+    def _fire_tier_pressure(self) -> None:
+        """The ``tier_evict_pressure`` fault: warm-tier churn under load,
+        the least recently scheduled warm entries demoted to the
+        compressed spool (pending until the warm tier holds an entry)."""
+        ev = self.faults.tier_pressure_event(self.round)
+        if ev is None or not len(self.pool.warm):
+            return
+        n = ev.param or max(1, len(self.pool.warm) // 2)
+        demoted = self.pool.warm_pressure(n)
+        self.stats.faults_injected += 1
+        ev.fire(self.round, demoted=demoted)
+        ev.recover()  # churn is absorbed, not repaired
+        self._note_fault()
+
+    def _all_residents(self) -> list[tuple[int, int]]:
+        return [(d, row) for cls in self.pool.classes
+                for d, row in self.pool.residents(cls)]
+
+    def _fire_spool_fault(self, plan: _Plan) -> None:
+        """The ``spool_corrupt``/``spool_truncate`` faults: damage a spool
+        on disk, an existing one of a doc with pending ops (its restore,
+        and so the detection, is certain) or, with none, one written for
+        the purpose by evicting a resident not scheduled this round."""
+        ev = self.faults.spool_event(self.round)
+        if ev is None:
+            return
+        pool = self.pool
+        cands = sorted(d for d, rec in pool.docs.items()
+                       if rec.spool is not None and os.path.exists(rec.spool)
+                       and self.streams[d].remaining > 0)
+        if not cands:
+            scheduled = {l.stream.doc_id
+                         for lanes in plan.lanes.values() for l in lanes}
+            evictable = sorted(d for d, _row in self._all_residents()
+                               if d not in scheduled
+                               and self.streams[d].remaining > 0)
+            if not evictable:
+                return  # stays pending; retried next round
+            victim = self.faults.pick(evictable)
+            pool.evict(victim)  # a boundary sync, like any eviction
+            cands = [victim]
+        doc = self.faults.pick(cands)
+        detail = self.faults.corrupt_file(pool.docs[doc].spool, ev.kind)
+        ev.fire(self.round, doc=doc, **detail)
+        self.stats.faults_injected += 1
+
+    def _quarantine(self, doc_id: int, reason: str) -> None:
+        """Isolate a doc that cannot be repaired: its remaining ops shed,
+        its row freed, the fleet serving on.  The doc becomes lossy and
+        the decision is journaled (recovery re-applies it)."""
+        st = self.streams[doc_id]
+        rec = self.pool.docs[doc_id]
+        shed = max(0, st.remaining)
+        st.limit = st.cursor
+        st.lossy = True
+        self.stats.shed_ops += shed
+        if rec.cls is not None:
+            b = self.pool.buckets[rec.cls]
+            b.rows[rec.row] = None
+            b.release_row(rec.row)
+            rec.cls = rec.row = None
+        self.pool._set_spool(rec, None)
+        self.pool.warm.take(doc_id)  # a quarantined doc holds no tier
+        self._dead_lanes.add(doc_id)
+        self.stats.quarantines.append({"doc": doc_id, "round": self.round,
+                                       "reason": reason, "shed_ops": shed})
+        if self.journal:
+            self.journal.event("quarantine", r=self.round, doc=doc_id,
+                               at=st.cursor, ops=shed, reason=reason[:120])
+
+    def _rebuild(self, doc_id: int, cls: int):
+        """One doc's row at its applied cursor, rebuilt from its newest
+        snapshot base (or from its stream alone) on the pool's device:
+        ``(row, length, nvis, dispatches, ops replayed)``.  A poisoned
+        rebuild (the ``poison_rebuild`` fault) raises."""
+        st = self.streams[doc_id]
+        if self.faults is not None and self.faults.poisoned(doc_id):
+            raise RuntimeError("rebuild poisoned by fault plan")
+        base = self._bases.base(doc_id)
+        row_v, L, nv, disp = rebuild_doc(
+            st, cls, base, st.cursor, n_init=self.pool.docs[doc_id].n_init,
+            batch=self.batch, batch_chars=self.batch_chars,
+            macro_k=self.effective_k, device=self.pool.device)
+        start = min(base[3], st.cursor) if base is not None else 0
+        return row_v, L, nv, disp, st.cursor - start
+
+    def _heal_spool(self, doc_id: int, cls: int, err: str):
+        """A spool failed its integrity check at restore: rebuild the
+        doc's row at its applied cursor (:meth:`_rebuild`).  Returns
+        ``(row, length, nvis)``, or None after quarantining a doc whose
+        rebuild failed too."""
+        self._note_fault()
+        ev = None
+        if self.faults is not None:
+            for e in self.faults.plan.events:
+                if (e.kind in ("spool_corrupt", "spool_truncate")
+                        and e.fired and not e.recovered
+                        and e.detail.get("doc") == doc_id):
+                    ev = e
+                    break
+        try:
+            row_v, L, nv, disp, ops = self._rebuild(doc_id, cls)
+            self.stats.recoveries += 1
+            self.stats.ops_replayed += ops
+            self.stats.replay_dispatches += disp
+            self.stats.mttr_rounds.append(max(1, disp))
+            if ev is not None:
+                ev.recover()
+            if self.journal:
+                self.journal.event("heal", r=self.round, doc=doc_id, ops=ops,
+                                   why="spool")
+            return row_v, L, nv
+        except Exception as e2:  # the rebuild failed too: isolate the doc
+            self._quarantine(
+                doc_id, f"spool unreadable ({err}); rebuild failed: {e2}")
+            if ev is not None:
+                ev.detail["quarantined"] = True
+            return None
+        finally:
+            self._bases.release()  # pin no snapshot arrays after the heal
+
+    def _recover_class(self, cls: int, plan: _Plan, ev) -> None:
+        """Device-state loss right after a class's dispatch: the round's
+        lanes of the class are dropped unadvanced (the WAL recorded them;
+        the docs are scheduled again), every resident row is rebuilt at
+        its applied cursor (:meth:`_rebuild`) and the bucket uploaded in
+        one compose.  The kernel already enqueued on the old state writes
+        tensors the bucket no longer holds."""
+        pool = self.pool
+        b = pool.buckets[cls]
+        plan.lanes.pop(cls, None)  # not applied: cursors stay
+        affected = pool.residents(cls)
+        doc_w = np.full((b.R, b.C), 2, np.int32)
+        len_w = np.zeros(b.R, np.int32)
+        nvis_w = np.zeros(b.R, np.int32)
+        replayed = disp_total = disp_max = 0
+        self._note_fault()
+        for doc_id, row in affected:
+            try:
+                row_v, L, nv, disp, ops = self._rebuild(doc_id, cls)
+            except Exception as e:
+                self._quarantine(doc_id, f"device loss; rebuild failed: {e}")
+                continue
+            doc_w[row] = row_v
+            len_w[row] = L
+            nvis_w[row] = nv
+            replayed += ops
+            disp_total += disp
+            disp_max = max(disp_max, disp)
+        pool.upload_bucket(cls, doc_w, len_w, nvis_w)
+        self._bases.release()  # the class is done: drop the cached states
+        self.stats.recoveries += 1
+        self.stats.ops_replayed += replayed
+        self.stats.replay_dispatches += disp_total
+        self.stats.mttr_rounds.append(max(1, disp_max))
+        self.stats.faults_injected += 1
+        ev.fire(self.round, cls=cls, docs=len(affected),
+                replayed_ops=replayed)
+        ev.recover()
+        if self.journal:
+            self.journal.event("device_loss", r=self.round, cls=cls,
+                               docs=len(affected), ops=replayed)
+
+    def finalize_faults(self) -> None:
+        """The end-of-drain sweep: a damaged spool whose doc was never
+        restored again is healed now (rebuilt, the spool rewritten); a
+        torn GC pass still pending is completed; a damaged delta is shown
+        recoverable by the chain-fallback probe.  A chaos drain thus never
+        ends with an undecodable doc or a fired fault left open."""
+        for e in self.faults.plan.events:
+            if e.kind == "crash_compact" and e.fired and not e.recovered \
+                    and self.journal is not None:
+                n = self.journal.finish_torn_gc()
+                e.recover(completed="finalize", segments=n)
+                if e is self._pending_gc_ev:
+                    self._pending_gc_ev = None
+            if e.kind == "delta_corrupt" and e.fired and not e.recovered \
+                    and self.journal is not None:
+                used, fallbacks = probe_recovery(self.journal.dir)
+                if used is not None:
+                    # the walk fell back below the damaged link, or a later
+                    # full barrier re-rooted past it: both the repair
+                    e.recover(fallback_to=used, fallbacks=fallbacks)
+        for e in self.faults.plan.events:
+            if e.kind not in ("spool_corrupt", "spool_truncate"):
+                continue
+            if not e.fired or e.recovered:
+                continue
+            doc_id = e.detail.get("doc")
+            rec = self.pool.docs.get(doc_id)
+            st = self.streams.get(doc_id)
+            if rec is None or st is None:
+                continue
+            if rec.spool is None or not os.path.exists(rec.spool):
+                e.recover()  # superseded: the doc is resident again
+                continue
+            try:
+                load_state(rec.spool)
+                e.recover()  # the damage missed the live bytes
+                continue
+            except CorruptCheckpointError as err:
+                healed = self._heal_spool(
+                    doc_id, self.pool.class_for(max(rec.length, 1)),
+                    str(err))
+            if healed is None:
+                continue  # quarantined (reported apart)
+            row_v, L, nv = healed
+            self.pool._set_spool(rec, self.pool.spool_save(doc_id, row_v, L,
+                                                           nv))
+            e.recover()
+
     # ---- boundary moves (the only syncs of a round) ----
 
     def _execute_moves(self, plan: _Plan) -> None:
@@ -559,8 +988,8 @@ class FleetScheduler:
                                     np.array(nvis_s))
             C = pool.buckets[cls].C
             for doc_id, row, source in items:
+                n_init = pool.docs[doc_id].n_init
                 if source[0] == "fresh":
-                    n_init = pool.docs[doc_id].n_init
                     doc_w[row] = _fresh_row_np(C, n_init)
                     len_w[row] = nvis_w[row] = n_init
                     continue
@@ -568,9 +997,25 @@ class FleetScheduler:
                     e = source[1]
                     src_doc, L, nv = e.doc_row, e.length, e.nvis
                 elif source[0] == "spool":
-                    st = load_state(source[1])
-                    src_doc, L, nv = st.doc[0], int(st.length[0]), int(
-                        st.nvis[0])
+                    try:
+                        st = load_state(source[1])
+                    except CorruptCheckpointError as e:
+                        # damaged: rebuilt in place (or quarantined, and
+                        # the row takes a scratch fresh row its lane,
+                        # still staged, leaves unadvanced)
+                        healed = self._heal_spool(doc_id, cls, str(e))
+                        try:
+                            os.unlink(source[1])
+                        except OSError:
+                            pass
+                        if healed is None:
+                            doc_w[row] = _fresh_row_np(C, n_init)
+                            len_w[row] = nvis_w[row] = n_init
+                            continue
+                        src_doc, L, nv = healed
+                    else:
+                        src_doc, L, nv = st.doc[0], int(st.length[0]), int(
+                            st.nvis[0])
                 else:  # ("pull", src_cls, src_row)
                     _, src_cls, src_row = source
                     sdoc, slen, snvis = snaps[src_cls]
@@ -613,10 +1058,10 @@ class FleetScheduler:
         if pf is None:
             return
         pool = self.pool
-        horizon = self.round + self.macro_k
+        horizon = self.round + self._k_round
         # reap reads whose results never arrived (the worker's bounded
         # publish dropped them): they would pin the budget for good
-        reap_before = self.round - 32 * self.macro_k
+        reap_before = self.round - 32 * self._k_round
         stale = [(d, seq) for d, (r0, seq) in self._prefetch_inflight.items()
                  if r0 < reap_before]
         if stale:
@@ -639,6 +1084,17 @@ class FleetScheduler:
             if st.remaining == 0 or st.arrival > horizon:
                 continue
             wanted.append((doc_id, rec.spool, pool.spool_gen(doc_id)))
+        if wanted and self.faults is not None:
+            ev = self.faults.prefetch_miss_event(self.round)
+            if ev is not None:
+                # the planned reads are dropped: admission takes the
+                # synchronous cold path, which must stay exact
+                self.prefetch_missed += len(wanted)
+                self.stats.faults_injected += 1
+                ev.fire(self.round, dropped=len(wanted))
+                ev.recover()  # the synchronous fallback is the recovery
+                self._note_fault()
+                return
         for doc_id, path, gen in wanted:
             seq = pf.submit(doc_id, path, gen)
             if seq:
@@ -653,14 +1109,22 @@ class FleetScheduler:
             self.stats.dispatches += 1
             self.stats.slices += plan.k_eff[cls]
             self.stats.staged_cells += kind.size
+            if self.faults is not None:
+                ev = self.faults.device_loss_event(self.round, cls)
+                if ev is not None:
+                    self._recover_class(cls, plan, ev)
 
     def _advance(self, plan: _Plan) -> None:
         """Host mirrors after dispatch: the staged ops will be applied and
         length and cursor evolve deterministically, so no sync is needed
-        to keep scheduling exact."""
+        to keep scheduling exact.  The lanes of a class that lost its
+        device state (popped from the plan) and of docs quarantined this
+        round do not advance."""
         for lanes in plan.lanes.values():
             for lane in lanes:
                 st = lane.stream
+                if st.doc_id in self._dead_lanes:
+                    continue
                 rec = self.pool.docs[st.doc_id]
                 self.stats.ops += lane.end - st.cursor
                 self.stats.unit_ops += (st.units_before(lane.end)
@@ -668,6 +1132,13 @@ class FleetScheduler:
                 st.cursor = lane.end
                 rec.length = rec.n_init + st.ins_before(lane.end)
                 rec.last_sched = plan.base_round
+        self._dead_lanes.clear()
+        if self._planned_degraded:
+            self.stats.degraded_rounds += 1
+            self._degrade_left -= 1
+        if self._bp_round:
+            self.stats.backpressure_rounds += 1
+            self._bp_round = False
         self.round = plan.base_round + max(plan.k_eff.values())
         self._n_rounds += 1
 
@@ -715,32 +1186,84 @@ class FleetScheduler:
         else:
             self.stats.snapshots_delta += 1
         self.journal.note_snapshot(d)
+        self._bases.release()  # the barrier may have pruned old dirs
         floor = retained_floor(self.journal.dir)
-        self.journal.compact(self.round if floor is None else floor,
-                             crash_hook=self._gc_crash_hook)
+        info = self.journal.compact(self.round if floor is None else floor,
+                                    crash_hook=self._gc_crash_hook)
         self.journal.event("snap", r=self.round, dir=os.path.basename(d),
                            snap_kind=kind, depth=int(m["depth"]))
+        if info["torn_completed"] and self._pending_gc_ev is not None:
+            self._pending_gc_ev.recover(completed_round=self.round,
+                                        segments=info["torn_completed"])
+            self._pending_gc_ev = None
+        if self.faults is not None:
+            self._fire_delta_corrupt()
 
     def _gc_crash_hook(self) -> bool:
-        """The GC pass's kill point between its manifest commit and the
-        unlinks (the faults' ``crash_compact``): never fires until the
-        fault injector is ported."""
-        return False
+        """The ``crash_compact`` kill point, polled by the GC pass between
+        its manifest commit and the unlinks: True abandons the pass there,
+        the torn state the next open, compaction or recovery repairs."""
+        if self.faults is None:
+            return False
+        ev = self.faults.compact_crash_event(self.round)
+        if ev is None:
+            return False
+        ev.fire(self.round, stage="post_manifest_pre_unlink")
+        self.stats.faults_injected += 1
+        self._note_fault()
+        self._pending_gc_ev = ev
+        return True
+
+    def _fire_delta_corrupt(self) -> None:
+        """The ``delta_corrupt`` fault: flip bytes inside the newest delta
+        snapshot's member (after a barrier; pending until a delta
+        exists).  Recovery must fall back down the chain, which
+        :meth:`finalize_faults`'s probe or the bench's recovery leg
+        proves."""
+        ev = self.faults.delta_corrupt_event(self.round)
+        if ev is None:
+            return
+        jd = self.journal.dir
+        target = None
+        for snap in reversed(list_snapshots(jd)):
+            m = _read_manifest(os.path.join(jd, snap))
+            if m is not None and m.get("kind") == "delta":
+                target = snap
+                break
+        if target is None:
+            return  # no delta committed yet: retried next barrier
+        sd = os.path.join(jd, target)
+        members = sorted(f for f in os.listdir(sd)
+                         if f.startswith("delta_") and f.endswith(".npz"))
+        path = os.path.join(sd, members[0] if members else "MANIFEST.json")
+        detail = self.faults.corrupt_file(path, "delta_corrupt")
+        ev.fire(self.round, dir=target, member=os.path.basename(path),
+                **detail)
+        self.stats.faults_injected += 1
+        self._note_fault()
 
     # ---- the drain loop ----
 
     def run_round(self) -> bool:
-        """One macro-round (prefetch harvest -> plan -> WAL record ->
-        stage -> boundary moves -> prefetch submissions -> one dispatch
-        per class -> advance -> snapshot barrier).  Returns False when no
-        work remains."""
+        """One macro-round (prefetch harvest -> overflow and tier-pressure
+        faults -> plan -> WAL record -> stage -> stall fault -> boundary
+        moves -> prefetch submissions -> spool fault -> one dispatch per
+        class, each polled for a device loss -> advance -> the degraded
+        fence -> snapshot barrier).  Returns False when no work remains."""
         t0 = time.perf_counter()
         ph = self.stats.phase_seconds
+        faults = self.faults is not None
         self._harvest_prefetch()
         th = time.perf_counter()
         timed_prefetch = "prefetch" in ph
         if timed_prefetch:
             ph["prefetch"] += th - t0
+        if faults:
+            self._fire_overflow()
+            self._fire_tier_pressure()
+            tf = time.perf_counter()
+            ph["faults"] += tf - th
+            th = tf
         plan = self._plan()
         t1 = time.perf_counter()
         ph["plan"] += t1 - th
@@ -753,12 +1276,24 @@ class FleetScheduler:
             t1 = tw
         tensors = self._stage(plan)
         t2 = time.perf_counter()
+        if faults:
+            self._maybe_stall(plan.base_round)
+            tf = time.perf_counter()
+            ph["faults"] += tf - t2
+            t2 = tf
         self._execute_moves(plan)
         t3 = time.perf_counter()
         self._plan_prefetch()
         tp = time.perf_counter()
+        if faults:
+            self._fire_spool_fault(plan)
+            tf = time.perf_counter()
+            ph["faults"] += tf - tp
+            tp = tf
         self._dispatch(plan, tensors)
         self._advance(plan)
+        if self._planned_degraded:
+            self.pool.block()  # degraded: synchronous K = 1 rounds
         t4 = time.perf_counter()
         barrier = self._maybe_snapshot()
         t5 = time.perf_counter()
@@ -788,6 +1323,10 @@ class FleetScheduler:
         self.pool.block()
         if self.stats.round_latencies:
             self.stats.round_latencies[-1] += time.perf_counter() - t1
+        if self.faults is not None and self.done:
+            # only a completed drain sweeps its faults: an interrupted one
+            # (a crash round) leaves the repair to the journal's recovery
+            self.finalize_faults()
         self.stats.wall_time += time.perf_counter() - t0
         self.stats.evictions = self.pool.evictions
         self.stats.restores = self.pool.restores

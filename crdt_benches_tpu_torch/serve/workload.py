@@ -14,6 +14,12 @@ band's budget.  Positions stay the original trace's, so the oracle replay
 of the window over the folded start is ground truth.  All sessions of one
 band edit the same template window; synthetic sessions are all distinct
 (seeded per doc).
+
+Each band also carries a **delivery burst** (:data:`DELIVERY_BURST`): the
+ops a session's producer pushes toward the fleet per scheduler round.  It
+matters only under the scheduler's bounded per-doc queue (``queue_cap``);
+``build_fleet(delivery="banded")`` turns it on, the default (None)
+delivers each stream whole.
 """
 
 from __future__ import annotations
@@ -40,6 +46,15 @@ BANDS: dict[str, tuple[str, object]] = {
     "trace-large": ("trace", (3900, None)),
     "trace-xl": ("trace", (8000, 1600)),
     "trace-huge": ("trace", (49000, 1200)),
+}
+
+#: band -> producer delivery burst (coalesced range ops pushed per
+#: scheduler round) under ``delivery="banded"``: small interactive docs
+#: trickle, big trace replays arrive in heavy bursts.
+DELIVERY_BURST: dict[str, int] = {
+    "synth-small": 64, "synth-medium": 96, "synth-large": 128,
+    "trace-small": 96, "trace-medium": 128, "trace-large": 192,
+    "trace-xl": 256, "trace-huge": 256,
 }
 
 #: mix name -> {band: weight}.  "mixed" is the headline multi-tenant blend.
@@ -74,6 +89,7 @@ class Session:
     source: str  # "synth" or a real trace name
     trace: TestData
     arrival: int = 0
+    burst: int | None = None  # producer delivery rate (ops/round)
 
 
 @functools.lru_cache(maxsize=8)
@@ -143,6 +159,7 @@ class FleetSpec:
     n_docs: int
     seed: int
     horizon: int  # the longhaul multiplier on synthetic op counts
+    delivery: str | None  # "banded": sessions carry DELIVERY_BURST
     names: tuple[str, ...]  # sorted band names; band_of indexes these
     table: dict  # band -> (source, sizing)
     band_of: np.ndarray  # int16 band index per doc
@@ -154,7 +171,8 @@ class FleetSpec:
               seed: int = 0, arrival_span: int = 8,
               bands: dict | None = None,
               arrival_dist: str = "uniform",
-              horizon: int = 1) -> "FleetSpec":
+              horizon: int = 1,
+              delivery: str | None = None) -> "FleetSpec":
         """Draw the per-fleet vectors (band assignment, then arrivals) in
         the JAX package's order, so the same seed gives the same fleet."""
         weights = MIXES[mix] if isinstance(mix, str) else dict(mix)
@@ -185,7 +203,8 @@ class FleetSpec:
             np.cumsum(is_trace[:-1], out=trace_ord[1:])
         return FleetSpec(
             n_docs=int(n_docs), seed=int(seed),
-            horizon=max(1, int(horizon)), names=tuple(names),
+            horizon=max(1, int(horizon)), delivery=delivery,
+            names=tuple(names),
             table=dict(table),
             band_of=np.ascontiguousarray(band_of, np.int16),
             arrivals=np.ascontiguousarray(arrivals, np.int32),
@@ -209,23 +228,30 @@ class FleetSpec:
             fits = _fitting_traces(int(budget), cap)
             src = fits[int(self.trace_ord[doc_id]) % len(fits)]
             trace = trace_prefix(src, int(budget), cap)
+        burst = (DELIVERY_BURST.get(band) if self.delivery == "banded"
+                 else None)
         return Session(doc_id=doc_id, band=band, source=src, trace=trace,
-                       arrival=int(self.arrivals[doc_id]))
+                       arrival=int(self.arrivals[doc_id]), burst=burst)
 
 
 def build_fleet(n_docs: int, mix: str | dict[str, float] = "mixed",
                 seed: int = 0, arrival_span: int = 8,
                 bands: dict | None = None,
                 arrival_dist: str = "uniform",
-                horizon: int = 1) -> list[Session]:
+                horizon: int = 1,
+                delivery: str | None = None) -> list[Session]:
     """N sessions drawn from the mix's band weights, arrivals staggered
     over ``arrival_span`` rounds (``"uniform"`` or ``"zipf"``-skewed).
     ``mix`` is a name from MIXES or a {band: weight} table; ``bands``
     overrides the band sizing table (tests use tiny bands).  ``horizon``
     is the longhaul multiplier (``serve/longhaul``): synthetic sessions
     carry ``horizon`` times the band's op count, one valid edit history;
-    real-trace windows keep their band's sizing."""
+    real-trace windows keep their band's sizing.  ``delivery="banded"``
+    attaches each band's :data:`DELIVERY_BURST` producer rate to its
+    sessions (the bounded queue's delivery pace); the default delivers
+    each stream whole."""
     spec = FleetSpec.build(n_docs, mix=mix, seed=seed,
                            arrival_span=arrival_span, bands=bands,
-                           arrival_dist=arrival_dist, horizon=horizon)
+                           arrival_dist=arrival_dist, horizon=horizon,
+                           delivery=delivery)
     return [spec.session(i) for i in range(n_docs)]

@@ -99,7 +99,7 @@ def test_port_imports_no_jax_and_no_reference_module():
     )
     assert done.returncode == 0, done.stderr
     n, old = done.stdout.split(" ", 1)
-    assert int(n) >= 62  # every module of the port was imported
+    assert int(n) >= 63  # every module of the port was imported
     assert old.strip() == "[]"
     for mod in ("ops.idpos", "ops.apply", "engine.downstream",
                 "ops.packing", "ops.serve_fused", "oracle.text_oracle",
@@ -113,7 +113,7 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "bench.harness", "backends.reconcile", "backends.base",
                 "backends.native", "entry", "parallel.mesh",
                 "parallel.launch", "engine.merge_fleet", "serve.journal",
-                "utils.fsdur"):
+                "utils.fsdur", "serve.faults"):
         assert os.path.exists(os.path.join(
             REPO, "crdt_benches_tpu_torch", *mod.split(".")) + ".py"), mod
 
@@ -176,6 +176,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                                 crash_after=1),
         lambda: rebuild_doc(None, 256, None, 1, n_init=0, batch=16,
                             batch_chars=64),
+        lambda: run_serve_bench(n_docs=2, faults="stall=1"),
+        lambda: run_serve_bench(n_docs=2, queue_cap=8,
+                                overflow_policy="shed"),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -299,6 +302,29 @@ def test_serve_bench_entry_without_cuda_exits_with_error():
     assert done.stdout.strip() == ""
 
 
+def test_chaos_bench_entry_without_cuda_exits_with_error():
+    """The chaos flags are arguments of the serve group and change nothing
+    about the device: without CUDA the run exits with the error."""
+    _no_cuda()
+    done = subprocess.run(
+        [sys.executable, "-m", "crdt_benches_tpu_torch.bench", "--group",
+         "serve", "--serve-docs", "2", "--serve-faults",
+         "seed=7,stall=1,queue_overflow=1", "--serve-queue-cap", "16",
+         "--serve-overflow-policy", "shed"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert done.returncode != 0
+    assert "CUDA is not available" in done.stderr
+    assert done.stdout.strip() == ""
+    helped = subprocess.run(
+        [sys.executable, "-m", "crdt_benches_tpu_torch.bench", "--help"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    for flag in ("--serve-faults", "--serve-queue-cap",
+                 "--serve-overflow-policy"):
+        assert flag in helped.stdout, flag
+
+
 @pytest.mark.parametrize("argv", [
     ["--group", "downstream", "--layout", "unit"],
     ["--group", "downstream", "--unit-engine", "v3"],
@@ -308,6 +334,9 @@ def test_serve_bench_entry_without_cuda_exits_with_error():
     ["--group", "serve", "--merge-ops", "100"],
     ["--group", "merge", "--engine", "v5"],
     ["--group", "merge", "--serve-docs", "4"],
+    ["--serve-faults", "stall=1"],
+    ["--group", "downstream", "--serve-queue-cap", "8"],
+    ["--group", "merge", "--serve-overflow-policy", "shed"],
     ["--schedule", "batched"],
     ["--group", "downstream", "--engine", "range", "--schedule", "flat"],
 ])
