@@ -20,7 +20,8 @@
         [--serve-wal-segment-bytes 1048576] [--serve-longhaul H]
         [--serve-recover] [--serve-crash-round N]
         [--serve-faults SPEC] [--serve-queue-cap N]
-        [--serve-overflow-policy defer|shed]                 (serve)
+        [--serve-overflow-policy defer|shed] [--serve-stream]
+        [--serve-stream-scaling N1,N2,...] [--serve-record-evict]  (serve)
 
 The default is the headline range replay (1024 replicas, batch 1536);
 ``--layout unit --batch 256`` is the unit-op engine (the JAX package's
@@ -53,7 +54,12 @@ macro-rounds and gates the run on the recovered fleet, and
 ``--serve-longhaul H`` is the ``serve/longhaul/<mix>/<fleet>`` family;
 ``--serve-faults SPEC`` makes the drain a seeded chaos run
 (``serve/faults.py``), ``--serve-queue-cap N`` bounds each document's
-pending ops and ``--serve-overflow-policy`` decides at the cap);
+pending ops and ``--serve-overflow-policy`` decides at the cap;
+``--serve-stream`` builds the fleet lazily, each document's stream at its
+first admission, ``--serve-stream-scaling N1,N2,...`` adds the
+construction probe's fleet-size table (a fresh process a cell, run before
+the drain) and ``--serve-record-evict`` reclaims drained documents' records
+and spool files during a journal-less drain);
 its metric is fleet patches/sec over the drain's wall time, and it exits
 non-zero when verification fails or, in a chaos run, when a fault event
 went unfired or unrecovered (2 when the flags are refused).  A flag
@@ -230,6 +236,30 @@ def _serve(args) -> int:
     """Drain the serving fleet once; one JSON line; 1 if verify fails."""
     from ..serve.bench import run_serve_bench
 
+    if args.serve_record_evict and args.serve_journal is not None:
+        print("--serve-record-evict requires a journal-less drain: "
+              "recovery re-adopts the spool members the GC reclaims",
+              file=sys.stderr)
+        return 2
+    scaling = None
+    if args.serve_stream_scaling:
+        # the fleet-size probe table: one fresh process a (size, mode)
+        # cell (ru_maxrss only grows in a process), riding this run's
+        # report as construction.scaling
+        from ..serve.construction import scaling_table
+
+        try:
+            sizes = _ints(args.serve_stream_scaling)
+        except ValueError:
+            print(f"--serve-stream-scaling: bad size list "
+                  f"{args.serve_stream_scaling!r}", file=sys.stderr)
+            return 2
+        scaling = scaling_table(
+            sizes, mix=args.serve_mix, seed=args.seed,
+            arrival_span=args.serve_arrival_span,
+            arrival_dist=args.serve_arrival_dist,
+            serve_tiers=args.serve_tiers, device=args.device,
+            log=lambda m: print(m, file=sys.stderr))
     try:
         rep = run_serve_bench(
             mix=args.serve_mix, n_docs=args.serve_docs,
@@ -249,7 +279,10 @@ def _serve(args) -> int:
             measure_recovery=bool(args.serve_recover),
             crash_after=args.serve_crash_round,
             faults=args.serve_faults, queue_cap=args.serve_queue_cap,
-            overflow_policy=args.serve_overflow_policy, device=args.device,
+            overflow_policy=args.serve_overflow_policy,
+            stream=bool(args.serve_stream),
+            record_evict=bool(args.serve_record_evict),
+            construction_scaling=scaling, device=args.device,
             log=lambda m: print(m, file=sys.stderr),
         )
     except (RuntimeError, ValueError) as e:
@@ -369,6 +402,23 @@ def main(argv=None) -> int:
     for flag, typ, _default, metavar, choices, text in fault_flags:
         ap.add_argument(flag, type=typ, metavar=metavar, choices=choices,
                         help=text)
+    stream_flags = (
+        ("--serve-stream", "streaming fleet construction: the fleet is a "
+         "lazy FleetSpec, each doc's trace tensorized at its first "
+         "admission (off the drain by the prefetcher with --serve-tiers); "
+         "set-up cost and host memory scale with the active set"),
+        ("--serve-record-evict", "reclaim drained docs' pool records and "
+         "spool members mid-drain (two-phase GC, serve/pool.py "
+         "gc_drained_docs): the footprint tracks the active set.  "
+         "Journal-less drains only (recovery re-adopts spool members)"),
+    )
+    for flag, text in stream_flags:
+        ap.add_argument(flag, action="store_true", default=None, help=text)
+    ap.add_argument("--serve-stream-scaling", default=None,
+                    metavar="N1,N2,...",
+                    help="construction probe table: one fresh process per "
+                    "(fleet size, mode) cell (serve/construction.py), run "
+                    "before the drain and carried in its construction block")
     ap.add_argument("--serve-recover", action="store_true", default=None,
                     help="measure the recovery-time objective after the "
                     "drain: drop the live fleet, recover a fresh one from "
@@ -378,7 +428,10 @@ def main(argv=None) -> int:
                          for flag, typ, default, *_ in journal_flags)
     serve_flags += tuple((flag, typ, default)
                          for flag, typ, default, *_ in fault_flags)
-    serve_flags += (("--serve-recover", bool, False),)
+    serve_flags += (("--serve-recover", bool, False),
+                    ("--serve-stream", bool, False),
+                    ("--serve-record-evict", bool, False),
+                    ("--serve-stream-scaling", str, None))
     args = ap.parse_args(argv)
     flag_set = lambda flags: [f for f, *_ in flags
                               if getattr(args, f[2:].replace("-", "_"))

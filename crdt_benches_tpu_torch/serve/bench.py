@@ -23,6 +23,18 @@ holds when every event fired and recovered.  Docs whose ops were shed by
 an explicit decision (overflow shed, quarantine) are lossy: verification
 leaves them out, and an empty verify set fails the gate.
 
+``stream`` builds the fleet lazily (streaming construction): a
+``FleetSpec`` and ``LazyStreams`` in place of ``build_fleet`` and
+``prepare_streams``, every doc born in genesis and its stream tensorized at
+first admission (off the drain by the prefetcher when a warm tier arms it);
+it refuses the journal and the durability legs.  ``record_evict`` reclaims
+drained docs' pool records and spool members mid-drain (journal-less
+drains only); the verify then covers the docs whose records survive.  The
+report's ``construction`` block (both modes) holds the construction time
+(fleet build to a ready scheduler), the RSS after it and at its peak, the
+materialized, released and prefetch-built docs, the genesis docs left and
+``construction_scaling`` (``serve/construction.py scaling_table``'s rows).
+
 Timed region: the drain, from the first macro-round to the final device
 fence (``FleetScheduler.run``).  The metric is fleet patches per second
 (every session's trace patches over the drain's wall time).  Verification
@@ -44,6 +56,7 @@ from .._build import kernels
 from ..bench.harness import summarize
 from ..device import resolve_device
 from ..oracle.text_oracle import replay_trace
+from .construction import current_rss_bytes, peak_rss_bytes
 from .faults import (
     INGEST_KINDS,
     JOURNAL_KINDS,
@@ -55,8 +68,8 @@ from .faults import (
 )
 from .journal import DEFAULT_SEGMENT_BYTES, OpJournal, recover_fleet
 from .pool import DocPool
-from .scheduler import FleetScheduler, prepare_streams
-from .workload import build_fleet
+from .scheduler import FleetScheduler, LazyStreams, prepare_streams
+from .workload import FleetSpec, build_fleet
 
 
 def parse_tier_spec(spec: str, slots: tuple[int, ...]
@@ -104,20 +117,21 @@ def parse_tier_spec(spec: str, slots: tuple[int, ...]
     return slots, warm
 
 
-def _verify_ids(pool: DocPool, sessions, verify_sample: int,
+def _verify_ids(pool: DocPool, doc_ids, verify_sample: int,
                 seed: int, lossy: set[int]) -> list[int]:
-    """Every doc id not in ``lossy`` (``verify_sample`` 0), or a seeded
-    sample of about ``verify_sample`` of them spread over every final class
-    (the JAX bench's rule: ceil(sample / classes) per class, seed + 1)."""
+    """Every id of ``doc_ids`` not in ``lossy`` (``verify_sample`` 0), or a
+    seeded sample of about ``verify_sample`` of them spread over every final
+    class (the JAX bench's rule: ceil(sample / classes) per class, seed +
+    1)."""
     if verify_sample <= 0:
-        return [s.doc_id for s in sessions if s.doc_id not in lossy]
+        return [d for d in doc_ids if d not in lossy]
     by_class: dict[int, list[int]] = {}
-    for s in sessions:
-        if s.doc_id in lossy:
+    for d in doc_ids:
+        if d in lossy:
             continue
-        rec = pool.docs[s.doc_id]
+        rec = pool.docs[d]
         cls = rec.cls or pool.class_for(max(rec.length, 1))
-        by_class.setdefault(cls, []).append(s.doc_id)
+        by_class.setdefault(cls, []).append(d)
     per_class = max(1, -(-verify_sample // max(1, len(by_class))))
     rng = np.random.default_rng(seed + 1)
     out: list[int] = []
@@ -214,6 +228,9 @@ def run_serve_bench(
     queue_cap: int = 0,
     overflow_policy: str = "defer",
     delivery: str | None = None,
+    stream: bool = False,
+    record_evict: bool = False,
+    construction_scaling: list | None = None,
     device: str | torch.device = "cuda",
     pool_hook=None,
     log=print,
@@ -230,6 +247,8 @@ def run_serve_bench(
     says (a plan with ``queue_overflow`` and no cap gets ``8 * batch``);
     ``delivery="banded"`` paces each session's producer (``workload.py
     DELIVERY_BURST``); ``bands`` overrides the band sizing table.
+    ``stream``, ``record_evict`` and ``construction_scaling`` as the
+    module says.
     ``pool_hook(pool)``, if given, runs on the pool just before the drain
     (``chip_smoke.py`` arms the pool's CUDA-event spans or zeroes the
     kernels' counts there)."""
@@ -250,6 +269,23 @@ def run_serve_bench(
             "--serve-tiers and --serve-longhaul are separate bench "
             "families (serve/tier/* vs serve/longhaul/*); pick one"
         )
+    # streaming construction rides the closed-loop families (serve/ and
+    # serve/tier/); the legs that replay eagerly built streams refuse it
+    # (the open loop, which tensorizes every stream up front, has no port)
+    if stream:
+        if longhaul or measure_recovery or crash_after:
+            raise ValueError(
+                "--serve-stream does not compose with the durability "
+                "legs (--serve-longhaul / --serve-recover / "
+                "--serve-crash-round): journal recovery rebuilds "
+                "eagerly prepared streams"
+            )
+        if journal_dir:
+            raise ValueError(
+                "--serve-stream does not compose with --serve-journal: "
+                "the lazy path releases drained streams, which the "
+                "journal's replay window would still reference"
+            )
     plan = None
     if faults is not None:
         plan = (faults if isinstance(faults, FaultPlan)
@@ -271,16 +307,26 @@ def run_serve_bench(
                if journal_dir else None)
     pool = None
     try:
+        # the construction window: the fleet (spec or sessions), the pool,
+        # the streams and a ready scheduler, all before round 0 could run
         t0 = time.perf_counter()
-        sessions = build_fleet(n_docs, mix=mix, seed=seed,
-                               arrival_span=arrival_span,
-                               arrival_dist=arrival_dist, bands=bands,
-                               horizon=max(1, longhaul), delivery=delivery)
+        fleet_kw = dict(mix=mix, seed=seed, arrival_span=arrival_span,
+                        arrival_dist=arrival_dist, bands=bands,
+                        horizon=max(1, longhaul), delivery=delivery)
+        spec = sessions = None
+        if stream:
+            spec = FleetSpec.build(n_docs, **fleet_kw)
+        else:
+            sessions = build_fleet(n_docs, **fleet_kw)
         pool = DocPool(classes=classes, slots=slots,
                        serve_kernel=serve_kernel, device=dev,
                        warm_docs=warm_docs)
-        streams = prepare_streams(sessions, pool, batch=batch,
+        if stream:
+            streams = LazyStreams(spec, pool, batch=batch,
                                   batch_chars=batch_chars)
+        else:
+            streams = prepare_streams(sessions, pool, batch=batch,
+                                      batch_chars=batch_chars)
         injector = FaultInjector(plan) if plan is not None else None
         sched = FleetScheduler(pool, streams, batch=batch, macro_k=macro_k,
                                batch_chars=batch_chars, queue_cap=queue_cap,
@@ -288,15 +334,31 @@ def run_serve_bench(
                                faults=injector, journal=journal,
                                snapshot_every=snapshot_every,
                                snapshot_keep=snapshot_keep,
-                               snapshot_full_every=snapshot_full_every)
+                               snapshot_full_every=snapshot_full_every,
+                               drained_gc=record_evict)
         setup_s = time.perf_counter() - t0
-        total_ops = sum(s.remaining for s in streams.values())
-        log(f"serve: {n_docs} docs ({mix}, seed {seed}"
-            + (f", horizon x{longhaul}" if longhaul else "")
-            + f"), {total_ops} range "
-            f"ops, classes {classes} slots {slots} batch {batch} chars "
-            f"{batch_chars} K {macro_k} kernel {serve_kernel} on {dev}; "
-            f"set-up {setup_s:.1f} s")
+        rss_setup = current_rss_bytes()
+        if stream:
+            log(f"serve: {n_docs} docs ({mix}, seed {seed}) born in genesis "
+                "(streaming construction): each stream tensorized at first "
+                "admission" + (", off the drain by the prefetcher"
+                               if pool.prefetcher is not None else "")
+                + f"; classes {classes} slots {slots} batch {batch} chars "
+                f"{batch_chars} K {macro_k} kernel {serve_kernel} on {dev}; "
+                f"construction {setup_s * 1e3:.1f} ms, rss "
+                f"{rss_setup / 2**20:.1f} MiB")
+        else:
+            total_ops = sum(s.remaining for s in streams.values())
+            log(f"serve: {n_docs} docs ({mix}, seed {seed}"
+                + (f", horizon x{longhaul}" if longhaul else "")
+                + f"), {total_ops} range "
+                f"ops, classes {classes} slots {slots} batch {batch} chars "
+                f"{batch_chars} K {macro_k} kernel {serve_kernel} on {dev}; "
+                f"set-up {setup_s:.1f} s (construction "
+                f"{setup_s * 1e3:.1f} ms, rss {rss_setup / 2**20:.1f} MiB)")
+        if record_evict:
+            log("serve: drained-doc record eviction: drained docs' records "
+                "and spool members reclaimed in batches of 32")
         if warm_docs:
             log(f"serve: tiered residency: hot {sum(slots)} rows "
                 f"({'/'.join(map(str, slots))}), warm {warm_docs} docs, "
@@ -337,25 +399,41 @@ def run_serve_bench(
                 f"{stats.degraded_rounds}, snapshots {stats.snapshots}")
 
         t1 = time.perf_counter()
-        session_of = {s.doc_id: s for s in sessions}
-        oracle: dict[int, str] = {}  # id(trace) -> content (shared windows)
+        session_of = {} if stream else {s.doc_id: s for s in sessions}
+        oracle: dict = {}  # id(trace) or (band, source) -> content
 
         def mismatches(p: DocPool, ids) -> list[int]:
             out = []
             for d in ids:
-                tr = session_of[d].trace
-                want = oracle.get(id(tr))
+                if stream:
+                    # a lazy fleet derives the doc's session again from
+                    # the spec (seed-stable: the trace its first admission
+                    # tensorized); a synth trace is one a doc and
+                    # transient, so only a band's shared window is cached
+                    s = spec.session(d)
+                    key = None if s.source == "synth" else (s.band, s.source)
+                    tr = s.trace
+                else:
+                    tr = session_of[d].trace
+                    key = id(tr)
+                want = oracle.get(key) if key is not None else None
                 if want is None:
-                    want = oracle[id(tr)] = replay_trace(tr)
+                    want = replay_trace(tr)
+                    if key is not None:
+                        oracle[key] = want
                 if p.decode(d) != want:
                     out.append(d)
             return out
 
         # docs whose ops an explicit decision shed cannot match a full
         # oracle replay: left out and listed.  An interrupted drain's pool
-        # is mid-stream by design: the recovered fleet carries the gate
+        # is mid-stream by design: the recovered fleet carries the gate.
+        # A streamed fleet (every doc materialized by now) and record
+        # eviction (the reclaimed docs have no record) walk the records
         lossy = sorted(d for d, st in streams.items() if st.lossy)
-        ids = [] if crashed else _verify_ids(pool, sessions, verify_sample,
+        cand = (sorted(pool.docs) if stream or record_evict
+                else [s.doc_id for s in sessions])
+        ids = [] if crashed else _verify_ids(pool, cand, verify_sample,
                                              seed, set(lossy))
         failures = mismatches(pool, ids)
         verify_s = time.perf_counter() - t1
@@ -374,7 +452,10 @@ def run_serve_bench(
                   else "EMPTY SAMPLE (all docs lossy?)" if not ids
                   else f"MISMATCH on docs {failures[:16]}")
                + (f" ({len(lossy)} lossy docs left out: {lossy[:16]})"
-                  if lossy else "")))
+                  if lossy else "")
+               + (f"; {sched.spool_gc_docs} drained docs' records "
+                  f"reclaimed, {len(pool.docs)} left, the verify covers "
+                  "those" if record_evict else "")))
         pf = pool.prefetcher
         hits, restores = pool.warm_hits, pool.restores
         residency = None if not warm_docs else {
@@ -531,6 +612,33 @@ def run_serve_bench(
                    else f"MISMATCH on {rfail[:16] or 'EMPTY SAMPLE'}"))
             verify_ok = recovered_ok if crashed else (verify_ok
                                                       and recovered_ok)
+        construction = {
+            "version": 1,
+            "mode": "stream" if stream else "eager",
+            "construction_ms": setup_s * 1e3,
+            "rss_after_construction_bytes": rss_setup,
+            "peak_rss_bytes": peak_rss_bytes(),
+            "fleet_docs": n_docs,
+            "materialized_docs": streams.materialized if stream else n_docs,
+            "released_docs": streams.released if stream else 0,
+            "prefetch_built": streams.prefetch_built if stream else 0,
+            "genesis_docs_end": pool.genesis_docs,
+            "verify_sample_seed": seed + 1,
+            "scaling": construction_scaling,
+            # record eviction: what it reclaimed, and the docs the verify
+            # covered (the reclaimed ones have no record to decode)
+            "spool_gc_docs": sched.spool_gc_docs,
+            "records_end": len(pool.docs),
+            "verified_docs": len(ids),
+        }
+        log(f"serve: construction ({construction['mode']}): "
+            f"{construction['construction_ms']:.1f} ms, rss after "
+            f"{rss_setup / 2**20:.1f} MiB, peak "
+            f"{construction['peak_rss_bytes'] / 2**20:.1f} MiB; materialized "
+            f"{construction['materialized_docs']} of {n_docs} docs ("
+            f"{construction['prefetch_built']} built by the prefetcher), "
+            f"released {construction['released_docs']}, genesis left "
+            f"{construction['genesis_docs_end']}")
         fault_summary = plan.summary() if plan is not None else None
         faults_ok = fault_summary is None or (
             fault_summary["unrecovered"] == 0
@@ -596,6 +704,7 @@ def run_serve_bench(
             "degraded_rounds": stats.degraded_rounds,
             "lossy_docs": lossy,
             "journal": journal_block,
+            "construction": construction,
             "recovery": recovery_block,
             "recovery_drain": recovery_drain,
             **({} if residency is None else {

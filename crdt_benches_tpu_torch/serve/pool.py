@@ -23,6 +23,13 @@ bucket is full.  Residency has two or three tiers:
 Every write to a device row marks it dirty (:meth:`DocPool.take_dirty`):
 a delta snapshot barrier (``serve/journal.py``) persists only those rows.
 
+A streamed fleet (``serve/scheduler.py LazyStreams``) registers its docs on
+first touch: until then a doc is in **genesis** (no record anywhere,
+counted by :attr:`DocPool.genesis_docs`).  A journal-less drain may reclaim
+drained docs' records and spool members (:meth:`DocPool.gc_drained_docs`,
+two phases behind ``SPOOL_GC_MANIFEST``, a torn pass completed by the next
+pool on the directory).
+
 The hot path is :meth:`DocPool.macro_step`: K staged rounds of per-row
 range ops for the first ``Rt`` rows of one class (a row tier from
 :meth:`DocPool.tiers`; the scheduler compacts a macro-round's documents
@@ -40,6 +47,7 @@ callers fence with :meth:`DocPool.block` or a bucket pull.
 from __future__ import annotations
 
 import heapq
+import json
 import os
 import shutil
 import tempfile
@@ -56,12 +64,22 @@ from ..ops.resolve_range import resolve_range_rows
 from ..ops.serve_fused import serve_macro_fused, serve_round_inputs
 from ..traces.tensorize import PAD
 from ..utils.checkpoint import CorruptCheckpointError, load_state, save_state
+from ..utils.fsdur import fsync_dir
 from .prefetch import Prefetcher
 
 I32 = torch.int32
 #: The serve step's kernels: "fused" (K1's per-row form over the K rounds,
 #: then one K4 launch) and "scan" (``merge_rows_body`` round by round).
 SERVE_KERNELS = ("fused", "scan")
+
+#: The drained-doc spool GC's commit point (:meth:`DocPool.gc_drained_docs`):
+#: the manifest names every member about to die, so a pass torn by a crash
+#: is completed, never decided again, by the next pool on the directory.
+#: Its bytes are the JAX package's, so either package completes the other's.
+SPOOL_GC_MANIFEST = "SPOOL_GC_MANIFEST.json"
+
+#: The errors a manifest read absorbs (a damaged manifest unlinks nothing).
+_SPOOL_GC_ERRORS = (OSError, ValueError, KeyError, TypeError)
 
 
 def _fresh_row_np(C: int, n_init: int) -> np.ndarray:
@@ -248,6 +266,9 @@ class DocPool:
         self._owns_spool = spool_dir is None
         self.spool_dir = spool_dir or tempfile.mkdtemp(prefix="crdt_serve_")
         os.makedirs(self.spool_dir, exist_ok=True)
+        # a predecessor's torn drained-doc GC pass is completed before any
+        # member could be read again as live state
+        self.finish_torn_spool_gc()
         #: staged op-lane dtypes (ops/packing.py), static per pool
         self.op_dtypes = op_lane_dtypes(max(classes))
         self.evictions = 0
@@ -276,6 +297,9 @@ class DocPool:
         #: barrier, per class: a delta snapshot persists exactly these
         #: rows, and the barrier consumes the set (:meth:`take_dirty`)
         self._dirty: dict[int, set[int]] = {c: set() for c in classes}
+        #: docs the fleet specifies that have no record yet (streaming
+        #: construction's genesis residency; 0 for an eager fleet)
+        self._n_genesis = 0
 
     # ---- dirty tracking (the delta snapshots' substrate) ----
 
@@ -305,6 +329,17 @@ class DocPool:
 
     # ---- registration / class arithmetic ----
 
+    def set_genesis_population(self, n: int) -> None:
+        """Arm genesis residency (streaming construction): ``n`` docs exist
+        in the fleet's spec with nothing anywhere, not even a record.  Each
+        first :meth:`register` of a doc takes one off."""
+        self._n_genesis = max(0, int(n))
+
+    @property
+    def genesis_docs(self) -> int:
+        """Docs the fleet specifies that were never materialized."""
+        return self._n_genesis
+
     def register(self, doc_id: int, n_init: int, capacity_need: int,
                  chars: np.ndarray) -> DocRecord:
         if capacity_need > self.classes[-1]:
@@ -315,6 +350,8 @@ class DocPool:
         rec = DocRecord(doc_id=doc_id, n_init=n_init,
                         capacity_need=capacity_need,
                         chars=np.asarray(chars, np.int32), length=n_init)
+        if doc_id not in self.docs and self._n_genesis > 0:
+            self._n_genesis -= 1
         self.docs[doc_id] = rec
         return rec
 
@@ -415,6 +452,96 @@ class DocPool:
         self._free_row(rec)
         self.evictions += 1
         return rec.spool
+
+    # ---- drained-doc record eviction (two-phase, manifest-committed) ----
+
+    def gc_drained_docs(self, doc_ids) -> int:
+        """Reclaim drained docs: the pool record, the spool member (the
+        live claim, or the stale file a restore or warm hit leaves behind)
+        and any warm entry and its shadow.  Two phases, as the journal's
+        segment GC: the manifest naming every member is committed first
+        (temp file, fsync, replace), then the members go, then the
+        manifest; :meth:`finish_torn_spool_gc` completes a pass a crash
+        tore.  Resident ids (and unknown or repeated ones) are skipped.
+        Returns the number of docs reclaimed."""
+        victims: list[tuple[int, list[str]]] = []
+        seen: set[int] = set()
+        for d in doc_ids:
+            rec = self.docs.get(d)
+            if rec is None or rec.cls is not None or d in seen:
+                continue
+            seen.add(d)
+            paths: list[str] = []
+            if rec.spool is not None:
+                paths.append(rec.spool)
+            elif os.path.exists(self.spool_path(d)):
+                paths.append(self.spool_path(d))  # stale leftover
+            e = self.warm.take(d)
+            if e is not None and e.shadow and e.shadow not in paths:
+                paths.append(e.shadow)
+            victims.append((d, paths))
+        if not victims:
+            return 0
+        manifest = os.path.join(self.spool_dir, SPOOL_GC_MANIFEST)
+        tmp = manifest + ".tmp"
+        members = sorted({p for _d, ps in victims for p in ps})
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({"version": 1,
+                       "members": [os.path.basename(p) for p in members]},
+                      f, separators=(",", ":"))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, manifest)  # the commit point
+        fsync_dir(self.spool_dir)
+        for p in members:
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+        os.unlink(manifest)
+        fsync_dir(self.spool_dir)
+        for d, _paths in victims:
+            rec = self.docs.pop(d)
+            self._set_spool(rec, None)
+            self._spool_gens.pop(d, None)
+        return len(victims)
+
+    def finish_torn_spool_gc(self) -> int:
+        """Complete a predecessor's torn spool GC pass: a committed
+        manifest is finished (the members it names unlinked, then the
+        manifest), a staged ``.tmp`` never committed and rolls back.
+        Called by the constructor; returns the members removed."""
+        manifest = os.path.join(self.spool_dir, SPOOL_GC_MANIFEST)
+        tmp = manifest + ".tmp"
+        if not (os.path.exists(manifest) or os.path.exists(tmp)):
+            return 0
+        if os.path.exists(tmp):
+            try:
+                os.unlink(tmp)  # uncommitted: rolls back
+            except OSError:
+                pass
+        if not os.path.exists(manifest):
+            return 0
+        try:
+            with open(manifest, encoding="utf-8") as f:
+                names = json.load(f)["members"]
+        except _SPOOL_GC_ERRORS:
+            names = []
+        done = 0
+        for name in names:
+            p = os.path.join(self.spool_dir, os.path.basename(str(name)))
+            if os.path.exists(p):
+                try:
+                    os.unlink(p)
+                    done += 1
+                except OSError:
+                    pass
+        try:
+            os.unlink(manifest)
+        except OSError:
+            pass
+        fsync_dir(self.spool_dir)
+        return done
 
     def admit(self, doc_id: int, need: int) -> tuple[int, int]:
         """Make ``doc_id`` resident in the class covering ``need`` slots:
@@ -578,6 +705,7 @@ class DocPool:
             "warm_docs": len(self.warm),
             "warm_budget": self.warm.budget,
             "cold_docs": self.cold_docs,
+            "genesis_docs": self._n_genesis,
             "warm_hits": self.warm_hits,
             "warm_evictions": self.warm_evictions,
             "cold_restores": self.restores,

@@ -1,5 +1,5 @@
 """Predictive prefetch: the cold-to-warm rehydrate thread (the JAX
-package's ``serve/prefetch.py``, its spool kind).
+package's ``serve/prefetch.py``: its spool kind and its construct kind).
 
 The tiered ``DocPool`` (``serve/pool.py``) keeps a bounded host **warm**
 tier between the device rows (hot) and the compressed spool (cold).  A
@@ -8,15 +8,19 @@ read (inflate and CRC check) on the hot thread; this module moves that
 read off the drain.  The scheduler submits the cold docs at the front of
 its round-robin rotation, one worker thread loads their spools, and the
 rows come back through one publish point on a bounded queue, so by the
-time the scheduler selects such a doc it is a warm hit.
+time the scheduler selects such a doc it is a warm hit.  A streamed fleet
+(``serve/scheduler.py LazyStreams``) also submits **construct** requests:
+the tensorization of a genesis doc's stream the rotation is about to reach,
+built on the thread by a pure builder over the frozen ``FleetSpec``.
 
 Thread confinement:
 
-- a request is an immutable ``(kind, seq, doc_id, spool_path, gen)``
-  tuple holding all the load needs: the worker touches nothing the hot
-  thread owns (no pool, no stream, no bucket), and never torch or CUDA —
-  ``load_state`` is numpy and zlib, and a payload is a dict of a numpy
-  row and ints;
+- a request is an immutable ``("spool", seq, doc_id, spool_path, gen)``
+  or ``("construct", seq, doc_id, builder)`` tuple holding all the work
+  needs: the worker touches nothing the hot thread owns (no pool, no
+  stream, no bucket), and never torch or CUDA — ``load_state`` is numpy
+  and zlib, a builder is numpy tensorization (``build_stream_payload``),
+  and a payload is a dict of numpy arrays and ints;
 - loaded rows cross back only through :meth:`Prefetcher._publish`, a
   bounded ``put`` that counts its entries (``published_count``, written
   by the worker alone); the hot thread's :meth:`drain` is the reader gate
@@ -44,7 +48,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterable
+from typing import Callable, Iterable
 
 import numpy as np
 
@@ -58,10 +62,11 @@ DEFAULT_CAPACITY = 256
 
 class Prefetcher:
     """The cold-to-warm rehydrate worker (the module docstring has the
-    model).  Hot-thread surface: :meth:`submit`, :meth:`note_lost`,
-    :meth:`drain`, :meth:`start` and :meth:`stop` (none blocks, or each
-    wait is bounded).  Worker surface: :meth:`_run` and :meth:`_publish`.
-    Every counter but ``published_count`` belongs to the hot thread."""
+    model).  Hot-thread surface: :meth:`submit`, :meth:`submit_construct`,
+    :meth:`note_lost`, :meth:`drain`, :meth:`start` and :meth:`stop` (none
+    blocks, or each wait is bounded).  Worker surface: :meth:`_run` and
+    :meth:`_publish`.  Every counter but ``published_count`` belongs to the
+    hot thread."""
 
     def __init__(self, capacity: int = DEFAULT_CAPACITY):
         cap = max(4, int(capacity))
@@ -136,7 +141,19 @@ class Prefetcher:
         """Queue one cold-to-warm rehydrate.  A full queue refuses it
         (counted: the admission takes the synchronous read).  Returns the
         submission's sequence number (>= 1), or 0 when refused."""
-        item = ("spool", self._seq, int(doc_id), str(spool_path), int(gen))
+        return self._enqueue(
+            ("spool", self._seq, int(doc_id), str(spool_path), int(gen)))
+
+    def submit_construct(self, doc_id: int,
+                         builder: Callable[[], dict]) -> int:
+        """Queue one first-admission stream construction.  ``builder`` must
+        be pure (a ``functools.partial`` over immutable inputs): it runs on
+        the thread, and its dict comes back through :meth:`_publish` like
+        a rehydrate.  The same sequence and refusal contract as
+        :meth:`submit`."""
+        return self._enqueue(("construct", self._seq, int(doc_id), builder))
+
+    def _enqueue(self, item: tuple) -> int:
         try:
             self._req.put_nowait(item)
         except queue.Full:
@@ -173,29 +190,41 @@ class Prefetcher:
     # ---- the prefetch thread ----
 
     def _run(self) -> None:
-        """Worker loop: wait on the request queue, load the spool, publish
-        the result.  A damaged or vanished spool is not this thread's to
-        repair: the error rides back in the payload, and the hot thread's
-        synchronous admission reads the spool itself."""
+        """Worker loop: wait on the request queue, load the spool or build
+        the stream, publish the result.  A damaged or vanished spool, or a
+        builder that raised, is not this thread's to repair: the error
+        rides back in the payload, and the hot thread's synchronous path
+        reads the spool or materializes the stream itself."""
         while True:
             item = self._req.get()
             if item is None:
                 return
-            _, seq, doc_id, path, gen = item
-            try:
-                st = load_state(path)
-                payload = {
-                    "kind": "spool", "seq": seq, "doc": doc_id, "gen": gen,
-                    "row": np.asarray(st.doc[0], np.int32),
-                    "length": int(st.length[0]), "nvis": int(st.nvis[0]),
-                    "error": None,
-                }
-            except Exception as e:  # CRC damage, vanished file, ...
-                payload = {
-                    "kind": "spool", "seq": seq, "doc": doc_id, "gen": gen,
-                    "row": None, "length": 0, "nvis": 0,
-                    "error": f"{type(e).__name__}: {e}",
-                }
+            kind, seq, doc_id = item[:3]
+            if kind == "spool":
+                path, gen = item[3:]
+                try:
+                    st = load_state(path)
+                    payload = {
+                        "kind": "spool", "seq": seq, "doc": doc_id,
+                        "gen": gen, "row": np.asarray(st.doc[0], np.int32),
+                        "length": int(st.length[0]),
+                        "nvis": int(st.nvis[0]), "error": None,
+                    }
+                except Exception as e:  # CRC damage, vanished file, ...
+                    payload = {
+                        "kind": "spool", "seq": seq, "doc": doc_id,
+                        "gen": gen, "row": None, "length": 0, "nvis": 0,
+                        "error": f"{type(e).__name__}: {e}",
+                    }
+            else:  # construct: a genesis doc's tensorization, off the drain
+                try:
+                    payload = dict(item[3]())
+                    payload.update(kind="construct", seq=seq, doc=doc_id,
+                                   error=None)
+                except Exception as e:
+                    payload = {"kind": "construct", "seq": seq,
+                               "doc": doc_id,
+                               "error": f"{type(e).__name__}: {e}"}
             try:
                 self._publish(payload)
             except queue.Full:

@@ -23,6 +23,13 @@ same lanes, row placements, evictions, restores and promotions):
   recently scheduled — to the pool's checkpoint spool, or, with a warm
   tier, to the warm tier (whose overflow goes to the compressed spool);
 - **arrival**: each doc becomes active at its session's arrival round;
+- **streaming construction** (``streams`` a :class:`LazyStreams`): the
+  rotation is fed from the spec's arrival order as rounds reach each doc,
+  and nothing exists for a doc (no session, stream or pool record: genesis
+  residency) until it is first selected or a construct prefetch built its
+  stream off the drain; a journal-less drain releases a drained doc's op
+  arrays, and ``drained_gc`` reclaims its pool record and spool members in
+  batches at the boundary (``DocPool.gc_drained_docs``);
 - **prefetch** (warm tier with a prefetcher): after each round's moves
   the cold docs at the front of the rotation are submitted to the
   prefetch thread, and the loaded rows are adopted into the warm tier at
@@ -64,6 +71,7 @@ import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
+from functools import partial
 
 import numpy as np
 
@@ -175,6 +183,25 @@ def _tensorize_trace(trace, batch_chars: int, max_class: int) -> tuple:
     return arrays, ins_cum, unit_cum, rt
 
 
+def build_stream_payload(spec, doc_id: int, batch_chars: int,
+                         max_class: int) -> dict:
+    """One doc's session and tensorized stream as a dict of numpy arrays
+    and ints: the construct payload.  Pure: everything derives from the
+    frozen ``FleetSpec`` and the scalars, so the prefetch thread can run it
+    (``Prefetcher.submit_construct``).  Array keys carry an ``_a`` suffix,
+    clear of the payload envelope's ``kind``."""
+    s = spec.session(doc_id)
+    (kind, pos, rlen, slot0), ins_cum, unit_cum, rt = _tensorize_trace(
+        s.trace, batch_chars, max_class)
+    return {
+        "kind_a": kind, "pos_a": pos, "rlen_a": rlen, "slot0_a": slot0,
+        "ins_cum": ins_cum, "unit_cum": unit_cum,
+        "n_patches": rt.n_patches, "n_init": len(rt.init_chars),
+        "capacity": rt.capacity, "chars": rt.chars,
+        "arrival": s.arrival, "burst": s.burst,
+    }
+
+
 def prepare_streams(sessions, pool: DocPool, batch: int = 64,
                     batch_chars: int = 256) -> dict[int, DocStream]:
     """Tensorize every session's trace, register the docs with the pool
@@ -198,6 +225,153 @@ def prepare_streams(sessions, pool: DocPool, batch: int = 64,
             arrival=s.arrival, burst=s.burst,
         )
     return streams
+
+
+#: The arrays of a released stream: a drained doc's DocStream keeps its
+#: identity (the victim picker and the fault paths index it) and drops its
+#: op arrays for these shared empty ones.
+_EMPTY_I32 = np.zeros(0, np.int32)
+
+
+class LazyStreams:
+    """The op queues of a fleet as a mapping over a ``FleetSpec``, each
+    stream materialized on first touch: streaming construction.  A doc
+    has nothing (no session, trace, stream or pool record: genesis) until
+    then, so construction and host memory scale with the active set.
+
+    The scheduler's mapping surface: ``[]`` (materializes), ``get`` (does
+    not), ``in``, ``len`` and ``keys`` over the whole fleet; ``values()``
+    and ``items()`` over the live (materialized) streams only.  A stream
+    is built on the hot thread (:meth:`__getitem__`), or on the prefetch
+    thread (:meth:`builder`) and installed by :meth:`adopt`;
+    :meth:`release` swaps a drained stream's arrays for shared empty ones.
+    The stream machine's lifecycle points and fences are left out
+    (``ROADMAP.md`` Queue 1 item 7)."""
+
+    def __init__(self, spec, pool: DocPool, batch: int = 64,
+                 batch_chars: int = 256):
+        self.spec = spec
+        self.pool = pool
+        self.batch = batch
+        self.batch_chars = batch_chars
+        self.bounded = False  # a bounded queue: delivered = cursor at birth
+        self._live: dict[int, DocStream] = {}
+        self._tcache: dict = {}  # (band, trace name) -> tensorized
+        self.materialized = 0
+        self.released = 0
+        self.prefetch_built = 0  # streams adopted from the thread
+        self.patches_total = 0  # n_patches over the materialized docs
+        pool.set_genesis_population(spec.n_docs)
+
+    # ---- the mapping surface ----
+
+    def __len__(self) -> int:
+        return self.spec.n_docs
+
+    def __contains__(self, doc_id) -> bool:
+        return 0 <= int(doc_id) < self.spec.n_docs
+
+    def keys(self):
+        return range(self.spec.n_docs)
+
+    def values(self):
+        """The live streams (materialized, released stubs included)."""
+        return self._live.values()
+
+    def items(self):
+        return self._live.items()
+
+    def get(self, doc_id, default=None):
+        """The live stream, or ``default``; never materializes."""
+        if doc_id is None:
+            return default
+        return self._live.get(int(doc_id), default)
+
+    def __getitem__(self, doc_id: int) -> DocStream:
+        st = self._live.get(doc_id)
+        if st is None:
+            st = self._materialize(self.spec.session(doc_id))
+        return st
+
+    # ---- materialization ----
+
+    def _install(self, st: DocStream, n_init: int, capacity: int,
+                 chars) -> DocStream:
+        self.pool.register(st.doc_id, n_init=n_init, capacity_need=capacity,
+                           chars=chars)
+        if self.bounded and st.delivered is None:
+            st.delivered = st.cursor
+        self._live[st.doc_id] = st
+        self.materialized += 1
+        self.patches_total += st.n_patches
+        return st
+
+    def _materialize(self, s) -> DocStream:
+        # a trace band's docs share one lru-cached window, so its
+        # tensorization is cached by (band, trace); synth traces are one
+        # a doc and transient, so they are never cached (an id(trace) key
+        # would be poisoned once a freed trace's id is recycled)
+        if s.source == "synth":
+            hit = _tensorize_trace(s.trace, self.batch_chars,
+                                   max(self.pool.classes))
+        else:
+            key = (s.band, s.source)
+            hit = self._tcache.get(key)
+            if hit is None:
+                hit = self._tcache[key] = _tensorize_trace(
+                    s.trace, self.batch_chars, max(self.pool.classes))
+        (kind, pos, rlen, slot0), ins_cum, unit_cum, rt = hit
+        return self._install(
+            DocStream(doc_id=s.doc_id, kind=kind, pos=pos, rlen=rlen,
+                      slot0=slot0, ins_cum=ins_cum, unit_cum=unit_cum,
+                      n_patches=rt.n_patches, arrival=s.arrival,
+                      burst=s.burst),
+            n_init=len(rt.init_chars), capacity=rt.capacity, chars=rt.chars)
+
+    def builder(self, doc_id: int):
+        """The construct callable for the prefetch thread: a ``partial``
+        over :func:`build_stream_payload` and immutable inputs (never a
+        closure over this object)."""
+        return partial(build_stream_payload, self.spec, int(doc_id),
+                       self.batch_chars, max(self.pool.classes))
+
+    def adopt(self, doc_id: int, payload: dict) -> bool:
+        """Install a stream the thread built.  False when superseded: the
+        doc materialized on the hot thread while the build ran."""
+        if doc_id in self._live:
+            return False
+        self._install(
+            DocStream(doc_id=doc_id, kind=payload["kind_a"],
+                      pos=payload["pos_a"], rlen=payload["rlen_a"],
+                      slot0=payload["slot0_a"], ins_cum=payload["ins_cum"],
+                      unit_cum=payload["unit_cum"],
+                      n_patches=payload["n_patches"],
+                      arrival=payload["arrival"], burst=payload["burst"]),
+            n_init=payload["n_init"], capacity=payload["capacity"],
+            chars=payload["chars"])
+        self.prefetch_built += 1
+        return True
+
+    def release(self, doc_id: int) -> None:
+        """Drop a drained doc's op arrays, keeping the stream object.
+        Idempotent; a doc never materialized is left alone."""
+        st = self._live.get(doc_id)
+        if st is None or st.kind is _EMPTY_I32:
+            return
+        st.kind = st.pos = st.rlen = st.slot0 = _EMPTY_I32
+        st.ins_cum = st.unit_cum = _EMPTY_I32
+        st.cursor = 0
+        st.limit = None
+        if st.delivered is not None:
+            st.delivered = 0
+        self.released += 1
+
+    @property
+    def all_done(self) -> bool:
+        """Every doc materialized at least once, and every live one
+        drained."""
+        return (self.materialized >= self.spec.n_docs
+                and all(s.remaining == 0 for s in self._live.values()))
 
 
 #: Host phases of a macro-round, timed by the host clock; a pool with a
@@ -316,7 +490,8 @@ class FleetScheduler:
                  faults=None, journal=None, snapshot_every: int = 0,
                  snapshot_keep: int = 2, snapshot_full_every: int = 4,
                  degrade_after: int = 3, degrade_window: int = 8,
-                 degrade_rounds: int = 4, start_round: int = 0):
+                 degrade_rounds: int = 4, start_round: int = 0,
+                 drained_gc: bool = False, gc_keep=None):
         if overflow_policy not in ("defer", "shed"):
             raise ValueError(f"unknown overflow policy {overflow_policy!r}")
         self.pool = pool
@@ -348,16 +523,41 @@ class FleetScheduler:
         self._dead_lanes: set[int] = set()  # quarantined mid-round
         self._bp_round = False  # a delivery was refused this round
         self._n_rounds = 0  # macro-rounds advanced by this scheduler
-        # FIFO of doc ids not yet arrived or with pending ops, in arrival
-        # order (stable for determinism)
-        self._rr: deque[int] = deque(sorted(
-            streams, key=lambda d: (streams[d].arrival, d)))
-        if self.queue_cap > 0:
-            for st in streams.values():
-                if st.delivered is None:
-                    st.delivered = st.cursor
-        self.stats = ServeStats(
-            patches=sum(s.n_patches for s in streams.values()))
+        self._lazy = isinstance(streams, LazyStreams)
+        if self._lazy:
+            # streaming construction: the rotation is fed from the
+            # arrival-sorted order as rounds reach each doc's arrival
+            streams.bounded = self.queue_cap > 0
+            arr = streams.spec.arrivals.astype(np.int64)
+            self._order = np.argsort(arr, kind="stable")
+            self._order_arrivals = arr[self._order]
+            self._order_ptr = 0
+            self._rr: deque[int] = deque()  # arrived ids with pending ops
+            # the patch total is known once every doc materialized: run()
+            # fills it in at the drain's end
+            self.stats = ServeStats(patches=0)
+        else:
+            # FIFO of doc ids not yet arrived or with pending ops, in
+            # arrival order (stable for determinism)
+            self._rr = deque(sorted(
+                streams, key=lambda d: (streams[d].arrival, d)))
+            if self.queue_cap > 0:
+                for st in streams.values():
+                    if st.delivered is None:
+                        st.delivered = st.cursor
+            self.stats = ServeStats(
+                patches=sum(s.n_patches for s in streams.values()))
+        # drained-doc record eviction (two-phase spool GC): journal-less
+        # drains only, since recovery reads snapshot members in the spool
+        if drained_gc and journal is not None:
+            raise ValueError(
+                "drained-doc GC requires a journal-less drain "
+                "(recovery re-adopts spool members)"
+            )
+        self.drained_gc = drained_gc
+        self._gc_keep = set(gc_keep or ())
+        self._gc_queue: list[int] = []
+        self.spool_gc_docs = 0  # records and members reclaimed so far
         # predictive prefetch (a pool with a prefetcher): doc ->
         # (submit round, seq) of the reads in flight, so reads whose
         # results never arrive are reaped by seq
@@ -447,6 +647,28 @@ class FleetScheduler:
             c = e
         return takes, c
 
+    def _note_doc_drained(self, st: DocStream) -> None:
+        """One doc's stream ended (drained, shed empty or quarantined).  A
+        streamed, journal-less drain releases its op arrays (nothing
+        replays them); with ``drained_gc`` the doc is queued for the next
+        boundary's record eviction (:meth:`_flush_drained_gc`).  The
+        request trace's close and the per-cause latency are left out
+        (``ROADMAP.md`` Queue 1 item 6.6)."""
+        if self._lazy and self.journal is None:
+            self.streams.release(st.doc_id)
+        if self.drained_gc and st.doc_id not in self._gc_keep:
+            self._gc_queue.append(st.doc_id)
+
+    def _flush_drained_gc(self, force: bool = False) -> None:
+        """Reclaim the queued drained docs in batches of 32 (the manifest's
+        fsyncs amortized); the flush at the drain's end is forced."""
+        if not self.drained_gc or not self._gc_queue:
+            return
+        if not force and len(self._gc_queue) < 32:
+            return
+        batch, self._gc_queue = self._gc_queue, []
+        self.spool_gc_docs += self.pool.gc_drained_docs(batch)
+
     def _select(self, plan: _Plan) -> None:
         """Pick this macro-round's lanes {class: [_Lane]}, bounded by each
         bucket's rows, in round-robin order.  Once every class is full no
@@ -462,6 +684,7 @@ class FleetScheduler:
             st = self.streams[doc_id]
             self._deliver(st)
             if st.remaining == 0:
+                self._note_doc_drained(st)
                 continue  # drained or shed: out of the rotation for good
             if st.arrival > self.round:
                 deferred.append(doc_id)
@@ -645,16 +868,35 @@ class FleetScheduler:
         while True:
             self._k_round = self.effective_k
             self._planned_degraded = self._degrade_left > 0
+            self._feed_rotation()
             plan = _Plan(base_round=self.round)
             self._select(plan)
             if plan.lanes:
                 self._place(plan)
                 return plan
+            if self._lazy:
+                # the docs not arrived are the unfed tail of the order
+                if self._order_ptr >= len(self._order):
+                    return None
+                self.round = int(self._order_arrivals[self._order_ptr])
+                continue
             pending = [s.arrival for s in self.streams.values()
                        if s.remaining and s.arrival > self.round]
             if not pending:
                 return None
             self.round = min(pending)
+
+    def _feed_rotation(self) -> None:
+        """Streaming construction: every doc whose arrival round has come
+        joins the rotation (its id only; it materializes when first
+        selected, or a construct prefetch builds it)."""
+        if not self._lazy:
+            return
+        n, p = len(self._order), self._order_ptr
+        while p < n and self._order_arrivals[p] <= self.round:
+            self._rr.append(int(self._order[p]))
+            p += 1
+        self._order_ptr = p
 
     # ---- staging (host; overlaps the device's work) ----
 
@@ -734,6 +976,8 @@ class FleetScheduler:
                 if self.journal:
                     self.journal.event("shed", r=self.round, doc=doc,
                                        at=keep, ops=shed)
+                if st.remaining == 0:
+                    self._note_doc_drained(st)  # the shed ended the stream
         else:
             # defer: the queue refuses the burst, the producer holds it
             ev.detail["deferred"] = self._push_delivery(st, want)
@@ -805,6 +1049,7 @@ class FleetScheduler:
         self.pool._set_spool(rec, None)
         self.pool.warm.take(doc_id)  # a quarantined doc holds no tier
         self._dead_lanes.add(doc_id)
+        self._note_doc_drained(st)
         self.stats.quarantines.append({"doc": doc_id, "round": self.round,
                                        "reason": reason, "shed_ops": shed})
         if self.journal:
@@ -1027,14 +1272,17 @@ class FleetScheduler:
                 nvis_w[row] = nv
             pool.upload_bucket(cls, doc_w, len_w, nvis_w,
                                dirty_rows=[row for _d, row, _s in items])
+        # the drained docs' record eviction rides the same boundary
+        self._flush_drained_gc()
 
     # ---- predictive prefetch (never blocks the hot thread) ----
 
     def _harvest_prefetch(self) -> None:
-        """Adopt the completed reads into the warm tier (start of a round,
-        before its plan).  A payload with an error is left to the
-        synchronous admission, which reads the spool itself; a stale or
-        superseded one is counted and dropped."""
+        """Adopt the completed reads into the warm tier and the built
+        streams into the lazy view (start of a round, before its plan).  A
+        payload with an error is left to the synchronous path, which reads
+        the spool or materializes the stream itself; a stale or superseded
+        one is counted and dropped."""
         pf = self.pool.prefetcher
         if pf is None:
             return
@@ -1042,6 +1290,12 @@ class FleetScheduler:
             doc_id = payload["doc"]
             self._prefetch_inflight.pop(doc_id, None)
             if payload["error"] is not None:
+                continue
+            if payload["kind"] == "construct":
+                # a stream built off the drain: installed unless the doc
+                # materialized on the hot thread while it was built
+                if not self.streams.adopt(doc_id, payload):
+                    self.prefetch_wasted += 1
                 continue
             if not self.pool.store_prefetched(
                     doc_id, payload["row"], payload["length"],
@@ -1053,7 +1307,10 @@ class FleetScheduler:
         """Submit the cold docs the next rounds will admit: the front of
         the rotation (after ``_select`` it is the next round's admission
         order), those arriving within the next macro-round, up to the
-        lookahead, the warm budget and the worker's queue depth."""
+        lookahead, the warm budget and the worker's queue depth.  A
+        streamed fleet also submits construct requests for the genesis
+        docs in the fed rotation and, past it, those arriving within the
+        horizon."""
         pf = self.pool.prefetcher
         if pf is None:
             return
@@ -1070,20 +1327,46 @@ class FleetScheduler:
             pf.note_lost([seq for _, seq in stale])
         space = (min(self._prefetch_lookahead, pool.warm.budget, pf.capacity)
                  - len(self._prefetch_inflight))
-        wanted: list[tuple[int, str, int]] = []
-        for scanned, doc_id in enumerate(self._rr, 1):
+        # ("spool", doc, path, gen): a cold read; ("construct", doc): a
+        # genesis doc's stream built off the drain (streamed fleets only)
+        wanted: list[tuple] = []
+        scanned = 0
+        for doc_id in self._rr:
+            scanned += 1
             if scanned > self._prefetch_lookahead or len(wanted) >= space:
                 break
             if doc_id in self._prefetch_inflight:
                 continue
-            rec = pool.docs[doc_id]
+            rec = pool.docs.get(doc_id)
+            if rec is None:
+                # a genesis doc already fed (arrived, so within the horizon);
+                # in an eager fleet, a drained doc whose record was evicted
+                # (JAX's drain raises KeyError here)
+                if self._lazy:
+                    wanted.append(("construct", doc_id))
+                continue
             if (rec.spool is None or rec.cls is not None
                     or doc_id in pool.warm):
                 continue
             st = self.streams[doc_id]
             if st.remaining == 0 or st.arrival > horizon:
                 continue
-            wanted.append((doc_id, rec.spool, pool.spool_gen(doc_id)))
+            wanted.append(("spool", doc_id, rec.spool,
+                           pool.spool_gen(doc_id)))
+        if self._lazy:
+            # past the fed rotation: genesis docs arriving within the
+            # horizon get their streams built before their feed
+            p, n = self._order_ptr, len(self._order)
+            while (p < n and len(wanted) < space
+                   and scanned <= self._prefetch_lookahead):
+                if self._order_arrivals[p] > horizon:
+                    break
+                d = int(self._order[p])
+                p += 1
+                scanned += 1
+                if d in self._prefetch_inflight or d in pool.docs:
+                    continue
+                wanted.append(("construct", d))
         if wanted and self.faults is not None:
             ev = self.faults.prefetch_miss_event(self.round)
             if ev is not None:
@@ -1095,8 +1378,13 @@ class FleetScheduler:
                 ev.recover()  # the synchronous fallback is the recovery
                 self._note_fault()
                 return
-        for doc_id, path, gen in wanted:
-            seq = pf.submit(doc_id, path, gen)
+        for item in wanted:
+            doc_id = item[1]
+            if item[0] == "spool":
+                seq = pf.submit(doc_id, item[2], item[3])
+            else:
+                seq = pf.submit_construct(doc_id,
+                                          self.streams.builder(doc_id))
             if seq:
                 self._prefetch_inflight[doc_id] = (self.round, seq)
 
@@ -1132,6 +1420,8 @@ class FleetScheduler:
                 st.cursor = lane.end
                 rec.length = rec.n_init + st.ins_before(lane.end)
                 rec.last_sched = plan.base_round
+                if st.remaining == 0:
+                    self._note_doc_drained(st)
         self._dead_lanes.clear()
         if self._planned_degraded:
             self.stats.degraded_rounds += 1
@@ -1323,6 +1613,7 @@ class FleetScheduler:
         self.pool.block()
         if self.stats.round_latencies:
             self.stats.round_latencies[-1] += time.perf_counter() - t1
+        self._flush_drained_gc(force=True)
         if self.faults is not None and self.done:
             # only a completed drain sweeps its faults: an interrupted one
             # (a crash round) leaves the repair to the journal's recovery
@@ -1331,8 +1622,14 @@ class FleetScheduler:
         self.stats.evictions = self.pool.evictions
         self.stats.restores = self.pool.restores
         self.stats.promotions = self.pool.promotions
+        if self._lazy:
+            # the patch total is known once the docs materialized: at the
+            # drain's end the lazy tally is the eager sum
+            self.stats.patches = self.streams.patches_total
         return self.stats
 
     @property
     def done(self) -> bool:
+        if self._lazy:
+            return self.streams.all_done
         return all(s.remaining == 0 for s in self.streams.values())

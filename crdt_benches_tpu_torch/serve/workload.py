@@ -154,7 +154,9 @@ class FleetSpec:
     """The fleet as arithmetic: doc ``i``'s band and arrival come from
     per-doc arrays drawn up front, its synth stream from a generator seeded
     ``(seed, doc_id)``, and its trace window from the running count of
-    trace-band docs before it."""
+    trace-band docs before it.  Frozen, with read-only arrays: a streamed
+    fleet hands the spec to the prefetch thread inside its construct
+    builders."""
 
     n_docs: int
     seed: int
@@ -201,14 +203,16 @@ class FleetSpec:
         trace_ord = np.zeros(n_docs, np.int64)
         if n_docs:
             np.cumsum(is_trace[:-1], out=trace_ord[1:])
+        band_of = np.ascontiguousarray(band_of, np.int16)
+        arrivals = np.ascontiguousarray(arrivals, np.int32)
+        trace_ord = np.ascontiguousarray(trace_ord, np.int32)
+        for a in (band_of, arrivals, trace_ord):
+            a.flags.writeable = False
         return FleetSpec(
             n_docs=int(n_docs), seed=int(seed),
             horizon=max(1, int(horizon)), delivery=delivery,
-            names=tuple(names),
-            table=dict(table),
-            band_of=np.ascontiguousarray(band_of, np.int16),
-            arrivals=np.ascontiguousarray(arrivals, np.int32),
-            trace_ord=np.ascontiguousarray(trace_ord, np.int32),
+            names=tuple(names), table=dict(table),
+            band_of=band_of, arrivals=arrivals, trace_ord=trace_ord,
         )
 
     def session(self, doc_id: int) -> Session:

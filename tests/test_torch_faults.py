@@ -343,7 +343,7 @@ def test_bench_chaos_artifact_and_gates(tmp_path):
 
 def test_device_loss_under_tiered_pool_rebuilds_all_tiers(tmp_path):
     """JAX's tiered device-loss test on an eager fleet of the same spec
-    (``LazyStreams`` is not ported): the warm tier is host memory the
+    (its lazy fleet is the next test's): the warm tier is host memory the
     loss cannot touch, and every lost hot row rebuilds at its cursor."""
     d = drain_pair(tmp_path, [("device_loss", 3)], 5,
                    fleet=dict(n_docs=8, mix=TINY_MIX, seed=9,
@@ -357,6 +357,60 @@ def test_device_loss_under_tiered_pool_rebuilds_all_tiers(tmp_path):
     ts = p["pool"].tier_status()
     assert ts["warm_evictions"] + ts["warm_hits"] + len(p["pool"].warm) > 0
     close(d)
+
+
+def test_device_loss_under_tiered_lazy_fleet_rebuilds_all_tiers(tmp_path):
+    """JAX's tiered device-loss test as it runs, on a lazy fleet
+    (``LazyStreams``): a doc still in genesis has no device state to lose,
+    every lost hot row rebuilds at its cursor, and the drain equals JAX's
+    in its event, counters, records, buckets and bytes."""
+    from crdt_benches_tpu.serve.scheduler import LazyStreams as JaxLazy
+    from crdt_benches_tpu.serve.workload import FleetSpec as JaxSpec
+    from crdt_benches_tpu_torch.serve.scheduler import LazyStreams
+    from crdt_benches_tpu_torch.serve.workload import FleetSpec
+
+    out = {}
+    for side, fmod, Spec, Pool, Lazy, Sched in (
+            ("jax", jf, JaxSpec, JaxPool, JaxLazy, JaxScheduler),
+            ("port", pf, FleetSpec, DocPool, LazyStreams, FleetScheduler)):
+        spec = Spec.build(8, mix=TINY_MIX, seed=9, arrival_span=3,
+                          bands=TINY_BANDS)
+        pkw = dict(device="cpu") if side == "port" else {}
+        pool = Pool(classes=(128,), slots=(2,), warm_docs=4, prefetch=False,
+                    spool_dir=str(tmp_path / f"{side}_sp"), **pkw)
+        streams = Lazy(spec, pool, batch=8, batch_chars=32)
+        plan = _plan(fmod, [("device_loss", 3)], 5)
+        sched = Sched(pool, streams, batch=8, macro_k=4, batch_chars=32,
+                      faults=fmod.FaultInjector(plan))
+        assert pool.genesis_docs == 8  # a lazy fleet is born all genesis
+        stats = sched.run()
+        out[side] = dict(spec=spec, pool=pool, streams=streams, sched=sched,
+                         stats=stats, plan=plan)
+    j, p = out["jax"], out["port"]
+    assert p["plan"].summary() == j["plan"].summary()
+    for f in STATS:
+        assert getattr(p["stats"], f) == getattr(j["stats"], f), f
+    for f in POOL + ("genesis_docs",):
+        assert getattr(p["pool"], f) == getattr(j["pool"], f), f
+    for f in ("materialized", "released", "prefetch_built"):
+        assert getattr(p["streams"], f) == getattr(j["streams"], f), f
+    assert p["pool"].buckets[128].rows == j["pool"].buckets[128].rows
+    for a, b in zip(p["pool"].pull_bucket(128), j["pool"].pull_bucket(128)):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    sched, pool = p["sched"], p["pool"]
+    assert sched.done and p["streams"].all_done
+    (ev,) = p["plan"].events
+    assert ev.fired and ev.recovered and ev.detail["docs"] >= 1
+    assert sched.stats.recoveries >= 1
+    ts = pool.tier_status()
+    assert ts["genesis_docs"] == 0  # every doc materialized after the loss
+    assert ts["warm_evictions"] + ts["warm_hits"] + len(pool.warm) > 0
+    for d in range(8):
+        got = pool.decode(d)
+        assert got == j["pool"].decode(d), d
+        assert got == replay_trace(p["spec"].session(d).trace), d
+    for side in out.values():
+        side["pool"].close()
 
 
 class _Launches:
@@ -571,3 +625,45 @@ def test_readme_chaos_cell_equals_jax(tmp_path):
     assert all(e.recovered for e in p["plan"].events)
     assert not p["stats"].quarantines and p["stats"].degraded_rounds == 4
     close(d)
+
+
+def test_device_loss_after_a_release_equals_jax(tmp_path):
+    """A device loss on a lazy, journal-less fleet after some resident docs
+    drained: their streams were released (cursor 0, no ops), so the
+    rebuild puts back their initial text.  The JAX package does the same
+    (``ROADMAP.md`` Queue 3 records it as a reference fault); the port
+    equals it byte for byte, and the other docs equal the oracle."""
+    from crdt_benches_tpu.serve.scheduler import LazyStreams as JaxLazy
+    from crdt_benches_tpu.serve.workload import FleetSpec as JaxSpec
+    from crdt_benches_tpu_torch.serve.scheduler import LazyStreams
+    from crdt_benches_tpu_torch.serve.workload import FleetSpec
+
+    out = {}
+    for side, fmod, Spec, Pool, Lazy, Sched in (
+            ("jax", jf, JaxSpec, JaxPool, JaxLazy, JaxScheduler),
+            ("port", pf, FleetSpec, DocPool, LazyStreams, FleetScheduler)):
+        spec = Spec.build(8, mix=TINY_MIX, seed=9, arrival_span=12,
+                          bands=TINY_BANDS)
+        pkw = dict(device="cpu") if side == "port" else {}
+        pool = Pool(classes=(128,), slots=(8,), prefetch=False,
+                    spool_dir=str(tmp_path / f"{side}_sp"), **pkw)
+        plan = _plan(fmod, [("device_loss", 12)], 5)
+        sched = Sched(pool, Lazy(spec, pool, batch=8, batch_chars=32),
+                      batch=8, macro_k=4, batch_chars=32,
+                      faults=fmod.FaultInjector(plan))
+        sched.run()
+        out[side] = (spec, pool, plan, sched)
+    (spec, pool, plan, sched), (_, jpool, jplan, _) = out["port"], out["jax"]
+    assert plan.summary() == jplan.summary()
+    assert plan.events[0].detail["docs"] == 8
+    lost = []
+    for d in range(8):
+        got = pool.decode(d)
+        assert got == jpool.decode(d), d
+        if got != replay_trace(spec.session(d).trace):
+            lost.append(d)
+            assert got == spec.session(d).trace.start_content, d
+    assert lost == [0, 1, 7]  # drained and released before the loss
+    assert sched.streams.released == 8
+    for p in (pool, jpool):
+        p.close()

@@ -11,6 +11,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -60,6 +61,7 @@ from crdt_benches_tpu_torch.ops.apply2 import (
 from crdt_benches_tpu_torch.parallel.launch import run_ranks
 from crdt_benches_tpu_torch.parallel.mesh import device_memory_stats
 from crdt_benches_tpu_torch.serve.bench import run_serve_bench
+from crdt_benches_tpu_torch.serve.construction import probe
 from crdt_benches_tpu_torch.serve.journal import rebuild_doc
 from crdt_benches_tpu_torch.serve.pool import DocPool
 from crdt_benches_tpu_torch.traces.tensorize import (
@@ -113,7 +115,7 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "bench.harness", "backends.reconcile", "backends.base",
                 "backends.native", "entry", "parallel.mesh",
                 "parallel.launch", "engine.merge_fleet", "serve.journal",
-                "utils.fsdur", "serve.faults"):
+                "utils.fsdur", "serve.faults", "serve.construction"):
         assert os.path.exists(os.path.join(
             REPO, "crdt_benches_tpu_torch", *mod.split(".")) + ".py"), mod
 
@@ -179,9 +181,62 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: run_serve_bench(n_docs=2, faults="stall=1"),
         lambda: run_serve_bench(n_docs=2, queue_cap=8,
                                 overflow_policy="shed"),
+        lambda: run_serve_bench(n_docs=2, stream=True, record_evict=True),
+        lambda: probe(2),
+        lambda: probe(2, stream=False),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_construct_worker_runs_no_torch(tmp_path):
+    """The prefetch thread's construct path (``LazyStreams.builder`` ->
+    ``build_stream_payload``: a session from the spec, numpy tensorization
+    and lane packing) calls no function of torch: every Python frame the
+    thread enters is profiled, and none belongs to a torch module."""
+    import threading
+
+    from crdt_benches_tpu_torch.serve.prefetch import Prefetcher
+    from crdt_benches_tpu_torch.serve.scheduler import LazyStreams
+    from crdt_benches_tpu_torch.serve.workload import FleetSpec
+
+    spec = FleetSpec.build(3, mix={"synth-small": 0.5, "trace-small": 0.5},
+                           seed=2, arrival_span=2)
+    pool = DocPool(classes=(256, 1024), slots=(2, 2), device="cpu",
+                   spool_dir=str(tmp_path / "sp"))
+    streams = LazyStreams(spec, pool, batch=16, batch_chars=64)
+    seen: set[str] = set()
+
+    def prof(frame, event, arg):
+        if event in ("call", "c_call"):
+            mod = (frame.f_globals.get("__name__") or "") if event == "call" \
+                else (getattr(arg, "__module__", None) or "")
+            seen.add(mod)
+        return prof
+
+    pf = Prefetcher(capacity=4)
+    threading.setprofile(prof)
+    try:
+        pf.start()
+    finally:
+        threading.setprofile(None)
+    try:
+        for d in range(3):
+            assert pf.submit_construct(d, streams.builder(d))
+        got = []
+        deadline = time.monotonic() + 60
+        while len(got) < 3:
+            assert time.monotonic() < deadline
+            got.extend(pf.drain())
+            time.sleep(0.01)
+    finally:
+        pf.stop()
+        pool.close()
+    assert all(p["error"] is None for p in got)
+    assert "crdt_benches_tpu_torch.serve.scheduler" in seen
+    assert "crdt_benches_tpu_torch.ops.packing" in seen
+    torchy = sorted(m for m in seen if m == "torch" or m.startswith("torch."))
+    assert torchy == []
 
 
 def test_journal_moves_no_state_to_the_cpu():
