@@ -6,6 +6,7 @@ their plain PyTorch versions.
 ``--tier-only`` runs the device, build and three-tier phases alone,
 ``--chaos-only`` the device, build and fault phases alone,
 ``--stream-only`` the device, build and streaming phases alone,
+``--telemetry-only`` the device, build and telemetry phases alone,
 ``--tier-full`` drains the README's 65,536-document tier cell in ``[serve
 tier]`` in place of its cut, ``--stream-full`` the README's
 262,144-document streamed cell in ``[serve stream]`` (and adds eager rows
@@ -16,14 +17,14 @@ Phases (one line each; any failure exits non-zero):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile ``crdt_benches_tpu_torch/csrc/*.cu`` (nvcc, sm_90a);
-3. K1 (range resolver) against ``resolve_range_plain``: every fourth batch
+3. K1 (range resolver) against ``resolve_range_plain``: every eighth batch
    of sveltecomponent and automerge-paper at 8 replicas, one sveltecomponent
    batch with the token list capped below its demand, one
    automerge-paper batch at 1024 replicas, and the worst cases (inserts
    at 0, deletes at 0 past the end of a short document, inserts at
    alternating ends, scattered inserts under one spanning delete, a PAD
-   tail, automerge-paper batch 3) at 1 and 5 replicas (the last two also
-   at 1024), timed at 1024 — all eight outputs equal;
+   tail, automerge-paper batch 3) at 1 and 5 replicas (the spanning
+   delete also at 1024), timed at 1024 — all eight outputs equal;
    Then K4 (the serve macro apply) against ``serve_macro_plain`` on its
    worst cases (inserts at 0 in every round, one delete spanning the row,
    rows ending exactly at capacity, one row, C = 1152, and a capacity past
@@ -169,7 +170,7 @@ Phases (one line each; any failure exits non-zero):
     dropped prefetch batch on a tiered fleet; then streaming construction
     (``stream_phases``): ``[serve stream]``, the README's streamed cell
     (serve/tier/mixed/262144, zipf arrivals over 32 rounds, a fleet 256
-    times its device rows, a warm tier 16 times them) cut to 4,096 docs at
+    times its device rows, a warm tier 16 times them) cut to 2,048 docs at
     ``hot=16,warm=256``, built lazily through ``run_serve_bench(stream=
     True)`` with the prefetcher: K1's per-row form and K4 once per
     dispatch, every doc materialized, some by the prefetch thread, none
@@ -181,10 +182,20 @@ Phases (one line each; any failure exits non-zero):
     eviction: records reclaimed, the records left within the hot rows, the
     warm budget and one GC batch, each surviving document byte-identical;
     ``[serve construction]``, the construction probe's table on the card
-    (stream rows at 4,096, 65,536 and 1,048,576 docs, an eager row at
+    (stream rows at 4,096 and 1,048,576 docs, an eager row at
     4,096), a fresh process a cell, no error row; ``[serve stream
     trickle]``, 512 docs arriving one a macro-round, where the prefetch
-    thread must build streams;
+    thread must build streams; and the telemetry (``telemetry_phases``,
+    run right after ``[serve]``): ``[serve telemetry]``, the cell drained
+    again with the tracer, the time-series, the status server (scraped
+    mid-run by a thread), request tracing, an SLO and the flight recorder
+    armed, equal to ``[serve]``'s drain in every counter and launch, every
+    document verified, the trace valid, the windows covering every round,
+    the flight recorder quiet; ``[serve telemetry kernels]`` its kept
+    operands through K1's per-row form and K4 against their plain
+    versions; ``[serve telemetry chaos]``, a stall against a 250 ms
+    watchdog (fired and cleared, a valid flight dump); ``[serve soak]``,
+    10 s of re-seeded drains under the anomaly detectors, none firing;
 15. the concurrent merges (``bench/merge.py``, ``--group merge``):
     merge/traces (rustcode and seph-blog1, 1,348,053 delivered ops)
     through the unit, run and flat engines at 64 replicas and through the
@@ -363,7 +374,7 @@ def kernel_row(name, cu, replaces, launches, err, ms, plain_ms, bound,
     }
 
 
-def serve_phases(dev, bound) -> tuple[float, list[dict]]:
+def serve_phases(dev, bound) -> tuple[float, list[dict], tuple]:
     """The serving fleet's fused macro step on ``SERVE_CELL``.
 
     ``[k1 rows]``/``[k4]``: one drain in which every dispatch's per-row
@@ -378,7 +389,8 @@ def serve_phases(dev, bound) -> tuple[float, list[dict]]:
     CUDA-event stage spans; a third drain
     under the profiler gives the device's idle share.  ``bound(bytes,
     ops)`` gives (ms, "bytes" or "operations").  Returns the timed drain's
-    patches/s and the kernels' rows of the ``kernels`` line."""
+    patches/s, the kernels' rows of the ``kernels`` line and the timed
+    drain's report and launches (``[serve telemetry]``'s reference)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -738,7 +750,7 @@ def serve_phases(dev, bound) -> tuple[float, list[dict]]:
                    f"({widest[top]}, {top}))", "serve_macro.cu",
                    "serve_fused.py:685", scan_launches["serve_macro_fused"],
                    err["k4_k1"], sk4_ms, scan_at["k4_plain_ms"], sk4_b),
-    ]
+    ], (rep, launches)
 
 
 #: The README's tiered cell, serve/tier/mixed/65536 (the ``--serve-tiers
@@ -1823,10 +1835,11 @@ def chaos_phases(dev, bound) -> list[dict]:
 STREAM_FULL = dict(SERVE_CELL, n_docs=262144, arrival_span=32,
                    arrival_dist="zipf", serve_tiers="hot=1024,warm=16384",
                    verify_sample=4096)
-#: ``[serve stream]``'s cell in the default run: STREAM_FULL cut to 4,096
-#: docs at ``hot=16,warm=256`` (slots (12, 3, 2, 2, 2)), keeping both
-#: ratios; every doc verified.
-STREAM_CELL = dict(STREAM_FULL, n_docs=4096, serve_tiers="hot=16,warm=256",
+#: ``[serve stream]``'s cell in the default run: STREAM_FULL cut to 2,048
+#: docs at ``hot=16,warm=256`` (slots (12, 3, 2, 2, 2)), a fleet 128 times
+#: its device rows (4,096 docs, 256 times, until the telemetry phases came;
+#: the warm tier keeps its 16:1); every doc verified.
+STREAM_CELL = dict(STREAM_FULL, n_docs=2048, serve_tiers="hot=16,warm=256",
                    verify_sample=0)
 #: ``[serve stream trickle]``: STREAM_CELL's tiers with 512 docs arriving
 #: uniformly over 4,096 rounds (about one a macro-round of depth 8), so the
@@ -1841,9 +1854,10 @@ STREAM_TRICKLE = dict(STREAM_CELL, n_docs=512, arrival_span=4096,
 #: warm=64`` (``hot`` cannot go below 2 rows a class), with record eviction.
 STREAM_EVICT = dict(STREAM_CELL, n_docs=1024, serve_tiers="hot=16,warm=64")
 #: ``[serve construction]``'s fleet sizes (stream rows) and the eager rows'
-#: limit, each cell a fresh process on the card at the uncut recipe's tiers;
-#: ``--stream-full`` adds the eager 16,384 and 65,536 rows.
-SCALING_SIZES = (4096, 65536, 1048576)
+#: limit, each cell a fresh process on the card at the uncut recipe's tiers
+#: (65,536 too until the telemetry phases came); ``--stream-full`` adds the
+#: 65,536 row and the eager 16,384 and 65,536 rows.
+SCALING_SIZES = (4096, 1048576)
 SCALING_EAGER_LIMIT = 4096
 SCALING_FULL_SIZES = (4096, 16384, 65536, 1048576)
 SCALING_FULL_EAGER_LIMIT = 65536
@@ -2075,6 +2089,364 @@ def stream_phases(dev, bound, full=False, tier_rate=None) -> list[dict]:
 K5_WORST = ("ins_at_0", "del_at_0", "alternate")
 
 
+#: ``[serve telemetry chaos]``: the JAX bench smoke's chaos recipe under the
+#: soak detectors (``tools/bench_smoke.sh --family serve-faults``): a
+#: pinned 800 ms stall against a 250 ms watchdog with the other kinds, the
+#: journal and a queue cap, one drain.  The stall is pinned at round 12,
+#: not the recipe's 7: round 7's stall fires in the third macro-round
+#: (base round 8), a snapshot-barrier round, which the watchdog exempts, so
+#: it trips nothing in either package.
+TELEMETRY_CHAOS = dict(
+    mix="mixed", n_docs=24, batch=16, macro_k=4, batch_chars=64,
+    slots=(16, 6, 2, 2, 2), arrival_span=2, verify_sample=6,
+    journal_dir="auto", snapshot_every=3, queue_cap=128,
+    faults="seed=5,span=5,stall_ms=800,spool_corrupt=1,device_loss=1,"
+           "queue_overflow=1,dup_batch=1,stall@12=1", reqtrace_samples=16)
+#: ``[serve soak]``: the JAX bench smoke's soak recipe (``--family
+#: serve-soak``) for 10 s instead of 25: the status server, the
+#: time-series, an SLO and request tracing, re-seeded drains back to back.
+SOAK = dict(mix="mixed", n_docs=24, batch=16, macro_k=4, batch_chars=64,
+            slots=(16, 6, 2, 2, 2), arrival_span=2, verify_sample=6,
+            slo_spec="default=p99:60000", reqtrace_samples=16)
+SOAK_SECONDS = 10.0
+#: a Prometheus text exposition sample line: name, labels, number
+_PROM_LINE = (r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="'
+              r'([^"\\]|\\.)*",?)*\})? -?([0-9.eE+-]+|NaN|\+Inf)$')
+
+
+class Scraper:
+    """A thread that GETs ``/healthz``, ``/status.json`` and ``/metrics``
+    of a status server over and over until stopped.  A pass counts as mid-
+    run when ``/status.json`` reads ``phase`` "serving" before and after
+    it.  It records the passes, the answers mid-run by endpoint, the rounds
+    ``/status.json`` reported (they must never go back within a drain) and
+    any error or unparsable ``/metrics`` line."""
+
+    def __init__(self, port: int):
+        import re
+        import threading
+
+        self.base = f"http://127.0.0.1:{port}"
+        self.mid = {"/healthz": 0, "/status.json": 0, "/metrics": 0}
+        self.passes = 0
+        self.rounds: list[int] = []
+        self.errors: list[str] = []
+        self.closed = False  # the server went away (its run ended)
+        self._line = re.compile(_PROM_LINE)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _get(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(self.base + path, timeout=5) as r:
+            return r.status, r.read()
+
+    def _status(self):
+        s = json.loads(self._get("/status.json")[1])
+        if "rounds" in s:
+            self.rounds.append(s["rounds"])
+        return s.get("phase") == "serving"
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                before = self._status()
+                h, _ = self._get("/healthz")
+                m, text = self._get("/metrics")
+                bad = [ln for ln in text.decode().splitlines()
+                       if ln and not ln.startswith("#")
+                       and not self._line.match(ln)]
+                if bad:
+                    self.errors.append(f"/metrics lines {bad[:3]}")
+                if before and self._status():
+                    self.mid["/status.json"] += 1
+                    self.mid["/healthz"] += h == 200
+                    self.mid["/metrics"] += m == 200
+                self.passes += 1
+            except (ConnectionError, OSError) as e:
+                if isinstance(getattr(e, "reason", e), ConnectionError):
+                    self.closed = True  # the run closed its server: done
+                    return
+                self.errors.append(f"{type(e).__name__}: {e}")
+            except Exception as e:  # noqa: BLE001 (reported by the phase)
+                self.errors.append(f"{type(e).__name__}: {e}")
+            self._stop.wait(0.25)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+    def check(self, tag: str, one_drain: bool = True) -> None:
+        """Fail unless every endpoint answered mid-run and nothing errored,
+        and for ``one_drain`` unless the reported rounds never went
+        back (a soak's drains each restart them)."""
+        back = one_drain and self.rounds != sorted(self.rounds)
+        if self.errors or back or not all(self.mid.values()):
+            fail(f"{tag}: scrapes mid-run {self.mid} of {self.passes} "
+                 f"passes, errors {self.errors[:4]}, rounds "
+                 f"{self.rounds[:16]}")
+
+
+def telemetry_phases(dev, bound, serve_ref=None) -> list[dict]:
+    """The telemetry (``obs/``) on the card.
+
+    ``[serve telemetry]``: ``SERVE_CELL`` through ``run_serve_bench`` with
+    everything armed (the span tracer, the time-series stream, the status
+    server on an ephemeral port with a :class:`Scraper` on it, request
+    tracing of 16 samples, the SLO ``default=p99:60000``, the flight
+    recorder), every count set to 0 just before the drain and read just
+    after.  It fails unless every document equals the oracle; the drain's
+    rounds, device rounds, dispatches, range and unit ops, evictions,
+    restores, promotions, admissions and K1 per-row and K4 launches equal
+    ``[serve]``'s (``serve_ref``: its report and launches; with
+    ``--telemetry-only`` a plain drain of the cell here); no plain version
+    ran; the trace passes the port's validator; the windows cover every
+    round; every endpoint answered mid-run, ``/metrics`` as Prometheus text
+    and the rounds never going back; the ``doc_drain_latency`` counts add
+    up to the fleet; the flight recorder stayed quiet.  It prints the armed
+    rate over the plain one.  The drain's first operands of each (class,
+    rows) pair go through :func:`kept_kernel_check`.
+    ``[serve telemetry chaos]`` (``TELEMETRY_CHAOS``): a stuck round fires
+    and clears, none is left active, the flight recorder dumped with an
+    ``anomaly:stuck_round`` reason, the dump validates and holds the
+    stalled round and request traces, ``faults_ok`` and the verify hold.
+    ``[serve soak]`` (``SOAK``, ``SOAK_SECONDS``): every drain verified, a
+    scrape of the three endpoints mid-run, no anomaly fired.  Returns the
+    two kernels' rows, their launches summed over the three phases."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from crdt_benches_tpu_torch.obs.flight import validate_flight_file
+    from crdt_benches_tpu_torch.obs.status import render_prometheus
+    from crdt_benches_tpu_torch.obs.trace import validate_trace_file
+    from crdt_benches_tpu_torch.ops.apply2 import PackedState
+    from crdt_benches_tpu_torch.serve.bench import (
+        build_telemetry,
+        run_serve_bench,
+        run_serve_soak,
+    )
+
+    cell = SERVE_CELL
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    counts = {"resolve_range_rows": 0, "serve_macro_fused": 0}
+    keep: dict[tuple[int, int], tuple] = {}
+
+    def zero(_pool):
+        torch.cuda.synchronize()
+        zero_all_counts()
+
+    def keep_first(p):
+        """Each (class, rows) pair's first operands kept; counts to 0."""
+        step = p.macro_step
+
+        def kept_step(cls, kind, pos, rlen, slot0, nbits):
+            Rt = kind.shape[1]
+            if (cls, Rt) not in keep:
+                st = p.buckets[cls].state
+                keep[cls, Rt] = ((kind.copy(), pos.copy(), rlen.copy(),
+                                  slot0.copy()),
+                                 PackedState(st.doc[:Rt].clone(),
+                                             st.length[:Rt].clone(),
+                                             st.nvis[:Rt].clone()))
+            return step(cls, kind, pos, rlen, slot0, nbits)
+
+        p.macro_step = kept_step
+        zero(p)
+
+    def add(launches):
+        for k in counts:
+            counts[k] += launches.get(k, 0)
+
+    try:
+        t0 = time.perf_counter()
+        if serve_ref is None:
+            ref = run_serve_bench(**cell, device=dev, pool_hook=zero,
+                                  log=lambda m: None)
+            serve_ref = (ref, read_all_counts("serve telemetry reference"))
+            print(f"[serve telemetry] the plain reference drain of "
+                  f"serve/{cell['mix']}/{cell['n_docs']}: "
+                  f"{ref['patches_per_sec']:.1f} patches/s "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        ref, ref_launches = serve_ref
+        # ---- [serve telemetry]: the cell with everything armed ----
+        t0 = time.perf_counter()
+        flight = os.path.join(tmp, "flight.json")
+        trace = os.path.join(tmp, "trace.json")
+        telemetry = build_telemetry(
+            status_port=0, timeseries_path=os.path.join(tmp, "ts.jsonl"),
+            flight_path=flight,
+            log=lambda m: print(f"[serve telemetry] {m}", flush=True))
+        scraper = Scraper(telemetry.status.port)
+        try:
+            rep = run_serve_bench(
+                **cell, device=dev, pool_hook=keep_first, trace_path=trace,
+                telemetry=telemetry, reqtrace_samples=16,
+                slo_spec="default=p99:60000",
+                log=lambda m: print(f"[serve telemetry] {m}", flush=True))
+            launches = read_all_counts("serve telemetry drain")
+        finally:
+            scraper.stop()
+            telemetry.close()
+        add(launches)
+        scraper.check("serve telemetry")
+        same = ("rounds", "device_rounds", "dispatches", "range_ops",
+                "unit_ops", "evictions", "restores", "promotions",
+                "admissions")
+        differ = {k: (rep[k], ref[k]) for k in same if rep[k] != ref[k]}
+        if launches != ref_launches:
+            differ["launches"] = (launches, ref_launches)
+        if differ:
+            fail(f"serve telemetry: differs from [serve] in {differ}")
+        if not (rep["verify_ok"] and rep["verify"] == "all"
+                and rep["verified_docs"] == cell["n_docs"]):
+            fail(f"serve telemetry: verify {rep['verify']} ok "
+                 f"{rep['verify_ok']} on {rep['verified_docs']} docs")
+        ts = rep["timeseries"]
+        drained = sum(v["count"] for v in rep["doc_drain_latency"].values())
+        problems = []
+        if not (rep["trace_valid"] and validate_trace_file(trace) == []):
+            problems.append("trace invalid")
+        if not (ts["rounds_seen"] == rep["rounds"] == sum(
+                w["rounds"] for w in ts["windows"])
+                and not ts["dropped_windows"]):
+            problems.append(f"windows cover {ts['rounds_seen']} of "
+                            f"{rep['rounds']} rounds")
+        if drained != cell["n_docs"]:
+            problems.append(f"doc_drain_latency counts {drained}")
+        if rep["flight"]["dumps"] or os.path.exists(flight):
+            problems.append(f"flight dumped {rep['flight']}")
+        bad = [ln for ln in render_prometheus(rep["metrics"]).splitlines()
+               if ln and not ln.startswith("#")
+               and not __import__("re").match(_PROM_LINE, ln)]
+        if bad:
+            problems.append(f"/metrics text {bad[:3]}")
+        if problems:
+            fail(f"serve telemetry: {problems}")
+        lat = rep["batch_latency"]
+        n_events = len(json.load(open(trace))["traceEvents"])
+        print(f"[serve telemetry] serve/{cell['mix']}/{cell['n_docs']} armed: "
+              f"{rep['patches_per_sec']:.1f} patches/s, "
+              f"{rep['patches_per_sec'] / ref['patches_per_sec']:.4f} of "
+              f"[serve]'s {ref['patches_per_sec']:.1f} in this run; "
+              f"macro-round p50 {lat['p50'] * 1e3:.2f} ms, p95 "
+              f"{lat['p95'] * 1e3:.2f}, p99 {lat['p99'] * 1e3:.2f} "
+              f"(histogram); {rep['rounds']} rounds, {rep['dispatches']} "
+              f"dispatches, counters and launches {launches} equal "
+              f"[serve]'s, plain calls 0; every doc byte-identical to the "
+              f"oracle; trace valid ({n_events} events); "
+              f"{len(ts['windows'])} windows cover all rounds; scrapes "
+              f"mid-run {scraper.mid} of {scraper.passes} passes, rounds "
+              f"never back; reqtrace {rep['reqtrace']['requests_closed']} "
+              f"closed; slo compliance "
+              f"{rep['slo']['classes']['default']['compliance']:.4f}; "
+              f"flight quiet; host phase s: "
+              + ", ".join(f"{k} {v:.4f}"
+                          for k, v in rep["phase_seconds"].items())
+              + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+        label = f"serve telemetry, serve/{cell['mix']}/{cell['n_docs']}"
+        kk = kept_kernel_check("serve telemetry kernels", label, keep,
+                               cell["classes"], dev, bound)
+        per_phase = {"serve telemetry": dict(launches)}
+
+        # ---- [serve telemetry chaos]: the stall under the watchdog ----
+        t0 = time.perf_counter()
+        flight = os.path.join(tmp, "chaos_flight.json")
+        crep = run_serve_soak(
+            0.0, watchdog_s=0.25, flight_path=flight, device=dev,
+            pool_hook=zero, **TELEMETRY_CHAOS,
+            log=lambda m: print(f"[serve telemetry chaos] {m}", flush=True))
+        launches = read_all_counts("serve telemetry chaos")
+        add(launches)
+        per_phase["serve telemetry chaos"] = dict(launches)
+        an, fb = crep["anomalies"], crep["flight"]
+        stuck = [e for e in an["events"] if e["kind"] == "stuck_round"]
+        dump = json.load(open(flight)) if os.path.exists(flight) else None
+        problems = []
+        if not (stuck and all(e["cleared"] for e in stuck)
+                and an["uncleared"] == 0):
+            problems.append(f"watchdog {an}")
+        if not (fb["dumps"] >= 1 and any(
+                r.startswith("anomaly:stuck_round") for r in fb["reasons"])):
+            problems.append(f"flight {fb}")
+        if dump is None or validate_flight_file(flight):
+            problems.append("flight dump invalid")
+        elif not (any(r["round"] >= stuck[0]["round"]
+                      for r in dump["rounds"]) and dump["requests"]):
+            problems.append("dump rounds (round, s) "
+                            f"{[(r['round'], r['seconds']) for r in dump['rounds']]}"
+                            f", {len(dump['requests'])} request traces")
+        if not (crep["faults_ok"] and crep["verify_ok"]):
+            problems.append(f"faults_ok {crep['faults_ok']} verify_ok "
+                            f"{crep['verify_ok']}")
+        if launches.get("resolve_range_rows", 0) < crep["dispatches"] or (
+                launches.get("resolve_range_rows")
+                != launches.get("serve_macro_fused")):
+            problems.append(f"launches {launches} for {crep['dispatches']} "
+                            "dispatches")
+        if problems:
+            fail(f"serve telemetry chaos: {problems}")
+        stall = max(stuck, key=lambda e: e["value"])
+        print(f"[serve telemetry chaos] stall -> stuck_round at round "
+              f"{stall['round']} ({stall['value'] * 1e3:.1f} ms against "
+              f"{stall['threshold'] * 1e3:.0f}) -> cleared at round "
+              f"{stall['cleared_round']}; {an['fired']} fired "
+              f"({[(e['round'], round(e['value'] * 1e3, 1)) for e in stuck]}"
+              f"), 0 left active; flight dump ({dump['reason']!r}, dump "
+              f"{dump['dump_index']}) valid, holding the fire's round, "
+              f"{len(dump['rounds'])} rounds + {len(dump['requests'])} "
+              f"request traces; faults_ok, verify_ok; "
+              f"{crep['faults']['injected']} events; launches {launches} "
+              f"({crep['dispatches']} dispatches, the rest rebuilds) "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        # ---- [serve soak]: drains back to back under the detectors ----
+        t0 = time.perf_counter()
+        soak = {}
+
+        def soak_log(m):
+            if "status server on http://127.0.0.1:" in m and not soak:
+                soak["scraper"] = Scraper(int(m.split(":")[-1].split()[0]))
+            if "soak" in m or "status server" in m:  # not every drain's
+                print(f"[serve soak] {m}", flush=True)
+
+        try:
+            srep = run_serve_soak(
+                SOAK_SECONDS, status_port=0,
+                timeseries_path=os.path.join(tmp, "soak.jsonl"),
+                device=dev, pool_hook=zero, log=soak_log, **SOAK)
+            launches = read_all_counts("serve soak (the last drain)")
+        finally:
+            if "scraper" in soak:
+                soak["scraper"].stop()
+        add(launches)
+        per_phase["serve soak (last drain)"] = dict(launches)
+        if "scraper" not in soak:
+            fail("serve soak: no status server started")
+        soak["scraper"].check("serve soak", one_drain=False)
+        an = srep["anomalies"]
+        if not (srep["verify_ok"] and srep["anomalies_ok"]
+                and an["fired"] == 0):
+            fail(f"serve soak: verify_ok {srep['verify_ok']}, "
+                 f"{srep['iterations']} drains, anomalies {an}")
+        ts = srep["timeseries"]
+        print(f"[serve soak] {srep['iterations']} drains of "
+              f"serve/{SOAK['mix']}/{SOAK['n_docs']} in "
+              f"{time.perf_counter() - t0:.1f} s, every drain verified; "
+              f"{len(ts['windows'])} windows over {ts['rounds_seen']} rounds; "
+              f"scrapes mid-run {soak['scraper'].mid} of "
+              f"{soak['scraper'].passes} passes; anomalies 0 fired; "
+              f"launches by phase {per_phase}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return kept_kernel_rows(
+        "serve telemetry phases; the launches of [serve telemetry], [serve "
+        "telemetry chaos] and the last drain of [serve soak]", kk, counts)
+
+
 def k5_worst_cases(dev, tt, late) -> tuple[int, dict[str, float]]:
     """K5 held against ``resolve_batch_plain`` (both on the card, emit_origin
     off and on) on the worst-case batches and ``tt``'s batch ``late`` (v0
@@ -2174,10 +2546,10 @@ def k1_rows_ops(kind, pos, rlen, slot0, v0) -> int:
 #: quarter of automerge-paper's batch 3); automerge-paper's batch 3.
 K1_WORST = ("ins_at_0", "del_at_0", "alternate", "span", "pad_tail", "trace")
 #: The K1 worst cases also held against the plain version at R = 1024 (all
-#: six until the streaming phases came: the plain version at that width
-#: sets the phase's time);
-#: every case is held at R = 1 and 5 and timed at R = 1024.
-K1_WORST_WIDE = ("span", "trace")
+#: six until the streaming phases came, ``span`` and ``trace`` until the
+#: telemetry phases came: the plain version at that width sets the phase's
+#: time); every case is held at R = 1 and 5 and timed at R = 1024.
+K1_WORST_WIDE = ("span",)
 
 
 def k1_worst_cases(dev, rt, bound) -> tuple[int, dict[str, tuple]]:
@@ -3427,6 +3799,10 @@ def main(argv=None) -> int:
                     help="run only the device, build and streaming phases "
                     "([serve stream], [serve stream evict], [serve "
                     "construction])")
+    ap.add_argument("--telemetry-only", action="store_true",
+                    help="run only the device, build and telemetry phases "
+                    "([serve telemetry] after a plain drain of its cell, "
+                    "[serve telemetry chaos], [serve soak])")
     ap.add_argument("--stream-full", action="store_true",
                     help="[serve stream] on STREAM_FULL (262,144 docs, "
                     "hot=1024,warm=16384) instead of STREAM_CELL, and the "
@@ -3503,11 +3879,13 @@ def main(argv=None) -> int:
     for ln in _build.build_log.splitlines():
         if "registers" in ln or "bytes stack" in ln:
             print(f"[build] {ln.strip()}", flush=True)
-    if opts.tier_only or opts.chaos_only or opts.stream_only:
+    if (opts.tier_only or opts.chaos_only or opts.stream_only
+            or opts.telemetry_only):
         rows = (serve_tier_phases(dev, bound, tier_cell, opts.ab_pairs)[1]
                 if opts.tier_only else chaos_phases(dev, bound)
-                if opts.chaos_only else stream_phases(dev, bound,
-                                                      opts.stream_full))
+                if opts.chaos_only else telemetry_phases(dev, bound)
+                if opts.telemetry_only else stream_phases(dev, bound,
+                                                          opts.stream_full))
         print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
         print(json.dumps({"kernels": rows}))
         print(smi_line)
@@ -3605,14 +3983,15 @@ def main(argv=None) -> int:
     # every other batch: where a plain version on every batch would set a
     # phase's time (each main path runs its kernels on every batch)
     half = lambda i: i % 2 == 0
-    # every fourth batch (every other until the streaming phases came)
-    quarter = lambda i: i % 4 == 0
+    # every eighth batch (every other until the streaming phases came,
+    # every fourth until the telemetry phases)
+    eighth = lambda i: i % 8 == 0
     cap_am = 183_296
     t0 = time.perf_counter()
     k3_also = ((arf.range_apply_blocked, "k3"),)
-    walk("sveltecomponent", 8, 94_208, quarter, quarter, also=k3_also)
-    walk("automerge-paper", 8, cap_am, quarter, quarter, also=k3_also)
-    print(f"[k1+k2 R=8] sveltecomponent and automerge-paper, every fourth "
+    walk("sveltecomponent", 8, 94_208, eighth, eighth, also=k3_also)
+    walk("automerge-paper", 8, cap_am, eighth, eighth, also=k3_also)
+    print(f"[k1+k2 R=8] sveltecomponent and automerge-paper, every eighth "
           f"batch equal (K3 too) ({time.perf_counter() - t0:.1f} s)",
           flush=True)
 
@@ -4481,8 +4860,13 @@ def main(argv=None) -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
         })
     # ---- the serving fleet: K1's per-row form and K4 ----
-    serve_rate, serve_rows = serve_phases(dev, bound)
+    serve_rate, serve_rows, serve_ref = serve_phases(dev, bound)
     rows += serve_rows
+    # ---- the telemetry (obs/) against [serve]'s drain ----
+    t0 = time.perf_counter()
+    rows += telemetry_phases(dev, bound, serve_ref)
+    print(f"[serve telemetry] all telemetry phases "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     tier_rate, tier_rows = serve_tier_phases(dev, bound, tier_cell,
                                              opts.ab_pairs)

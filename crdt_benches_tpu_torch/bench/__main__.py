@@ -21,7 +21,11 @@
         [--serve-recover] [--serve-crash-round N]
         [--serve-faults SPEC] [--serve-queue-cap N]
         [--serve-overflow-policy defer|shed] [--serve-stream]
-        [--serve-stream-scaling N1,N2,...] [--serve-record-evict]  (serve)
+        [--serve-stream-scaling N1,N2,...] [--serve-record-evict]
+        [--serve-trace PATH] [--serve-status PORT]
+        [--serve-timeseries PATH] [--serve-timeseries-window 8]
+        [--serve-reqtrace N] [--serve-slo SPEC] [--serve-flight PATH]
+        [--serve-soak SECONDS] [--serve-watchdog SECONDS]  (serve)
 
 The default is the headline range replay (1024 replicas, batch 1536);
 ``--layout unit --batch 256`` is the unit-op engine (the JAX package's
@@ -59,10 +63,15 @@ pending ops and ``--serve-overflow-policy`` decides at the cap;
 first admission, ``--serve-stream-scaling N1,N2,...`` adds the
 construction probe's fleet-size table (a fresh process a cell, run before
 the drain) and ``--serve-record-evict`` reclaims drained documents' records
-and spool files during a journal-less drain);
+and spool files during a journal-less drain; the telemetry flags arm the
+span tracer, the loopback status server, the time-series stream, request
+tracing, SLOs and the flight recorder (``obs/``), and ``--serve-soak S``
+drains re-seeded fleets back to back for S seconds under the anomaly
+detectors);
 its metric is fleet patches/sec over the drain's wall time, and it exits
-non-zero when verification fails or, in a chaos run, when a fault event
-went unfired or unrecovered (2 when the flags are refused).  A flag
+non-zero when verification fails, in a chaos run when a fault event went
+unfired or unrecovered, or when an anomaly is still active at the end (2
+when the flags are refused).  A flag
 of another group is an error.
 
 Metric: aggregate throughput of the trace across many replicas on one GPU,
@@ -233,13 +242,19 @@ def _ints(text: str) -> tuple[int, ...]:
 
 
 def _serve(args) -> int:
-    """Drain the serving fleet once; one JSON line; 1 if verify fails."""
+    """Drain the serving fleet once (or soak it); one JSON line; 1 if verify
+    or the chaos gate fails or an anomaly is still active."""
     from ..serve.bench import run_serve_bench
 
     if args.serve_record_evict and args.serve_journal is not None:
         print("--serve-record-evict requires a journal-less drain: "
               "recovery re-adopts the spool members the GC reclaims",
               file=sys.stderr)
+        return 2
+    if args.serve_stream_scaling and args.serve_soak is not None:
+        print("--serve-stream-scaling attaches the fleet-size probe table "
+              "to ONE serve run's report; it does not compose with "
+              "--serve-soak", file=sys.stderr)
         return 2
     scaling = None
     if args.serve_stream_scaling:
@@ -261,7 +276,20 @@ def _serve(args) -> int:
             serve_tiers=args.serve_tiers, device=args.device,
             log=lambda m: print(m, file=sys.stderr))
     try:
-        rep = run_serve_bench(
+        run, extra = run_serve_bench, dict(
+            construction_scaling=scaling, status_port=args.serve_status,
+            timeseries_path=args.serve_timeseries,
+            timeseries_window=args.serve_timeseries_window)
+        if args.serve_soak is not None:
+            from ..serve.bench import run_serve_soak
+
+            run, extra = run_serve_soak, dict(
+                soak_seconds=args.serve_soak,
+                status_port=args.serve_status,
+                timeseries_path=args.serve_timeseries,
+                timeseries_window=args.serve_timeseries_window,
+                watchdog_s=args.serve_watchdog)
+        rep = run(
             mix=args.serve_mix, n_docs=args.serve_docs,
             batch=args.serve_batch, classes=_ints(args.serve_classes),
             slots=_ints(args.serve_slots), seed=args.seed,
@@ -282,8 +310,10 @@ def _serve(args) -> int:
             overflow_policy=args.serve_overflow_policy,
             stream=bool(args.serve_stream),
             record_evict=bool(args.serve_record_evict),
-            construction_scaling=scaling, device=args.device,
-            log=lambda m: print(m, file=sys.stderr),
+            trace_path=args.serve_trace,
+            reqtrace_samples=args.serve_reqtrace, slo_spec=args.serve_slo,
+            flight_path=args.serve_flight, device=args.device,
+            log=lambda m: print(m, file=sys.stderr), **extra,
         )
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
@@ -299,7 +329,8 @@ def _serve(args) -> int:
     }
     out.update(rep)
     print(json.dumps(out))
-    return 0 if rep["verify_ok"] and rep["faults_ok"] else 1
+    return 0 if (rep["verify_ok"] and rep["faults_ok"]
+                 and rep["anomalies_ok"]) else 1
 
 
 def main(argv=None) -> int:
@@ -419,6 +450,46 @@ def main(argv=None) -> int:
                     help="construction probe table: one fresh process per "
                     "(fleet size, mode) cell (serve/construction.py), run "
                     "before the drain and carried in its construction block")
+    # the telemetry's flags, with the JAX runner's help
+    telemetry_flags = (
+        ("--serve-trace", str, None, "PATH",
+         "arm the obs/trace.py span tracer for the drain and write "
+         "Perfetto-loadable Chrome trace JSON to PATH (validated after)"),
+        ("--serve-status", int, None, "PORT",
+         "start the obs/status.py live status server on 127.0.0.1:PORT (0 "
+         "= ephemeral, bound port logged): /healthz, /status.json, and "
+         "/metrics in Prometheus text exposition"),
+        ("--serve-timeseries", str, None, "PATH",
+         "stream closed obs/timeseries.py windows as JSONL to PATH (also "
+         "arms the windowed recorder: the report gains a versioned "
+         "'timeseries' block)"),
+        ("--serve-timeseries-window", int, 8, "N",
+         "macro-rounds folded per time-series window"),
+        ("--serve-reqtrace", int, 0, "N",
+         "arm obs/reqtrace.py request tracing, keeping the last N sampled "
+         "request traces (0 = disarmed; the report gains a versioned "
+         "'reqtrace' block with per-request segments and exemplars)"),
+        ("--serve-slo", str, None, "SPEC",
+         "per-class latency objectives, class=pQ:MS[,class=pQ:MS...], e.g. "
+         "'default=p99:250,c4096=p99.9:1500'; arms request tracing, exports "
+         "burn-rate gauges on /metrics and /status.json, and adds a "
+         "versioned 'slo' block (a malformed spec exits 2)"),
+        ("--serve-flight", str, None, "PATH",
+         "arm the obs/flight.py flight recorder: recent rounds, request "
+         "traces and the registry, dumped atomically to PATH on an anomaly, "
+         "an unrecovered fault or a crash (python -m "
+         "crdt_benches_tpu_torch.obs.flight PATH validates it)"),
+        ("--serve-soak", float, None, "SECONDS",
+         "soak mode: drain re-seeded fleets back to back for SECONDS (0 = "
+         "one drain) under one telemetry bundle with the obs/anomaly.py "
+         "detectors armed; exits 1 when an anomaly is still active at the "
+         "end"),
+        ("--serve-watchdog", float, 0.0, "SECONDS",
+         "stuck-round watchdog threshold for soak mode (0 = auto: 25x the "
+         "rolling median steady-round latency, floored at 1 s)"),
+    )
+    for flag, typ, _default, metavar, text in telemetry_flags:
+        ap.add_argument(flag, type=typ, metavar=metavar, help=text)
     ap.add_argument("--serve-recover", action="store_true", default=None,
                     help="measure the recovery-time objective after the "
                     "drain: drop the live fleet, recover a fresh one from "
@@ -428,6 +499,8 @@ def main(argv=None) -> int:
                          for flag, typ, default, *_ in journal_flags)
     serve_flags += tuple((flag, typ, default)
                          for flag, typ, default, *_ in fault_flags)
+    serve_flags += tuple((flag, typ, default)
+                         for flag, typ, default, *_ in telemetry_flags)
     serve_flags += (("--serve-recover", bool, False),
                     ("--serve-stream", bool, False),
                     ("--serve-record-evict", bool, False),

@@ -35,6 +35,22 @@ report's ``construction`` block (both modes) holds the construction time
 materialized, released and prefetch-built docs, the genesis docs left and
 ``construction_scaling`` (``serve/construction.py scaling_table``'s rows).
 
+Telemetry (``obs/``; each report block is None when disarmed):
+``trace_path`` arms the span tracer for the drain and writes (and
+validates) the Chrome trace there; ``status_port`` starts the loopback
+status server (0: an ephemeral port; ``/healthz``, ``/status.json``,
+``/metrics``), ``timeseries_path`` streams the closed time-series windows
+as JSON lines (either arms the windowed recorder: the ``timeseries``
+block); ``reqtrace_samples`` and ``slo_spec`` (``class=pQ:MS``, parsed
+before any resource is taken) arm request tracing and the SLO accounting
+(the ``reqtrace`` and ``slo`` blocks); ``flight_path`` arms the flight
+recorder, dumped on an anomaly, an unrecovered fault or a crash out of the
+drain (the ``flight`` block).  The ``metrics`` block (the drain's whole
+registry) and ``doc_drain_latency`` (per cause tag) are always there.
+:func:`run_serve_soak` drains re-seeded fleets back to back under one
+telemetry bundle with the anomaly detectors armed (the ``anomalies``
+block); ``anomalies_ok`` fails when an anomaly is still active at the end.
+
 Timed region: the drain, from the first macro-round to the final device
 fence (``FleetScheduler.run``).  The metric is fleet patches per second
 (every session's trace patches over the drain's wall time).  Verification
@@ -55,6 +71,13 @@ import torch
 from .._build import kernels
 from ..bench.harness import summarize
 from ..device import resolve_device
+from ..obs import trace as obs_trace
+from ..obs.anomaly import AnomalyDetector
+from ..obs.flight import FlightRecorder
+from ..obs.reqtrace import RequestTracker
+from ..obs.slo import SloTracker
+from ..obs.status import StatusServer
+from ..obs.timeseries import ServeTelemetry, TimeseriesRecorder
 from ..oracle.text_oracle import replay_trace
 from .construction import current_rss_bytes, peak_rss_bytes
 from .faults import (
@@ -70,6 +93,61 @@ from .journal import DEFAULT_SEGMENT_BYTES, OpJournal, recover_fleet
 from .pool import DocPool
 from .scheduler import FleetScheduler, LazyStreams, prepare_streams
 from .workload import FleetSpec, build_fleet
+
+
+def parse_slo(slo_spec):
+    """The fail-fast parse of a ``--serve-slo`` spec (None when unset): the
+    only raising step of arming request tracing, called before any
+    resource is taken, so a malformed spec fails with nothing to
+    release."""
+    return SloTracker.from_spec(slo_spec) if slo_spec else None
+
+
+def arm_reqtrace(samples, slo, slo_spec, log, prefix="serve"):
+    """Construct (and log) the request tracker; nothing here raises (the
+    spec was parsed by :func:`parse_slo`)."""
+    reqtrace = RequestTracker(samples=samples, slo=slo)
+    if reqtrace.armed:
+        log(f"{prefix}: request tracing ARMED (samples="
+            f"{reqtrace.samples_cap}"
+            + (f", slo={slo_spec}" if slo_spec else "") + ")")
+    return reqtrace
+
+
+def build_telemetry(*, status_port: int | None = None,
+                    timeseries_path: str | None = None,
+                    timeseries_window: int = 8, anomaly: bool = False,
+                    watchdog_s: float = 0.0,
+                    stale_after: float | None = None,
+                    flight_path: str | None = None,
+                    log=print) -> ServeTelemetry | None:
+    """The continuous-telemetry bundle a serve run threads through its
+    scheduler(s): the windowed time-series recorder (armed by any of
+    these), the status server (started here; ``stale_after`` seconds
+    without a publish turn ``/healthz`` 503), the soak anomaly detectors
+    (``watchdog_s`` 0: the stuck-round threshold is 25x the rolling steady
+    median) and the flight recorder.  None when nothing is armed."""
+    if status_port is None and not timeseries_path and not anomaly \
+            and not flight_path:
+        return None
+    telemetry = ServeTelemetry(
+        recorder=TimeseriesRecorder(window_rounds=timeseries_window,
+                                    stream_path=timeseries_path),
+        anomaly=AnomalyDetector(watchdog_s=watchdog_s) if anomaly else None,
+        status=(StatusServer(port=status_port, stale_after=stale_after)
+                if status_port is not None else None),
+        flight=FlightRecorder(flight_path) if flight_path else None,
+    )
+    if telemetry.flight is not None:
+        log(f"serve: flight recorder armed -> {flight_path} (dumped on an "
+            "anomaly, an unrecovered fault or a crash)")
+    if telemetry.status is not None:
+        port = telemetry.status.start()
+        log(f"serve: status server on http://127.0.0.1:{port} "
+            "(/healthz /status.json /metrics)")
+    if timeseries_path:
+        log(f"serve: time-series stream -> {timeseries_path}")
+    return telemetry
 
 
 def parse_tier_spec(spec: str, slots: tuple[int, ...]
@@ -231,6 +309,14 @@ def run_serve_bench(
     stream: bool = False,
     record_evict: bool = False,
     construction_scaling: list | None = None,
+    trace_path: str | None = None,
+    status_port: int | None = None,
+    timeseries_path: str | None = None,
+    timeseries_window: int = 8,
+    telemetry: ServeTelemetry | None = None,
+    reqtrace_samples: int = 0,
+    slo_spec: str | None = None,
+    flight_path: str | None = None,
     device: str | torch.device = "cuda",
     pool_hook=None,
     log=print,
@@ -248,7 +334,8 @@ def run_serve_bench(
     ``delivery="banded"`` paces each session's producer (``workload.py
     DELIVERY_BURST``); ``bands`` overrides the band sizing table.
     ``stream``, ``record_evict`` and ``construction_scaling`` as the
-    module says.
+    module says, and the telemetry arguments too; a ``telemetry`` bundle
+    given by the caller (the soak's) is used as it is and not closed.
     ``pool_hook(pool)``, if given, runs on the pool just before the drain
     (``chip_smoke.py`` arms the pool's CUDA-event spans or zeroes the
     kernels' counts there)."""
@@ -296,6 +383,9 @@ def run_serve_bench(
             snapshot_full_every=snapshot_full_every,
             wal_segment_bytes=wal_segment_bytes, queue_cap=queue_cap,
             batch=batch, log=log)
+    # a malformed --serve-slo spec fails here, before the journal's temp
+    # dir or the telemetry's threads exist: nothing to release yet
+    slo = parse_slo(slo_spec)
     dev = resolve_device(device)
     if dev.type == "cuda":
         kernels()  # build and load the kernels before the clock starts
@@ -305,8 +395,18 @@ def run_serve_bench(
     journal = (OpJournal(journal_dir, fsync=journal_fsync,
                          segment_bytes=wal_segment_bytes)
                if journal_dir else None)
+    owns_telemetry = telemetry is None
+    if owns_telemetry:
+        telemetry = build_telemetry(
+            status_port=status_port, timeseries_path=timeseries_path,
+            timeseries_window=timeseries_window, flight_path=flight_path,
+            log=log)  # None when nothing is armed
+    # last before the try that releases it
+    reqtrace = arm_reqtrace(reqtrace_samples, slo, slo_spec, log)
     pool = None
     try:
+        if telemetry is not None:
+            telemetry.note_phase("building")  # the staleness heartbeat
         # the construction window: the fleet (spec or sessions), the pool,
         # the streams and a ready scheduler, all before round 0 could run
         t0 = time.perf_counter()
@@ -335,7 +435,8 @@ def run_serve_bench(
                                snapshot_every=snapshot_every,
                                snapshot_keep=snapshot_keep,
                                snapshot_full_every=snapshot_full_every,
-                               drained_gc=record_evict)
+                               telemetry=telemetry, reqtrace=reqtrace,
+                               slo=slo, drained_gc=record_evict)
         setup_s = time.perf_counter() - t0
         rss_setup = current_rss_bytes()
         if stream:
@@ -377,9 +478,38 @@ def run_serve_bench(
                 f"{overflow_policy}")
         if pool_hook is not None:
             pool_hook(pool)
-        # crash_after > 0: the injected crash stops the drain after that
-        # many macro-rounds; the recovery leg resumes from the journal
-        stats = sched.run(max_rounds=crash_after or None)
+        tracer, armed_here = None, False
+        if trace_path:
+            obs_trace.arm()
+            armed_here = True
+            log(f"serve: span tracer ARMED -> {trace_path}")
+        try:
+            # crash_after > 0: the injected crash stops the drain after
+            # that many macro-rounds; the recovery leg resumes from the
+            # journal
+            stats = sched.run(max_rounds=crash_after or None)
+        except BaseException as e:
+            # the crash post-mortem: the flight window is dumped before
+            # the exception leaves the drain (best effort: a failure here
+            # must never replace the crash it documents)
+            if telemetry is not None and telemetry.flight is not None:
+                try:
+                    telemetry.flight_dump(f"crash: {type(e).__name__}: {e}",
+                                          status=sched.status_fields())
+                except Exception:
+                    pass
+            raise
+        finally:
+            if armed_here:  # release only what this run armed
+                tracer = obs_trace.disarm()
+        trace_errors = None
+        if tracer is not None:
+            tracer.write(trace_path)
+            trace_errors = obs_trace.validate_trace_file(trace_path)
+            log(f"serve: wrote {len(tracer.events)} trace events to "
+                f"{trace_path} ("
+                + ("valid" if not trace_errors
+                   else f"INVALID: {trace_errors[:4]}") + ")")
         crashed = crash_after > 0 and not sched.done
         if crash_after:
             log(f"serve: CRASH injected after {stats.rounds} macro-rounds "
@@ -387,6 +517,14 @@ def run_serve_bench(
                 "recovery leg resumes from the journal")
         elif not sched.done:
             raise RuntimeError("scheduler stopped with pending work")
+        if telemetry is not None:
+            telemetry.drain_end(status={**sched.status_fields(),
+                                        "phase": "done", "done": True})
+            if telemetry.anomaly is not None:
+                a = telemetry.anomaly
+                log(f"serve: anomalies: {a.fired} fired, {a.uncleared} "
+                    "uncleared" + (f" (active: {', '.join(a.active_kinds())})"
+                                   if a.uncleared else ""))
         lat = stats.latency_quantiles()
         rate = stats.patches / stats.wall_time
         if plan is not None or stats.recoveries or stats.shed_ops:
@@ -523,6 +661,8 @@ def run_serve_bench(
         recovery_block = None
         recovery_drain = None
         if measure_recovery:
+            if telemetry is not None:
+                telemetry.note_phase("recovering")
             journal.close()  # flushed: the host state is disk-only now
             rpool = DocPool(classes=classes, slots=slots,
                             serve_kernel=serve_kernel, device=dev,
@@ -647,6 +787,28 @@ def run_serve_bench(
             log(f"serve: FAULTS NOT CLEARED: "
                 f"{fault_summary['unrecovered']} unrecovered, "
                 f"{fault_summary['not_fired']} never fired")
+            if telemetry is not None and telemetry.flight is not None:
+                # a fault that fired and stuck, or one that never fired:
+                # both fail the run
+                telemetry.flight_dump(
+                    "unrecovered_fault" if fault_summary["unrecovered"]
+                    else "unfired_fault",
+                    status={**sched.status_fields(), "done": True})
+        if reqtrace.armed:
+            log(f"serve: requests: {reqtrace.requests_closed} closed "
+                f"({reqtrace.reopened} re-admissions opened fresh "
+                "contexts)")
+        if slo is not None:
+            for name, st_cls in sorted(slo.classes.items()):
+                d = st_cls.to_dict()
+                log(f"serve: slo {name}: compliance {d['compliance']:.4f} "
+                    f"over {d['requests']} requests (objective "
+                    f"p{st_cls.objective.quantile * 100:g} <= "
+                    f"{st_cls.objective.threshold_s * 1e3:.0f} ms, burn "
+                    f"fast {d['burn_rate_fast']:.2f} / slow "
+                    f"{d['burn_rate_slow']:.2f})")
+        anomalies_ok = (telemetry is None or telemetry.anomaly is None
+                        or telemetry.anomaly.uncleared == 0)
         return {
             "fleet_docs": n_docs, "mix": mix, "seed": seed,
             "batch": batch, "batch_chars": batch_chars, "macro_k": macro_k,
@@ -658,6 +820,8 @@ def run_serve_bench(
             "wall_time": stats.wall_time,
             "patches_per_sec": rate,
             "batch_latency": lat,
+            "compile_time": stats.compile_time,
+            "compile_rounds": stats.compile_rounds,
             "barrier_time": stats.barrier_time,
             "barrier_rounds": stats.barrier_rounds,
             "rounds": stats.rounds,
@@ -711,11 +875,85 @@ def run_serve_bench(
                 "arrival_dist": arrival_dist,
                 "limbo_pulls": sched.limbo_pulls,
                 "residency": residency}),
+            # the telemetry (obs/): the registry and the per-cause drain
+            # latency always; the rest None when disarmed
+            "metrics": stats.metrics.to_dict(),
+            "doc_drain_latency": {
+                tag: {"count": h.count,
+                      "quantiles": (h.quantiles((0.5, 0.99, 0.999))
+                                    if h.count else None)}
+                for tag, h in sorted(stats.doc_latency.items())},
+            "timeseries": (telemetry.recorder.block()
+                           if telemetry is not None
+                           and telemetry.recorder is not None else None),
+            "anomalies": (telemetry.anomaly.block()
+                          if telemetry is not None
+                          and telemetry.anomaly is not None else None),
+            "reqtrace": reqtrace.block() if reqtrace.armed else None,
+            "slo": slo.block() if slo is not None else None,
+            "flight": (telemetry.flight.summary()
+                       if telemetry is not None
+                       and telemetry.flight is not None else None),
+            "status_port": (telemetry.status.port
+                            if telemetry is not None
+                            and telemetry.status is not None else None),
+            "trace": trace_path if tracer is not None else None,
+            "trace_valid": (None if tracer is None
+                            else not trace_errors),
+            "anomalies_ok": anomalies_ok,
         }
     finally:
+        reqtrace.release()
         if pool is not None:
             pool.close()
         if journal is not None:
             journal.close()
             if owns_journal:
                 shutil.rmtree(journal_dir, ignore_errors=True)
+        if owns_telemetry and telemetry is not None:
+            telemetry.close()  # stop the status server, close the stream
+
+
+def run_serve_soak(soak_seconds: float = 0.0, *, seed: int = 0,
+                   status_port: int | None = None,
+                   timeseries_path: str | None = None,
+                   timeseries_window: int = 8, watchdog_s: float = 0.0,
+                   flight_path: str | None = None, log=print,
+                   **kw) -> dict:
+    """The soak harness: drain fleets back to back until ``soak_seconds``
+    of wall time have passed (0: exactly one drain), each re-seeded
+    (``seed + i``) and verified, under ONE telemetry bundle with the
+    anomaly detectors armed (the time-series, detectors and status server
+    run on across the drains; ``/healthz`` turns stale after 120 s without
+    a publish).  Returns the last drain's report, its ``timeseries`` and
+    ``anomalies`` blocks the whole soak's, with ``verify_ok`` and
+    ``faults_ok`` the AND over every drain, ``anomalies_ok`` False when an
+    anomaly is still active at the end, and ``iterations``."""
+    telemetry = build_telemetry(
+        status_port=status_port, timeseries_path=timeseries_path,
+        timeseries_window=timeseries_window, anomaly=True,
+        watchdog_s=watchdog_s, stale_after=120.0, flight_path=flight_path,
+        log=log)
+    t0 = time.perf_counter()
+    i = 0
+    verify_ok = faults_ok = True
+    try:
+        while True:
+            rep = run_serve_bench(seed=seed + i, telemetry=telemetry,
+                                  log=log, **kw)
+            verify_ok &= rep["verify_ok"]
+            faults_ok &= rep["faults_ok"]
+            i += 1
+            elapsed = time.perf_counter() - t0
+            if elapsed >= soak_seconds:
+                break
+            log(f"serve: soak {elapsed:.1f}/{soak_seconds:.0f} s: "
+                f"iteration {i} done, draining again")
+        a = telemetry.anomaly
+        log(f"serve: soak done: {i} drain(s) in "
+            f"{time.perf_counter() - t0:.1f} s; anomalies {a.fired} fired / "
+            f"{a.uncleared} uncleared")
+        return dict(rep, verify_ok=verify_ok, faults_ok=faults_ok,
+                    anomalies_ok=a.uncleared == 0, iterations=i)
+    finally:
+        telemetry.close()

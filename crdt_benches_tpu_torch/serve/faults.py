@@ -92,11 +92,11 @@ The port's scheduler polls the kinds of a single-host serve drain
 (spool, device loss, duplicates, stalls, queue overflow, poisoned
 rebuilds, the journal's and the warm tier's kinds); the replication,
 ingest and reshard kinds parse here and are refused by
-``run_serve_bench`` until those layers are ported.  Two seams differ from
-the JAX module: the span tracer's timeline marker (:func:`instant`) is a
-no-op, and :meth:`FaultInjector.bind_metrics` binds plain-int per-kind
-fired/recovered counts (``fired_counts``, ``recovered_counts``) in place
-of registry counters.
+``run_serve_bench`` until those layers are ported.  Each firing is an
+instant on the span tracer's timeline (``obs/trace.py``), and
+:meth:`FaultInjector.bind_metrics` registers the per-kind
+``serve.faults.fired.<kind>`` / ``serve.faults.recovered.<kind>`` counters
+in a drain's registry (``fired_counts`` / ``recovered_counts`` read them).
 """
 
 from __future__ import annotations
@@ -106,9 +106,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-
-def instant(name: str, **args) -> None:
-    """The span tracer's timeline marker: a no-op (no tracer is ported)."""
+from ..obs.metrics import MetricsRegistry
+from ..obs.trace import instant
 
 
 KINDS = (
@@ -176,8 +175,8 @@ class FaultEvent:
     fired_round: int = -1
     recovered: bool = False
     detail: dict = field(default_factory=dict)
-    # per-kind fired/recovered counts (plain ints), shared across a
-    # plan's events (set by FaultInjector.bind_metrics; None outside an
+    # per-kind fired/recovered registry counters, shared across a plan's
+    # events (set by FaultInjector.bind_metrics; None outside an
     # instrumented drain)
     counters: dict | None = field(
         default=None, repr=False, compare=False
@@ -191,20 +190,20 @@ class FaultEvent:
         self.fired_round = rnd
         self.detail.update(detail)
         if self.counters is not None:
-            self.counters[self.kind] += 1
+            self.counters[self.kind].inc()
         # timeline marker (no-op unless span tracing is armed); the
         # constant event name keeps G012 happy — kind rides in args
         instant("serve.fault", kind=self.kind, round=rnd)
 
     def recover(self, **detail) -> None:
         """Mark the event recovered (idempotent), counting it once in the
-        per-kind recovered counts."""
+        per-kind recovered counter."""
         if detail:
             self.detail.update(detail)
         if not self.recovered:
             self.recovered = True
             if self.rec_counters is not None:
-                self.rec_counters[self.kind] += 1
+                self.rec_counters[self.kind].inc()
 
     def to_dict(self) -> dict:
         return {
@@ -290,20 +289,36 @@ class FaultInjector:
     def __init__(self, plan: FaultPlan):
         self.plan = plan
         self.rng = np.random.default_rng(plan.seed ^ 0x9E3779B9)
-        self.fired_counts: dict[str, int] | None = None
-        self.recovered_counts: dict[str, int] | None = None
+        self._fired: dict | None = None
+        self._recovered: dict | None = None
 
-    def bind_metrics(self, registry=None) -> None:
-        """Bind per-kind fired/recovered counts (plain ints, zeroed here)
-        and hand the tables to every event so ``FaultEvent.fire`` /
-        ``recover`` count through them.  ``registry`` is accepted for the
-        JAX signature and unused."""
-        del registry
-        self.fired_counts = dict.fromkeys(KINDS, 0)
-        self.recovered_counts = dict.fromkeys(KINDS, 0)
+    def bind_metrics(self, registry: MetricsRegistry) -> None:
+        """Pre-register the fired/recovered counters of every kind in
+        ``registry`` (constant names, off the hot path) and hand the tables
+        to every event so ``FaultEvent.fire`` / ``recover`` count through
+        them."""
+        self._fired = {
+            k: registry.counter("serve.faults.fired." + k) for k in KINDS}
+        self._recovered = {
+            k: registry.counter("serve.faults.recovered." + k)
+            for k in KINDS}
         for e in self.plan.events:
-            e.counters = self.fired_counts
-            e.rec_counters = self.recovered_counts
+            e.counters = self._fired
+            e.rec_counters = self._recovered
+
+    @property
+    def fired_counts(self) -> dict[str, int] | None:
+        """Per-kind fired counts (None before :meth:`bind_metrics`)."""
+        if self._fired is None:
+            return None
+        return {k: c.value for k, c in self._fired.items()}
+
+    @property
+    def recovered_counts(self) -> dict[str, int] | None:
+        """Per-kind recovered counts (None before :meth:`bind_metrics`)."""
+        if self._recovered is None:
+            return None
+        return {k: c.value for k, c in self._recovered.items()}
 
     def _pending(self, rnd: int, *kinds: str) -> FaultEvent | None:
         for e in self.plan.events:

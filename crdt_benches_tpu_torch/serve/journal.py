@@ -37,9 +37,10 @@ a directory the other wrote):
 state by replaying the stream interval through ``engine/merge_fleet.py``
 (K1's per-row form and K4, a slice at a time) on the pool's device.
 
-The JAX module's sanitizer hooks and registry metrics are not ported:
-the journal's counters are plain ints behind the same accessors.  A
-journal that holds a reshard record, or a directory that holds a reshard
+The journal's counters and durability gauges are registry metrics
+(``serve.journal.*``, attached to a drain's registry by
+:meth:`OpJournal.bind_metrics`); the JAX module's sanitizer hooks are not
+ported.  A journal that holds a reshard record, or a directory that holds a reshard
 manifest, is refused by :func:`recover_fleet` until reshard is ported.
 """
 
@@ -56,6 +57,7 @@ import torch
 
 from ..device import resolve_device
 from ..engine.merge_fleet import merge_rows_macro
+from ..obs.metrics import Counter, Gauge
 from ..ops.apply2 import PackedState
 from ..traces.tensorize import PAD
 from ..utils.checkpoint import (
@@ -152,34 +154,45 @@ class OpJournal:
                     self._active_max_r = max(self._active_max_r, r)
                 else:
                     self._active_roundless = True
-        self._records = 0
-        self._bytes = 0
-        self._snap_bytes = 0
-        self._sealed = 0
-        self._gc_segments = 0
-        self._wal_segments = 1 + len(wal_segments(journal_dir))
+        self._m_records = Counter("serve.journal.records")
+        self._m_bytes = Counter("serve.journal.bytes")
+        self._m_snap_bytes = Counter("serve.journal.snapshot_bytes")
+        self._m_sealed = Counter("serve.journal.segments_sealed")
+        self._m_gc_passes = Counter("serve.journal.gc_passes")
+        self._m_gc_segments = Counter("serve.journal.gc_segments")
+        self._g_segments = Gauge("serve.journal.wal_segments")
+        self._g_since = Gauge("serve.journal.bytes_since_snapshot")
+        self._g_segments.set(1 + len(wal_segments(journal_dir)))
+
+    def bind_metrics(self, registry) -> None:
+        """Attach the journal's counters and durability gauges to a
+        drain's ``MetricsRegistry`` (``serve_journal_*`` on ``/metrics``)."""
+        for m in (self._m_records, self._m_bytes, self._m_snap_bytes,
+                  self._m_sealed, self._m_gc_passes, self._m_gc_segments,
+                  self._g_segments, self._g_since):
+            registry.attach(m)
 
     @property
     def records(self) -> int:
-        return self._records
+        return self._m_records.value
 
     @property
     def bytes_written(self) -> int:
-        return self._bytes
+        return self._m_bytes.value
 
     @property
     def bytes_total(self) -> int:
         """WAL bytes appended plus committed snapshot bytes (monotonic;
         GC shrinks the footprint on disk, never this)."""
-        return self._bytes + self._snap_bytes
+        return self._m_bytes.value + self._m_snap_bytes.value
 
     @property
     def segments_sealed(self) -> int:
-        return self._sealed
+        return self._m_sealed.value
 
     @property
     def gc_segments(self) -> int:
-        return self._gc_segments
+        return self._m_gc_segments.value
 
     def on_disk_bytes(self) -> int:
         """Live WAL footprint: sealed segments and the active file."""
@@ -202,8 +215,9 @@ class OpJournal:
                     total += os.path.getsize(os.path.join(root, f))
                 except OSError:
                     pass
-        self._snap_bytes += total
+        self._m_snap_bytes.inc(total)
         self._since_snapshot = 0
+        self._g_since.set(0)
         return total
 
     def append(self, obj: dict) -> None:
@@ -213,10 +227,11 @@ class OpJournal:
         self._f.flush()
         if self.fsync:
             os.fsync(self._f.fileno())
-        self._records += 1
-        self._bytes += len(line)
+        self._m_records.inc()
+        self._m_bytes.inc(len(line))
         self._active_bytes += len(line)
         self._since_snapshot += len(line)
+        self._g_since.set(self._since_snapshot)
         self._active_records += 1
         r = obj.get("r")
         if isinstance(r, int):
@@ -247,8 +262,8 @@ class OpJournal:
         self._active_max_r = -1
         self._active_roundless = False
         self._active_records = 0
-        self._sealed += 1
-        self._wal_segments = 1 + len(wal_segments(self.dir))
+        self._m_sealed.inc()
+        self._g_segments.set(1 + len(wal_segments(self.dir)))
         return True
 
     def round_record(self, rnd: int,
@@ -325,8 +340,9 @@ class OpJournal:
                 pass
             self._seg_max.pop(name, None)
         os.unlink(mpath)
-        self._gc_segments += len(victims)
-        self._wal_segments = 1 + len(wal_segments(self.dir))
+        self._m_gc_passes.inc()
+        self._m_gc_segments.inc(len(victims))
+        self._g_segments.set(1 + len(wal_segments(self.dir)))
         info["deleted"] = len(victims)
         info["freed_bytes"] = freed
         return info
@@ -340,17 +356,18 @@ class OpJournal:
             for name in list(self._seg_max):
                 if name not in live:
                     del self._seg_max[name]
-                self._gc_segments += n
-            self._wal_segments = 1 + len(live)
+            self._m_gc_passes.inc()
+            self._m_gc_segments.inc(n)
+            self._g_segments.set(1 + len(live))
         return n
 
     def status_fields(self) -> dict:
         """The durability view in small scalars (no disk walk)."""
         return {
-            "wal_segments": self._wal_segments,
-            "bytes_since_snapshot": self._since_snapshot,
-            "segments_sealed": self._sealed,
-            "gc_segments": self._gc_segments,
+            "wal_segments": int(self._g_segments.value),
+            "bytes_since_snapshot": int(self._g_since.value),
+            "segments_sealed": self._m_sealed.value,
+            "gc_segments": self._m_gc_segments.value,
         }
 
     def close(self) -> None:

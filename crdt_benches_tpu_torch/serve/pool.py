@@ -58,6 +58,7 @@ import torch
 
 from ..device import resolve_device
 from ..engine.merge_fleet import merge_rows_body
+from ..obs.metrics import Counter, Gauge
 from ..ops.apply2 import LANE, PackedState
 from ..ops.packing import op_lane_dtypes, widen_ops
 from ..ops.resolve_range import resolve_range_rows
@@ -128,11 +129,15 @@ class Bucket:
     rows are docs.  Free rows sit in a min-heap (lazily invalidated, so the
     scheduler can claim specific rows), so allocation prefers the lowest
     row and keeps the occupied set packed toward the front, which is what
-    makes tier slicing effective."""
+    makes tier slicing effective.  One shard (``n_sh`` 1, ``Rg`` = R: the
+    JAX bucket's values without a mesh)."""
+
+    n_sh = 1
 
     def __init__(self, C: int, R: int, device: torch.device):
         self.C = C
         self.R = R
+        self.Rg = R  # rows per shard
         self.state = PackedState(
             doc=torch.full((R, C), 2, dtype=I32, device=device),
             length=torch.zeros(R, dtype=I32, device=device),
@@ -164,6 +169,11 @@ class Bucket:
     def release_row(self, row: int) -> None:
         self.free.add(row)
         heapq.heappush(self._heap, row)
+
+    def free_locals(self, s: int) -> set[int]:
+        """Shard ``s``'s free local rows (the one shard's: every free
+        row)."""
+        return self.free
 
 
 @dataclass
@@ -271,13 +281,27 @@ class DocPool:
         self.finish_torn_spool_gc()
         #: staged op-lane dtypes (ops/packing.py), static per pool
         self.op_dtypes = op_lane_dtypes(max(classes))
-        self.evictions = 0
-        self.restores = 0  # admissions that read a cold spool
-        self.promotions = 0
-        self.fresh_admits = 0  # admissions installed from the initial text
-        self.warm_hits = 0  # admissions served from the warm tier
-        self.prefetch_hits = 0  # warm hits the prefetcher deposited
-        self.warm_evictions = 0  # warm-to-cold demotions
+        #: mesh shards of the fleet: one (the serve mesh is not ported)
+        self.n_sh = 1
+        # typed counters (obs/metrics.py), attached to a drain's registry
+        # by bind_metrics; the int properties below read and write them:
+        # evictions, restores (admissions that read a cold spool),
+        # promotions, fresh_admits (admissions installed from the initial
+        # text), warm_hits (admissions served from the warm tier),
+        # warm_evictions (warm-to-cold demotions) and prefetch_hits (warm
+        # hits the prefetcher deposited)
+        self._counters = {
+            name: Counter("serve.pool." + name)
+            for name in ("evictions", "restores", "promotions",
+                         "fresh_admits")}
+        for name in ("warm_hits", "warm_evictions", "prefetch_hits"):
+            self._counters[name] = Counter("serve.tier." + name)
+        #: the residency gauges, refreshed once a round by the scheduler
+        #: (:meth:`update_tier_gauges`)
+        self._gauges = {
+            name: Gauge("serve.tier." + name)
+            for name in ("hot_rows", "warm_docs", "cold_docs",
+                         "genesis_docs", "prefetch_inflight")}
         self.warm = WarmTier(warm_docs)
         #: per-doc spool write generation, bumped at every spool_save: a
         #: prefetch read that raced a re-eviction is stale
@@ -300,6 +324,30 @@ class DocPool:
         #: docs the fleet specifies that have no record yet (streaming
         #: construction's genesis residency; 0 for an eager fleet)
         self._n_genesis = 0
+
+    def bind_metrics(self, registry) -> None:
+        """Attach the pool's counters and gauges to a drain's
+        ``MetricsRegistry`` (the same objects: the pool keeps counting
+        through them)."""
+        for m in (*self._counters.values(), *self._gauges.values()):
+            registry.attach(m)
+
+    def _counter(name):  # a class-body helper: the int view of a counter
+        def get(self) -> int:
+            return self._counters[name].value
+
+        def put(self, v: int) -> None:
+            self._counters[name].value = int(v)
+        return property(get, put)
+
+    evictions = _counter("evictions")
+    restores = _counter("restores")
+    promotions = _counter("promotions")
+    fresh_admits = _counter("fresh_admits")
+    warm_hits = _counter("warm_hits")
+    warm_evictions = _counter("warm_evictions")
+    prefetch_hits = _counter("prefetch_hits")
+    del _counter
 
     # ---- dirty tracking (the delta snapshots' substrate) ----
 
@@ -696,8 +744,19 @@ class DocPool:
         """Occupied device rows across every class."""
         return sum(b.R - b.n_free for b in self.buckets.values())
 
+    def update_tier_gauges(self) -> None:
+        """Refresh the residency gauges (the scheduler, once a round: host
+        arithmetic on pre-registered gauges)."""
+        g = self._gauges
+        g["hot_rows"].set(self.hot_rows)
+        g["warm_docs"].set(len(self.warm))
+        g["cold_docs"].set(self.cold_docs)
+        g["genesis_docs"].set(self._n_genesis)
+        g["prefetch_inflight"].set(
+            self.prefetcher.inflight if self.prefetcher is not None else 0)
+
     def tier_status(self) -> dict:
-        """The residency in small scalars."""
+        """The residency in small scalars (``/status.json``)."""
         pf = self.prefetcher
         return {
             "hot_rows": self.hot_rows,
@@ -820,6 +879,15 @@ class DocPool:
 
     def occupancy(self) -> dict[int, float]:
         return {c: 1.0 - b.n_free / b.R for c, b in self.buckets.items()}
+
+    def shard_occupancy(self) -> list[int]:
+        """Occupied rows per shard over every class (one shard); their sum
+        is the fleet's resident-doc count."""
+        out = [0] * self.n_sh
+        for b in self.buckets.values():
+            for s in range(b.n_sh):
+                out[s] += b.Rg - len(b.free_locals(s))
+        return out
 
     def close(self) -> None:
         """Stop the prefetch thread, then delete the spool directory if

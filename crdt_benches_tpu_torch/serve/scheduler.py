@@ -61,6 +61,17 @@ fixed points of each round):
 - **idempotent admission**: the cursor is the delivery high-water mark, so
   a duplicated batch is clamped and dropped (``dup_ops_dropped``).
 
+Telemetry (``obs/``): :class:`ServeStats` keeps its per-round series in the
+drain's ``MetricsRegistry`` (fixed-bucket histograms of round latency,
+occupancy, queue depth and per-cause doc drain latency), and the pool,
+journal and fault counters attach to it; every phase of a round is a span
+of the tracer (a shared no-op unless armed) and a segment of the request
+tracker (``reqtrace``, the admission-timestamp table unless armed); each
+admission opens a request and each drained doc closes it under a cause
+tag; ``telemetry`` (``obs/timeseries.py ServeTelemetry``) takes one sample
+a round (time-series windows, the status endpoint, the anomaly detectors,
+the flight recorder) and the durability and recovery events.
+
 The macro depth of a class's tensor trims exactly to its deepest lane (the
 JAX host form's rule): nothing in the port is keyed by K.
 """
@@ -75,7 +86,15 @@ from functools import partial
 
 import numpy as np
 
-from ..bench.harness import _quantile
+from ..obs.metrics import (
+    DEPTH_BUCKETS,
+    LATENCY_BUCKETS_S,
+    OCCUPANCY_BUCKETS,
+    Histogram,
+    MetricsRegistry,
+)
+from ..obs.reqtrace import RequestTracker
+from ..obs.trace import span
 from ..ops.packing import pack_ops
 from ..traces.tensorize import INSERT, PAD, split_insert_runs, tensorize_ranges
 from ..utils.checkpoint import CorruptCheckpointError, load_state
@@ -382,12 +401,33 @@ class LazyStreams:
 #: rebuilds and the degraded fence in "dispatch").
 PHASES = ("plan", "stage", "moves", "dispatch")
 
+#: Cause tags of the per-doc admission-to-drain latency series: how the
+#: doc's stream ended.  A fixed set, pre-registered.
+DOC_CAUSE_TAGS = ("ok", "deferred", "shed", "quarantined")
+
 
 @dataclass
 class ServeStats:
-    """One drain's counters and per-round latencies."""
+    """One drain's counters and telemetry.
 
+    The per-round series live in fixed-bucket histograms of
+    :attr:`metrics` (O(buckets) however long the drain), and
+    :meth:`note_round` is the one place a round is classified: a compile
+    round (never in the port: nothing compiles per shape, so
+    ``macro_step`` reports none) or a snapshot-barrier round goes to
+    ``lat_skipped``, every other to ``lat_steady``.  ``keep_raw`` (tests)
+    also keeps the raw per-round lists."""
+
+    metrics: MetricsRegistry = field(default_factory=MetricsRegistry)
+    keep_raw: bool = False
+    raw_round_latencies: list[float] = field(default_factory=list)
+    raw_compile_flags: list[bool] = field(default_factory=list)
+    raw_barrier_flags: list[bool] = field(default_factory=list)
     rounds: int = 0  # macro-rounds dispatched
+    compile_time: float = 0.0  # wall time of compile-flagged rounds
+    compile_rounds: int = 0
+    barrier_time: float = 0.0  # wall time of snapshot-barrier rounds
+    barrier_rounds: int = 0
     slices: int = 0  # device rounds (sum of K_eff per class)
     ops: int = 0  # coalesced range ops applied
     unit_ops: int = 0  # unit-op equivalent (sum of run lengths)
@@ -399,9 +439,6 @@ class ServeStats:
     admissions: int = 0
     dispatches: int = 0  # macro steps (one per active class and round)
     wall_time: float = 0.0
-    round_latencies: list[float] = field(default_factory=list)
-    #: per round: a snapshot barrier ran in it (a forced sync)
-    barrier_flags: list[bool] = field(default_factory=list)
     phase_seconds: dict[str, float] = field(
         default_factory=lambda: dict.fromkeys(PHASES, 0.0))
     snapshots: int = 0
@@ -424,23 +461,55 @@ class ServeStats:
     faults_seen: int = 0  # faults the engine observed
     faults_injected: int = 0  # events the injector fired
 
+    def __post_init__(self):
+        m = self.metrics
+        self.lat_steady = m.histogram("serve.round.latency.steady",
+                                      LATENCY_BUCKETS_S)
+        self.lat_skipped = m.histogram("serve.round.latency.skipped",
+                                       LATENCY_BUCKETS_S)
+        self.occupancy = m.histogram("serve.round.occupancy",
+                                     OCCUPANCY_BUCKETS)
+        self.queue_depth = m.histogram("serve.round.queue_depth",
+                                       DEPTH_BUCKETS)
+        self.doc_latency = {
+            tag: m.histogram("serve.doc.drain_latency." + tag,
+                             LATENCY_BUCKETS_S)
+            for tag in DOC_CAUSE_TAGS}
+
+    def note_round(self, latency: float, compiled: bool,
+                   barrier: bool) -> None:
+        """Record one macro-round: THE classification rule (compile and
+        barrier rounds are kept out of the steady histogram and accounted
+        apart)."""
+        self.rounds += 1
+        if compiled:
+            self.compile_time += latency
+            self.compile_rounds += 1
+            self.lat_skipped.observe(latency)
+        elif barrier:
+            self.barrier_time += latency
+            self.barrier_rounds += 1
+            self.lat_skipped.observe(latency)
+        else:
+            self.lat_steady.observe(latency)
+        if self.keep_raw:
+            self.raw_round_latencies.append(latency)
+            self.raw_compile_flags.append(compiled)
+            self.raw_barrier_flags.append(barrier)
+
+    @property
+    def steady_rounds(self) -> int:
+        return self.lat_steady.count
+
     def latency_quantiles(self, ps=(0.5, 0.95, 0.99)) -> dict[str, float]:
-        """Quantiles of the steady per-macro-round wall latencies: barrier
-        rounds are left out (all rounds when every round had one)."""
-        s = sorted(lat for lat, b in zip(self.round_latencies,
-                                         self.barrier_flags) if not b)
-        s = s or sorted(self.round_latencies)
-        return {f"p{100 * p:g}": (_quantile(s, p) if s else 0.0) for p in ps}
-
-    @property
-    def barrier_time(self) -> float:
-        """Wall time of the rounds that ran a snapshot barrier."""
-        return sum(lat for lat, b in zip(self.round_latencies,
-                                         self.barrier_flags) if b)
-
-    @property
-    def barrier_rounds(self) -> int:
-        return sum(self.barrier_flags)
+        """Steady-round latency quantiles from the histogram (within a
+        bucket's ~21%), or of every round when every round was skipped."""
+        if self.lat_steady.count:
+            return self.lat_steady.quantiles(ps)
+        if self.lat_skipped.count:
+            return Histogram.merged(self.lat_steady,
+                                    self.lat_skipped).quantiles(ps)
+        return {f"p{100 * p:g}": 0.0 for p in ps}
 
     @property
     def coalesce_ratio(self) -> float:
@@ -453,6 +522,11 @@ class ServeStats:
         if not self.staged_cells:
             return 0.0
         return 1.0 - self.ops / self.staged_cells
+
+    def note_doc_drained(self, tag: str, seconds: float) -> None:
+        """One doc's stream ended: its admission-to-drain latency under
+        its cause tag."""
+        self.doc_latency[tag].observe(seconds)
 
 
 @dataclass
@@ -481,6 +555,8 @@ class _Plan:
     # ("warm", entry), ("spool", path) or ("pull", src_cls, src_row)
     installs: dict[int, list[tuple[int, int, tuple]]] = field(
         default_factory=dict)
+    #: arrived, undrained docs this round could not schedule
+    waiting: int = 0
 
 
 class FleetScheduler:
@@ -491,6 +567,7 @@ class FleetScheduler:
                  snapshot_keep: int = 2, snapshot_full_every: int = 4,
                  degrade_after: int = 3, degrade_window: int = 8,
                  degrade_rounds: int = 4, start_round: int = 0,
+                 telemetry=None, reqtrace=None, slo=None,
                  drained_gc: bool = False, gc_keep=None):
         if overflow_policy not in ("defer", "shed"):
             raise ValueError(f"unknown overflow policy {overflow_policy!r}")
@@ -533,6 +610,7 @@ class FleetScheduler:
             self._order_arrivals = arr[self._order]
             self._order_ptr = 0
             self._rr: deque[int] = deque()  # arrived ids with pending ops
+            self._arrivals_sorted = self._order_arrivals
             # the patch total is known once every doc materialized: run()
             # fills it in at the drain's end
             self.stats = ServeStats(patches=0)
@@ -541,12 +619,19 @@ class FleetScheduler:
             # arrival order (stable for determinism)
             self._rr = deque(sorted(
                 streams, key=lambda d: (streams[d].arrival, d)))
+            # the static arrival schedule and the ended set are the O(1)
+            # inputs of _select's count of the unscanned tail's waiting
+            # docs (arrived and not drained)
+            self._arrivals_sorted = np.sort(np.fromiter(
+                (st.arrival for st in streams.values()), dtype=np.int64,
+                count=len(streams)))
             if self.queue_cap > 0:
                 for st in streams.values():
                     if st.delivered is None:
                         st.delivered = st.cursor
             self.stats = ServeStats(
                 patches=sum(s.n_patches for s in streams.values()))
+        self._ended: set[int] = set()  # docs whose stream ended
         # drained-doc record eviction (two-phase spool GC): journal-less
         # drains only, since recovery reads snapshot members in the spool
         if drained_gc and journal is not None:
@@ -574,8 +659,42 @@ class FleetScheduler:
             self.stats.phase_seconds["wal"] = 0.0
             self.stats.phase_seconds["snapshot"] = 0.0
         if faults is not None:
-            faults.bind_metrics()
             self.stats.phase_seconds["faults"] = 0.0
+        # the round held until the next round (or the drain's end) records
+        # it, so run() folds the final fence into the last round's latency
+        self._pending_round: tuple[float, bool, bool] | None = None
+        # request lifecycle (obs/reqtrace.py): disarmed, the admission-
+        # timestamp table; armed, a request context an episode with its
+        # phase segments
+        self.reqtrace = reqtrace if reqtrace is not None \
+            else RequestTracker()
+        self.slo = slo  # obs/slo.py SloTracker (or None)
+        # one registry a drain: the pool's, journal's and faults' metrics
+        # attach to it, so the report's metrics block holds the whole run
+        reg = self.stats.metrics
+        pool.bind_metrics(reg)
+        if journal is not None:
+            journal.bind_metrics(reg)
+        if faults is not None:
+            faults.bind_metrics(reg)
+        if slo is not None:
+            slo.bind(reg)  # the burn-rate gauges, pre-registered
+        self.reqtrace.bind(self.stats)
+        self._m_faults_seen = reg.counter("serve.faults.seen")
+        # the durability gauges: the newest barrier's delta-chain depth and
+        # the round of the last completed WAL compaction
+        self._g_chain_depth = reg.gauge("serve.durability.chain_depth")
+        self._g_last_compact = reg.gauge(
+            "serve.durability.last_compaction_round")
+        # continuous telemetry (obs/timeseries.py ServeTelemetry, or None)
+        self.telemetry = telemetry
+        self._last_occ = 0.0
+        self._last_queue = 0
+        self._sh_lanes = [0] * pool.n_sh
+        self._sh_ops = [0] * pool.n_sh
+        self._sh_units = [0] * pool.n_sh
+        if telemetry is not None:
+            telemetry.bind(pool, reg, reqtrace=self.reqtrace)
 
     # ---- degradation (macro-K falls back to K = 1) ----
 
@@ -590,6 +709,7 @@ class FleetScheduler:
         ``degrade_rounds`` dispatched rounds, from the next planned round
         on (journaled as a ``degrade`` event)."""
         self.stats.faults_seen += 1
+        self._m_faults_seen.inc()
         self._fault_rounds.append(self.round)
         while (self._fault_rounds
                and self._fault_rounds[0] < self.round - self.degrade_window):
@@ -647,17 +767,28 @@ class FleetScheduler:
             c = e
         return takes, c
 
-    def _note_doc_drained(self, st: DocStream) -> None:
-        """One doc's stream ended (drained, shed empty or quarantined).  A
-        streamed, journal-less drain releases its op arrays (nothing
-        replays them); with ``drained_gc`` the doc is queued for the next
-        boundary's record eviction (:meth:`_flush_drained_gc`).  The
-        request trace's close and the per-cause latency are left out
-        (``ROADMAP.md`` Queue 1 item 6.6)."""
+    def _note_doc_drained(self, st: DocStream, tag: str | None = None
+                          ) -> None:
+        """One doc's stream ended (drained, shed empty or quarantined):
+        close its request under its cause tag (``shed`` for a lossy doc,
+        ``deferred`` for one ever backpressured, else ``ok``, unless
+        given) and record its admission-to-drain latency.  The close pops
+        the request, so each episode is observed once, and a doc admitted
+        again opens a fresh one.  A streamed, journal-less drain releases
+        its op arrays (nothing replays them); with ``drained_gc`` the doc
+        is queued for the next boundary's record eviction
+        (:meth:`_flush_drained_gc`)."""
+        self._ended.add(st.doc_id)
+        if tag is None:
+            tag = ("shed" if st.lossy else "deferred" if st.deferred_high > 0
+                   else "ok")
+        dt = self.reqtrace.close_request(st.doc_id, tag, round_no=self.round)
         if self._lazy and self.journal is None:
             self.streams.release(st.doc_id)
         if self.drained_gc and st.doc_id not in self._gc_keep:
             self._gc_queue.append(st.doc_id)
+        if dt is not None:  # None: never admitted, or already closed
+            self.stats.note_doc_drained(tag, dt)
 
     def _flush_drained_gc(self, force: bool = False) -> None:
         """Reclaim the queued drained docs in batches of 32 (the manifest's
@@ -672,14 +803,22 @@ class FleetScheduler:
     def _select(self, plan: _Plan) -> None:
         """Pick this macro-round's lanes {class: [_Lane]}, bounded by each
         bucket's rows, in round-robin order.  Once every class is full no
-        remaining doc can schedule: the rest of the rotation stays in
-        place."""
+        remaining doc can schedule: the rest of the rotation stays in place
+        and its arrived, undrained docs count as waiting (from the arrival
+        schedule and the ended set, without a scan)."""
         pool = self.pool
         scheduled: list[int] = []
         deferred: list[int] = []
         n_lanes: dict[int, int] = {}
         open_classes = {c for c in pool.classes if pool.buckets[c].R > 0}
-        while self._rr and open_classes:
+        popped_live = 0  # arrived, undrained docs this scan handled
+        while self._rr:
+            if not open_classes:
+                arrived = int(np.searchsorted(self._arrivals_sorted,
+                                              self.round, side="right"))
+                plan.waiting += max(
+                    0, arrived - len(self._ended) - popped_live)
+                break
             doc_id = self._rr.popleft()
             st = self.streams[doc_id]
             self._deliver(st)
@@ -689,8 +828,10 @@ class FleetScheduler:
             if st.arrival > self.round:
                 deferred.append(doc_id)
                 continue
+            popped_live += 1
             if st.n_sched <= st.cursor:
                 # the bounded queue is empty under backpressure: next round
+                plan.waiting += 1
                 deferred.append(doc_id)
                 continue
             if self.faults is not None:
@@ -713,6 +854,7 @@ class FleetScheduler:
             lanes = plan.lanes.setdefault(cls, [])
             n = n_lanes.get(cls, 0)
             if n >= R:
+                plan.waiting += 1
                 deferred.append(doc_id)
                 open_classes.discard(cls)
                 continue
@@ -720,6 +862,8 @@ class FleetScheduler:
             n_lanes[cls] = n + 1
             if n + 1 >= R:
                 open_classes.discard(cls)
+            # the admission edge: one request an episode
+            self.reqtrace.open_request(doc_id, self.round, cap_cls=cls)
             scheduled.append(doc_id)
         # scheduled docs go to the back; deferred (and any unscanned tail,
         # already in place) keep their order
@@ -998,6 +1142,9 @@ class FleetScheduler:
         ev.fire(self.round, demoted=demoted)
         ev.recover()  # churn is absorbed, not repaired
         self._note_fault()
+        if self.telemetry is not None:
+            self.telemetry.note_event("tier", why="evict_pressure",
+                                      round=self.round, demoted=demoted)
 
     def _all_residents(self) -> list[tuple[int, int]]:
         return [(d, row) for cls in self.pool.classes
@@ -1049,7 +1196,7 @@ class FleetScheduler:
         self.pool._set_spool(rec, None)
         self.pool.warm.take(doc_id)  # a quarantined doc holds no tier
         self._dead_lanes.add(doc_id)
-        self._note_doc_drained(st)
+        self._note_doc_drained(st, tag="quarantined")
         self.stats.quarantines.append({"doc": doc_id, "round": self.round,
                                        "reason": reason, "shed_ops": shed})
         if self.journal:
@@ -1087,7 +1234,8 @@ class FleetScheduler:
                     ev = e
                     break
         try:
-            row_v, L, nv, disp, ops = self._rebuild(doc_id, cls)
+            with span("serve.recover.spool", doc=doc_id):
+                row_v, L, nv, disp, ops = self._rebuild(doc_id, cls)
             self.stats.recoveries += 1
             self.stats.ops_replayed += ops
             self.stats.replay_dispatches += disp
@@ -1097,6 +1245,9 @@ class FleetScheduler:
             if self.journal:
                 self.journal.event("heal", r=self.round, doc=doc_id, ops=ops,
                                    why="spool")
+            if self.telemetry is not None:
+                self.telemetry.note_event("recovery", round=self.round,
+                                          doc=doc_id, why="spool", ops=ops)
             return row_v, L, nv
         except Exception as e2:  # the rebuild failed too: isolate the doc
             self._quarantine(
@@ -1148,6 +1299,9 @@ class FleetScheduler:
         if self.journal:
             self.journal.event("device_loss", r=self.round, cls=cls,
                                docs=len(affected), ops=replayed)
+        if self.telemetry is not None:
+            self.telemetry.note_event("recovery", round=self.round, cls=cls,
+                                      why="device_loss", ops=replayed)
 
     def finalize_faults(self) -> None:
         """The end-of-drain sweep: a damaged spool whose doc was never
@@ -1169,6 +1323,9 @@ class FleetScheduler:
                     # the walk fell back below the damaged link, or a later
                     # full barrier re-rooted past it: both the repair
                     e.recover(fallback_to=used, fallbacks=fallbacks)
+                if self.telemetry is not None:
+                    self.telemetry.note_event("recovery_probe", used=used,
+                                              fallbacks=fallbacks)
         for e in self.faults.plan.events:
             if e.kind not in ("spool_corrupt", "spool_truncate"):
                 continue
@@ -1209,19 +1366,23 @@ class FleetScheduler:
         snaps = {cls: pool.pull_bucket(cls)
                  for cls in sorted(plan.pull_classes)}
         warm_mode = pool.warm.budget > 0
+        demoted = 0
         for doc_id, cls, row in plan.evictions:
             if doc_id in plan.cancelled_evictions:
                 continue  # pulled into a larger class this round
             doc, length, nvis = snaps[cls]
             if warm_mode:
-                pool.warm_deposit(doc_id, doc[row], int(length[row]),
-                                  int(nvis[row]),
-                                  last_sched=pool.docs[doc_id].last_sched)
+                demoted += pool.warm_deposit(
+                    doc_id, doc[row], int(length[row]), int(nvis[row]),
+                    last_sched=pool.docs[doc_id].last_sched)
             else:
                 pool.spool_save(doc_id, doc[row], int(length[row]),
                                 int(nvis[row]))
         if warm_mode:
-            pool._enforce_warm_budget()  # the harvest's overflow too
+            demoted += pool._enforce_warm_budget()  # the harvest's overflow
+        if demoted and self.telemetry is not None:
+            self.telemetry.note_event("tier", why="warm_overflow",
+                                      round=self.round, demoted=demoted)
         for cls, items in plan.installs.items():
             if not items:
                 continue
@@ -1377,6 +1538,10 @@ class FleetScheduler:
                 ev.fire(self.round, dropped=len(wanted))
                 ev.recover()  # the synchronous fallback is the recovery
                 self._note_fault()
+                if self.telemetry is not None:
+                    self.telemetry.note_event(
+                        "tier", why="prefetch_miss", round=self.round,
+                        dropped=len(wanted))
                 return
         for item in wanted:
             doc_id = item[1]
@@ -1390,7 +1555,10 @@ class FleetScheduler:
 
     # ---- dispatch and host mirrors ----
 
-    def _dispatch(self, plan: _Plan, tensors: dict[int, tuple]) -> None:
+    def _dispatch(self, plan: _Plan, tensors: dict[int, tuple]) -> bool:
+        """One macro step a class.  Returns whether a dispatch compiled a
+        new shape: never in the port (the kernels are built and loaded
+        before a drain, and nothing is keyed by shape)."""
         for cls, (kind, pos, rlen, slot0) in tensors.items():
             self.pool.macro_step(cls, kind, pos, rlen, slot0,
                                  nbits=self.nbits)
@@ -1400,35 +1568,58 @@ class FleetScheduler:
             if self.faults is not None:
                 ev = self.faults.device_loss_event(self.round, cls)
                 if ev is not None:
-                    self._recover_class(cls, plan, ev)
+                    with span("serve.recover.class", cls=cls):
+                        self._recover_class(cls, plan, ev)
+        return False
 
     def _advance(self, plan: _Plan) -> None:
         """Host mirrors after dispatch: the staged ops will be applied and
         length and cursor evolve deterministically, so no sync is needed
         to keep scheduling exact.  The lanes of a class that lost its
         device state (popped from the plan) and of docs quarantined this
-        round do not advance."""
-        for lanes in plan.lanes.values():
+        round do not advance.  The round's occupancy (lanes used over the
+        fleet's rows) and queue depth (``plan.waiting``) are observed, and
+        the per-shard tallies kept for the telemetry."""
+        lanes_used = 0
+        n_sh = self.pool.n_sh
+        sh_lanes, sh_ops, sh_units = [0] * n_sh, [0] * n_sh, [0] * n_sh
+        for cls, lanes in plan.lanes.items():
+            Rg = self.pool.buckets[cls].Rg
             for lane in lanes:
                 st = lane.stream
                 if st.doc_id in self._dead_lanes:
                     continue
                 rec = self.pool.docs[st.doc_id]
-                self.stats.ops += lane.end - st.cursor
-                self.stats.unit_ops += (st.units_before(lane.end)
-                                        - st.units_before(st.cursor))
+                ops_d = lane.end - st.cursor
+                units_d = (st.units_before(lane.end)
+                           - st.units_before(st.cursor))
+                self.stats.ops += ops_d
+                self.stats.unit_ops += units_d
+                s = lane.row // Rg  # the lane's shard: host arithmetic
+                sh_lanes[s] += 1
+                sh_ops[s] += ops_d
+                sh_units[s] += units_d
                 st.cursor = lane.end
                 rec.length = rec.n_init + st.ins_before(lane.end)
                 rec.last_sched = plan.base_round
+                lanes_used += 1
                 if st.remaining == 0:
                     self._note_doc_drained(st)
         self._dead_lanes.clear()
+        occ = lanes_used / sum(b.R for b in self.pool.buckets.values())
+        self.stats.occupancy.observe(occ)
+        self.stats.queue_depth.observe(plan.waiting)
+        self._last_occ = occ
+        self._last_queue = plan.waiting
+        self._sh_lanes, self._sh_ops, self._sh_units = (sh_lanes, sh_ops,
+                                                        sh_units)
         if self._planned_degraded:
             self.stats.degraded_rounds += 1
             self._degrade_left -= 1
         if self._bp_round:
             self.stats.backpressure_rounds += 1
             self._bp_round = False
+        self.pool.update_tier_gauges()
         self.round = plan.base_round + max(plan.k_eff.values())
         self._n_rounds += 1
 
@@ -1449,7 +1640,8 @@ class FleetScheduler:
             return False
         if self._n_rounds % self.snapshot_every:
             return False
-        self._snapshot_barrier()
+        with span("serve.snapshot"):
+            self._snapshot_barrier()
         return True
 
     def _snapshot_barrier(self) -> None:
@@ -1471,21 +1663,33 @@ class FleetScheduler:
         self.stats.snapshots += 1
         self.stats.snapshot_time += time.perf_counter() - t0
         kind = m["kind"]  # the committed kind (a delta may have re-rooted)
+        depth = int(m["depth"])
         if kind == "full":
             self.stats.snapshots_full += 1
         else:
             self.stats.snapshots_delta += 1
+        self._g_chain_depth.set(depth)
         self.journal.note_snapshot(d)
         self._bases.release()  # the barrier may have pruned old dirs
+        if self.telemetry is not None:
+            self.telemetry.note_event("snapshot", round=self.round,
+                                      snap_kind=kind, depth=depth)
         floor = retained_floor(self.journal.dir)
         info = self.journal.compact(self.round if floor is None else floor,
                                     crash_hook=self._gc_crash_hook)
         self.journal.event("snap", r=self.round, dir=os.path.basename(d),
-                           snap_kind=kind, depth=int(m["depth"]))
+                           snap_kind=kind, depth=depth)
+        if not info["crashed"]:
+            # a pass killed mid-flight did not complete: the gauge says
+            # when a compaction last finished
+            self._g_last_compact.set(self.round)
         if info["torn_completed"] and self._pending_gc_ev is not None:
             self._pending_gc_ev.recover(completed_round=self.round,
                                         segments=info["torn_completed"])
             self._pending_gc_ev = None
+        if self.telemetry is not None and (
+                info["deleted"] or info["torn_completed"] or info["crashed"]):
+            self.telemetry.note_event("compaction", **info)
         if self.faults is not None:
             self._fire_delta_corrupt()
 
@@ -1532,6 +1736,71 @@ class FleetScheduler:
         self.stats.faults_injected += 1
         self._note_fault()
 
+    # ---- continuous telemetry taps (host only; see obs/timeseries.py) ----
+
+    def _cum_counters(self) -> dict:
+        """The cumulative counters the time-series recorder delta-encodes
+        into windows (``obs/timeseries.py CUM_KEYS``).  ``fence_entries``
+        stays 0: the port has no sync sanitizer to count fence
+        crossings."""
+        s = self.stats
+        return {
+            "ops": s.ops,
+            "unit_ops": s.unit_ops,
+            "shed": s.shed_ops,
+            "deferred": s.deferred_ops,
+            "quarantines": len(s.quarantines),
+            "dup_dropped": s.dup_ops_dropped,
+            "evictions": self.pool.evictions,
+            "restores": self.pool.restores,
+            "promotions": self.pool.promotions,
+            "recoveries": s.recoveries,
+            "journal_bytes": (self.journal.bytes_total if self.journal
+                              else 0),
+            "fence_entries": 0,
+        }
+
+    def status_fields(self) -> dict:
+        """The ``/status.json`` snapshot: where the drain is now, its fault
+        and degraded state, and with a warm tier, a journal or an SLO
+        their ``residency``, ``durability`` and ``slo`` views.  Plain
+        scalars only: the status server serializes it as published."""
+        s = self.stats
+        out = {
+            "phase": "serving",
+            "round": self.round,
+            "rounds": self._n_rounds,
+            "occupancy": self._last_occ,
+            "queue_depth": self._last_queue,
+            "ops": s.ops,
+            "unit_ops": s.unit_ops,
+            "patches": s.patches,
+            "shed_ops": s.shed_ops,
+            "deferred_ops": s.deferred_ops,
+            "quarantines": len(s.quarantines),
+            "degraded": self._degrade_left > 0,
+            "faults_seen": s.faults_seen,
+            "faults_injected": s.faults_injected,
+            "recoveries": s.recoveries,
+            "snapshots": s.snapshots,
+            "done": False,
+        }
+        if self.pool.warm.budget > 0:
+            res = self.pool.tier_status()
+            res["prefetch_wasted"] = self.prefetch_wasted
+            res["prefetch_missed"] = self.prefetch_missed
+            out["residency"] = res
+        if self.journal is not None:
+            d = self.journal.status_fields()
+            d["chain_depth"] = int(self._g_chain_depth.value)
+            d["last_compaction_round"] = int(self._g_last_compact.value)
+            d["snapshots_full"] = s.snapshots_full
+            d["snapshots_delta"] = s.snapshots_delta
+            out["durability"] = d
+        if self.slo is not None:
+            out["slo"] = self.slo.status_fields()
+        return out
+
     # ---- the drain loop ----
 
     def run_round(self) -> bool:
@@ -1539,65 +1808,111 @@ class FleetScheduler:
         faults -> plan -> WAL record -> stage -> stall fault -> boundary
         moves -> prefetch submissions -> spool fault -> one dispatch per
         class, each polled for a device loss -> advance -> the degraded
-        fence -> snapshot barrier).  Returns False when no work remains."""
+        fence -> snapshot barrier), each phase a span (``serve.*``) and a
+        request segment, then the round's telemetry sample.  Returns False
+        when no work remains."""
+        rt = self.reqtrace
+        rt.round_begin()  # reset the round's segments (no-op disarmed)
         t0 = time.perf_counter()
         ph = self.stats.phase_seconds
         faults = self.faults is not None
-        self._harvest_prefetch()
-        th = time.perf_counter()
-        timed_prefetch = "prefetch" in ph
-        if timed_prefetch:
-            ph["prefetch"] += th - t0
-        if faults:
-            self._fire_overflow()
-            self._fire_tier_pressure()
-            tf = time.perf_counter()
-            ph["faults"] += tf - th
-            th = tf
-        plan = self._plan()
-        t1 = time.perf_counter()
-        ph["plan"] += t1 - th
-        if plan is None:
-            return False
-        if self.journal is not None:
-            self._journal_round(plan)  # write-ahead: before the dispatch
-            tw = time.perf_counter()
-            ph["wal"] += tw - t1
-            t1 = tw
-        tensors = self._stage(plan)
-        t2 = time.perf_counter()
-        if faults:
-            self._maybe_stall(plan.base_round)
-            tf = time.perf_counter()
-            ph["faults"] += tf - t2
-            t2 = tf
-        self._execute_moves(plan)
-        t3 = time.perf_counter()
-        self._plan_prefetch()
-        tp = time.perf_counter()
-        if faults:
-            self._fire_spool_fault(plan)
-            tf = time.perf_counter()
-            ph["faults"] += tf - tp
-            tp = tf
-        self._dispatch(plan, tensors)
-        self._advance(plan)
-        if self._planned_degraded:
-            self.pool.block()  # degraded: synchronous K = 1 rounds
-        t4 = time.perf_counter()
-        barrier = self._maybe_snapshot()
-        t5 = time.perf_counter()
-        if timed_prefetch:
-            ph["prefetch"] += tp - t3
-        ph["stage"] += t2 - t1
-        ph["moves"] += t3 - t2
-        ph["dispatch"] += t4 - tp
-        if self.journal is not None:
-            ph["snapshot"] += t5 - t4
-        self.stats.rounds += 1
-        self.stats.round_latencies.append(t5 - t0)
-        self.stats.barrier_flags.append(barrier)
+        with span("serve.round", round=self.round):
+            self._harvest_prefetch()
+            th = time.perf_counter()
+            timed_prefetch = "prefetch" in ph
+            if timed_prefetch:
+                ph["prefetch"] += th - t0
+            if faults:
+                with span("serve.faults.inject"):
+                    self._fire_overflow()
+                    self._fire_tier_pressure()
+                tf = time.perf_counter()
+                ph["faults"] += tf - th
+                th = tf
+            with span("serve.plan"), rt.segment("plan"):
+                plan = self._plan()
+            t1 = time.perf_counter()
+            ph["plan"] += t1 - th
+            if plan is None:
+                return False
+            if rt.armed:
+                # the lane set is final: this round's segments fold into
+                # exactly these docs' requests
+                rt.note_scheduled(l.stream.doc_id
+                                  for lanes in plan.lanes.values()
+                                  for l in lanes)
+            if self.journal is not None:
+                # write-ahead: before the dispatch
+                with span("serve.journal.wal"), rt.segment("wal"):
+                    self._journal_round(plan)
+                tw = time.perf_counter()
+                ph["wal"] += tw - t1
+                t1 = tw
+            with span("serve.stage"), rt.segment("stage"):
+                tensors = self._stage(plan)
+            t2 = time.perf_counter()
+            if faults:
+                # its own segment: a stall shows in request traces as the
+                # stall, not as queue wait
+                with rt.segment("faults"):
+                    self._maybe_stall(plan.base_round)
+                tf = time.perf_counter()
+                ph["faults"] += tf - t2
+                t2 = tf
+            with span("serve.moves"), rt.segment("moves"):
+                self._execute_moves(plan)
+            t3 = time.perf_counter()
+            self._plan_prefetch()
+            tp = time.perf_counter()
+            if faults:
+                with span("serve.faults.inject"):
+                    self._fire_spool_fault(plan)
+                tf = time.perf_counter()
+                ph["faults"] += tf - tp
+                tp = tf
+            with span("serve.dispatch"), rt.segment("dispatch"):
+                compiled = self._dispatch(plan, tensors)
+            if rt.armed:
+                # before the cursors advance (each lane's ops still
+                # derivable) and before _advance closes requests
+                rt.fold_round(plan.base_round, [
+                    (l.stream.doc_id, l.end - l.stream.cursor)
+                    for lanes in plan.lanes.values() for l in lanes])
+            self._advance(plan)
+            if self._planned_degraded:
+                with span("serve.degraded_fence"):
+                    self.pool.block()  # degraded: synchronous K = 1 rounds
+            t4 = time.perf_counter()
+            barrier = self._maybe_snapshot()
+            t5 = time.perf_counter()
+            if timed_prefetch:
+                ph["prefetch"] += tp - t3
+            ph["stage"] += t2 - t1
+            ph["moves"] += t3 - t2
+            ph["dispatch"] += t4 - tp
+            if self.journal is not None:
+                ph["snapshot"] += t5 - t4
+        if self.telemetry is not None:
+            # the round's sample (its latency before the final fence's
+            # fold: the time-series wants the live rate)
+            self.telemetry.note_round(
+                round_no=self.round, seconds=time.perf_counter() - t0,
+                compiled=compiled, barrier=barrier,
+                occupancy=self._last_occ, queue_depth=self._last_queue,
+                cum=self._cum_counters(), shard_lanes=self._sh_lanes,
+                shard_ops=self._sh_ops, shard_units=self._sh_units,
+                status=self.status_fields())
+        # record the previous round and hold this one, so run() can fold
+        # the final fence into the last round before it is recorded
+        self._flush_round()
+        self._pending_round = (time.perf_counter() - t0, compiled, barrier)
         return True
+
+    def _flush_round(self) -> None:
+        """Record the held round through ``ServeStats.note_round``."""
+        if self._pending_round is not None:
+            self.stats.note_round(*self._pending_round)
+            self._pending_round = None
 
     def run(self, max_rounds: int | None = None) -> ServeStats:
         """Drain every queue (or stop after ``max_rounds`` macro-rounds).
@@ -1610,14 +1925,18 @@ class FleetScheduler:
             if max_rounds is not None and n >= max_rounds:
                 break
         t1 = time.perf_counter()
-        self.pool.block()
-        if self.stats.round_latencies:
-            self.stats.round_latencies[-1] += time.perf_counter() - t1
+        with span("serve.drain_fence"):
+            self.pool.block()
+        if self._pending_round is not None:
+            dt, c, b = self._pending_round
+            self._pending_round = (dt + time.perf_counter() - t1, c, b)
+        self._flush_round()
         self._flush_drained_gc(force=True)
         if self.faults is not None and self.done:
             # only a completed drain sweeps its faults: an interrupted one
             # (a crash round) leaves the repair to the journal's recovery
-            self.finalize_faults()
+            with span("serve.finalize_faults"):
+                self.finalize_faults()
         self.stats.wall_time += time.perf_counter() - t0
         self.stats.evictions = self.pool.evictions
         self.stats.restores = self.pool.restores

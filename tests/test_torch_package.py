@@ -115,7 +115,10 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "bench.harness", "backends.reconcile", "backends.base",
                 "backends.native", "entry", "parallel.mesh",
                 "parallel.launch", "engine.merge_fleet", "serve.journal",
-                "utils.fsdur", "serve.faults", "serve.construction"):
+                "utils.fsdur", "serve.faults", "serve.construction",
+                "obs.__init__", "obs.metrics", "obs.trace",
+                "obs.timeseries", "obs.shard", "obs.status", "obs.anomaly",
+                "obs.reqtrace", "obs.slo", "obs.flight"):
         assert os.path.exists(os.path.join(
             REPO, "crdt_benches_tpu_torch", *mod.split(".")) + ".py"), mod
 
