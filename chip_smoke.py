@@ -7,6 +7,8 @@ their plain PyTorch versions.
 ``--chaos-only`` the device, build and fault phases alone,
 ``--stream-only`` the device, build and streaming phases alone,
 ``--telemetry-only`` the device, build and telemetry phases alone,
+``--repl-only`` the device, build and replication phases alone,
+``--reshard-only`` the device, build and reshard phases alone,
 ``--tier-full`` drains the README's 65,536-document tier cell in ``[serve
 tier]`` in place of its cut, ``--stream-full`` the README's
 262,144-document streamed cell in ``[serve stream]`` (and adds eager rows
@@ -148,9 +150,9 @@ Phases (one line each; any failure exits non-zero):
     ``[serve]``'s, ``recover_ms``, ``redo_ms``, a seeded sample of 512
     docs verified after each; ``[serve crash]``, the drain stopped after
     round 10 and recovered from a delta at chain depth 2 with a redo tail;
-    ``[serve tier crash]``, the ``[serve tier ab]`` fleet crashed the same
-    way, warm members restored; each crash-recovered fleet byte-identical
-    to the oracle in every document; ``[journal
+    ``[serve tier crash]``, 1,024 docs at the ``[serve tier ab]`` tiers
+    crashed the same way, warm members restored; each crash-recovered
+    fleet byte-identical to the oracle in every document; ``[journal
     rebuild]``, 8 documents of each class rebuilt by ``rebuild_doc`` from
     their snapshot base and from nothing (K1's per-row form and K4 once
     per slice, each byte-identical), and both kernels held against their
@@ -195,12 +197,34 @@ Phases (one line each; any failure exits non-zero):
     operands through K1's per-row form and K4 against their plain
     versions; ``[serve telemetry chaos]``, a stall against a 250 ms
     watchdog (fired and cleared, a valid flight dump); ``[serve soak]``,
-    10 s of re-seeded drains under the anomaly detectors, none firing;
+    5 s of re-seeded drains under the anomaly detectors, none firing;
+    then multi-writer replication (``repl_phases``): ``[serve repl]``, the
+    README's serve/repl/mixed/512x4 uncut (2,048 replica rows), K1's
+    per-row form and K4 once per dispatch, every replica byte-identical to
+    the oracle and the RA-linearizability axioms on 16 sampled histories,
+    remote:local 3.00; ``[serve repl kernels]`` its kept operands against
+    the plain versions; ``[serve repl chaos]``, the JAX smoke's replicated
+    chaos leg (a partition and a reorder fired and recovered, every replica
+    converged), then the same fleet journaled, stopped after 8 macro-rounds
+    and resumed by ``recover_replicated_fleet`` to convergence; and live
+    resharding (``reshard_phases``): ``[serve reshard]``, the README's
+    acceptance recipe (serve/mixed/4096 on 8 logical shards,
+    ``shrink:8:6@16,batch=64`` under ``reshard_crash@16``, the journal):
+    the crash resumed, shards 6 and 7 retired, the partition clean, the
+    seeded sample byte-identical, its ``reshard`` block and its rate over
+    ``[serve]``'s; ``[serve reshard kernels]`` its kept operands (tiers
+    gathered over the shards) against the plain versions; ``[serve reshard
+    crash]``, the JAX smoke's reshard leg with ``/metrics`` read at each of
+    the coordinator's publishes (``serve_reshard_active 1`` with
+    ``pending_docs`` counting down) and a scraping thread, then the fleet
+    stopped mid-move and rolled forward by ``recover_fleet``, every
+    document byte-identical;
 15. the concurrent merges (``bench/merge.py``, ``--group merge``):
     merge/traces (rustcode and seph-blog1, 1,348,053 delivered ops)
     through the unit, run and flat engines at 64 replicas and through the
-    run and flat engines at 1024, merge/adversarial (9,999,872 delivered
-    ops, each unique op ~16 times, shuffled) through the unit and flat
+    run and flat engines at 1024, merge/adversarial (cut to about
+    5,000,000 delivered ops, each unique op ~16 times, shuffled) through
+    the unit and flat
     engines at 64: the generation counted (K5 once a batch of every
     agent's stream, held against its plain version on one batch), then per
     cell a counted run (K7 once a batch on the unit and run merges),
@@ -768,11 +792,14 @@ TIER_FULL = dict(SERVE_CELL, n_docs=65536, arrival_span=32,
 #: ``hot=32,warm=512`` (slots (24, 6, 2, 2, 2)) keep the 64x
 #: over-subscription and the 16:1 warm to hot ratio.
 TIER_CELL = dict(TIER_FULL, n_docs=2048, serve_tiers="hot=32,warm=512")
-#: ``[serve tier ab]``'s and ``[serve tier crash]``'s fleet and tiers:
+#: ``[serve tier ab]``'s fleet, and its tiers for ``[serve tier crash]`` too:
 #: SERVE_CELL's fleet cut to 2,048 docs (4,096 at ``hot=256,warm=1024``
 #: until the streaming phases came) at slots (96, 24, 6, 2, 2), 16 times
 #: over-subscribed, with a warm tier of 512.
 TIER_AB_DOCS = 2048
+#: ``[serve tier crash]``'s fleet: the A/B fleet cut to 1,024 docs (2,048
+#: until the replication and reshard phases came), 8 times over-subscribed.
+TIER_CRASH_DOCS = 1024
 TIER_AB = "hot=128,warm=512"
 #: Pairs of prefetch and no-prefetch drains ``[serve tier ab]`` runs in
 #: the default run: one, the prefetch drain first (a pair takes ~25-30 s
@@ -886,6 +913,45 @@ def kept_kernel_rows(label, kk, launches) -> list[dict]:
     ]
 
 
+def zero_counts(_pool=None) -> None:
+    """A ``pool_hook``: every count set to 0 once the card is idle."""
+    import torch
+
+    torch.cuda.synchronize()
+    zero_all_counts()
+
+
+def add_counts(counts, launches) -> None:
+    """Sum a drain's ``launches`` into ``counts`` (its keys only)."""
+    for k in counts:
+        counts[k] += launches.get(k, 0)
+
+def keep_tier_operands(keep, hook=None):
+    """A ``pool_hook`` that keeps each (class, rows) pair's first macro-step
+    operands (host op arrays and a device copy of the tier's rows, gathered
+    over the shards by ``DocPool.tier_rows``) in ``keep`` for
+    :func:`kept_kernel_check`, then runs ``hook`` (the counts' reset)."""
+    from crdt_benches_tpu_torch.ops.apply2 import PackedState
+
+    def install(p):
+        step = p.macro_step
+
+        def kept_step(cls, kind, pos, rlen, slot0, nbits):
+            Rt = kind.shape[1]
+            if (cls, Rt) not in keep:
+                t = p.tier_rows(cls, Rt)
+                keep[cls, Rt] = ((kind.copy(), pos.copy(), rlen.copy(),
+                                  slot0.copy()),
+                                 PackedState(t.doc.clone(), t.length.clone(),
+                                             t.nvis.clone()))
+            return step(cls, kind, pos, rlen, slot0, nbits)
+
+        p.macro_step = kept_step
+        if hook is not None:
+            hook(p)
+    return install
+
+
 def serve_tier_phases(dev, bound, cell=TIER_CELL,
                       ab_pairs=TIER_AB_PAIRS) -> tuple[float, list[dict]]:
     """Three-tier residency on the card.
@@ -916,7 +982,6 @@ def serve_tier_phases(dev, bound, cell=TIER_CELL,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from crdt_benches_tpu_torch.ops.apply2 import PackedState
     from crdt_benches_tpu_torch.oracle.text_oracle import replay_trace
     from crdt_benches_tpu_torch.serve import bench as bench_mod
     from crdt_benches_tpu_torch.serve import pool as pool_mod
@@ -1025,9 +1090,10 @@ def serve_tier_phases(dev, bound, cell=TIER_CELL,
     win = {"n": 0}
 
     def instrument(p):
+        keep_tier_operands(keep)(p)
         step = p.macro_step
 
-        def kept_step(cls, kind, pos, rlen, slot0, nbits):
+        def windowed_step(*args, **kw):
             i = win["n"]
             if i in TIER_PROFILED:
                 torch.cuda.synchronize()
@@ -1035,18 +1101,10 @@ def serve_tier_phases(dev, bound, cell=TIER_CELL,
                 (prof.start if i == lo else prof.stop)()
             if i >= hi and used <= keep.keys():
                 raise _WindowEnd
-            Rt = kind.shape[1]
-            if (cls, Rt) not in keep:
-                st = p.buckets[cls].state
-                keep[cls, Rt] = ((kind.copy(), pos.copy(), rlen.copy(),
-                                  slot0.copy()),
-                                 PackedState(st.doc[:Rt].clone(),
-                                             st.length[:Rt].clone(),
-                                             st.nvis[:Rt].clone()))
             win["n"] = i + 1
-            return step(cls, kind, pos, rlen, slot0, nbits)
+            return step(*args, **kw)
 
-        p.macro_step = kept_step
+        p.macro_step = windowed_step
 
     try:
         with fleet(held.pop("sessions"), cell, tier_slots,
@@ -1344,10 +1402,10 @@ def journal_phases(dev, bound, serve_rate) -> list[dict]:
     tail); every recovered document byte-identical to the oracle (the
     uninterrupted drain of ``[serve]`` verified every document too, so
     the two fleets agree document by document).  ``[serve tier
-    crash]``: the ``[serve tier ab]`` fleet (``TIER_AB``, prefetcher on)
-    with the same journal and crash: warm members restored, every
-    document byte-identical.  ``[journal rebuild]``: on ``[serve
-    crash]``'s journal directory, a seeded sample of ``REBUILD_PER_CLASS``
+    crash]``: ``TIER_CRASH_DOCS`` docs at the ``[serve tier ab]`` tiers
+    (``TIER_AB``, prefetcher on) with the same journal and crash: warm
+    members restored, every doc byte-identical.  ``[journal rebuild]``:
+    on ``[serve crash]``'s journal, a seeded sample of ``REBUILD_PER_CLASS``
     documents of each class rebuilt to their final cursor at K = 8, B = 64
     (``rebuild_doc``), once from their ``SnapshotBases`` base and once
     from nothing: K1's per-row form and K4 once per slice, no plain
@@ -1373,10 +1431,6 @@ def journal_phases(dev, bound, serve_rate) -> list[dict]:
     cell = SERVE_CELL
     n_docs = cell["n_docs"]
 
-    def zero(_pool):
-        torch.cuda.synchronize()
-        zero_all_counts()
-
     def bench(tag, **kw):
         """One bench run with the journal, its launches checked: K1's
         per-row form and K4 once per dispatch of the drain and of the
@@ -1384,7 +1438,7 @@ def journal_phases(dev, bound, serve_rate) -> list[dict]:
         recovery (and after the drain, when it was not crashed)."""
         t0 = time.perf_counter()
         rep = run_serve_bench(**{**cell, **kw}, **JOURNAL, device=dev,
-                              pool_hook=zero,
+                              pool_hook=zero_counts,
                               log=lambda m: print(f"[{tag}] {m}", flush=True))
         launches = read_all_counts(tag)
         rec, redo = rep["recovery"], rep["recovery_drain"]
@@ -1465,15 +1519,15 @@ def journal_phases(dev, bound, serve_rate) -> list[dict]:
               + recovery_line(rep, rec, redo) + f"; launches {launches}, "
               f"plain calls 0 ({secs:.1f} s)", flush=True)
 
-        # ---- [serve tier crash]: the tier A/B fleet, warm members ----
+        # ---- [serve tier crash]: the tier A/B tiers, warm members ----
         trep, trec, tredo, tlaunches, tsecs = bench(
-            "serve tier crash", n_docs=TIER_AB_DOCS, serve_tiers=TIER_AB,
+            "serve tier crash", n_docs=TIER_CRASH_DOCS, serve_tiers=TIER_AB,
             journal_dir="auto", crash_after=CRASH_ROUND)
         if not (trep["crashed"] and trec["warm_restored"] > 0
                 and trec["redo_ops"] > 0):
             fail(f"serve tier crash: crashed {trep['crashed']}, recovery "
                  f"{trec}")
-        print(f"[serve tier crash] serve/{cell['mix']}/{TIER_AB_DOCS} at "
+        print(f"[serve tier crash] serve/{cell['mix']}/{TIER_CRASH_DOCS} at "
               f"slots {tuple(trep['slots'])}, {TIER_AB}, prefetcher on, stopped "
               f"after {trep['rounds']} macro-rounds; "
               + recovery_line(trep, trec, tredo) + f"; launches "
@@ -1645,10 +1699,6 @@ def chaos_phases(dev, bound) -> list[dict]:
     first = []  # the first rebuild with ops to replay: (stream, C, base,
     # n_init)
 
-    def zero(_pool):
-        torch.cuda.synchronize()
-        zero_all_counts()
-
     def launches_now():
         kernels, _ = port_counters()
         return {f.__name__: f.launches for f in kernels}
@@ -1680,7 +1730,7 @@ def chaos_phases(dev, bound) -> list[dict]:
     def bench(tag, faults_expected=True, **kw):
         t0 = time.perf_counter()
         del rebuilds[:]
-        rep = run_serve_bench(**kw, device=dev, pool_hook=zero,
+        rep = run_serve_bench(**kw, device=dev, pool_hook=zero_counts,
                               log=lambda m: print(f"[{tag}] {m}", flush=True))
         launches = read_all_counts(tag)
         in_rebuilds = {k: sum(r[3][k] for r in rebuilds) for k in counts}
@@ -1890,9 +1940,6 @@ def stream_phases(dev, bound, full=False, tier_rate=None) -> list[dict]:
     ``[serve construction]``: ``scaling_table`` on the card, a fresh process
     a cell; any error row fails.  Returns the two kernels' rows for the
     streamed drain."""
-    import torch
-
-    from crdt_benches_tpu_torch.ops.apply2 import PackedState
     from crdt_benches_tpu_torch.serve.bench import (
         parse_tier_spec,
         run_serve_bench,
@@ -1910,20 +1957,7 @@ def stream_phases(dev, bound, full=False, tier_rate=None) -> list[dict]:
     def arm(p):
         """Each (class, rows) pair's first operands kept; the prefetch
         payloads tallied by kind; counts to 0."""
-        step = p.macro_step
-
-        def kept_step(cls, kind, pos, rlen, slot0, nbits):
-            Rt = kind.shape[1]
-            if (cls, Rt) not in keep:
-                st = p.buckets[cls].state
-                keep[cls, Rt] = ((kind.copy(), pos.copy(), rlen.copy(),
-                                  slot0.copy()),
-                                 PackedState(st.doc[:Rt].clone(),
-                                             st.length[:Rt].clone(),
-                                             st.nvis[:Rt].clone()))
-            return step(cls, kind, pos, rlen, slot0, nbits)
-
-        p.macro_step = kept_step
+        keep_tier_operands(keep)(p)
         pf = p.prefetcher
         if pf is None:
             fail("serve stream: the tiered pool has no prefetcher")
@@ -1938,8 +1972,7 @@ def stream_phases(dev, bound, full=False, tier_rate=None) -> list[dict]:
             return out
 
         pf.drain = tallied
-        torch.cuda.synchronize()
-        zero_all_counts()
+        zero_counts()
 
     def streamed(tag, cfg, hook):
         """One streamed drain through the bench, checked as the docstring
@@ -2018,12 +2051,8 @@ def stream_phases(dev, bound, full=False, tier_rate=None) -> list[dict]:
     ev_slots, ev_warm = parse_tier_spec(STREAM_EVICT["serve_tiers"],
                                         STREAM_EVICT["slots"])
 
-    def zero(_pool):
-        torch.cuda.synchronize()
-        zero_all_counts()
-
     erep = run_serve_bench(**STREAM_EVICT, stream=True, record_evict=True,
-                           device=dev, pool_hook=zero,
+                           device=dev, pool_hook=zero_counts,
                            log=lambda m: print(f"[serve stream evict] {m}",
                                                flush=True))
     elaunches = read_all_counts("serve stream evict drain")
@@ -2103,12 +2132,13 @@ TELEMETRY_CHAOS = dict(
     faults="seed=5,span=5,stall_ms=800,spool_corrupt=1,device_loss=1,"
            "queue_overflow=1,dup_batch=1,stall@12=1", reqtrace_samples=16)
 #: ``[serve soak]``: the JAX bench smoke's soak recipe (``--family
-#: serve-soak``) for 10 s instead of 25: the status server, the
+#: serve-soak``) for 5 s instead of 25 (10 until the replication and
+#: reshard phases came): the status server, the
 #: time-series, an SLO and request tracing, re-seeded drains back to back.
 SOAK = dict(mix="mixed", n_docs=24, batch=16, macro_k=4, batch_chars=64,
             slots=(16, 6, 2, 2, 2), arrival_span=2, verify_sample=6,
             slo_spec="default=p99:60000", reqtrace_samples=16)
-SOAK_SECONDS = 10.0
+SOAK_SECONDS = 5.0
 #: a Prometheus text exposition sample line: name, labels, number
 _PROM_LINE = (r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="'
               r'([^"\\]|\\.)*",?)*\})? -?([0-9.eE+-]+|NaN|\+Inf)$')
@@ -2218,12 +2248,9 @@ def telemetry_phases(dev, bound, serve_ref=None) -> list[dict]:
     import shutil
     import tempfile
 
-    import torch
-
     from crdt_benches_tpu_torch.obs.flight import validate_flight_file
     from crdt_benches_tpu_torch.obs.status import render_prometheus
     from crdt_benches_tpu_torch.obs.trace import validate_trace_file
-    from crdt_benches_tpu_torch.ops.apply2 import PackedState
     from crdt_benches_tpu_torch.serve.bench import (
         build_telemetry,
         run_serve_bench,
@@ -2235,36 +2262,10 @@ def telemetry_phases(dev, bound, serve_ref=None) -> list[dict]:
     counts = {"resolve_range_rows": 0, "serve_macro_fused": 0}
     keep: dict[tuple[int, int], tuple] = {}
 
-    def zero(_pool):
-        torch.cuda.synchronize()
-        zero_all_counts()
-
-    def keep_first(p):
-        """Each (class, rows) pair's first operands kept; counts to 0."""
-        step = p.macro_step
-
-        def kept_step(cls, kind, pos, rlen, slot0, nbits):
-            Rt = kind.shape[1]
-            if (cls, Rt) not in keep:
-                st = p.buckets[cls].state
-                keep[cls, Rt] = ((kind.copy(), pos.copy(), rlen.copy(),
-                                  slot0.copy()),
-                                 PackedState(st.doc[:Rt].clone(),
-                                             st.length[:Rt].clone(),
-                                             st.nvis[:Rt].clone()))
-            return step(cls, kind, pos, rlen, slot0, nbits)
-
-        p.macro_step = kept_step
-        zero(p)
-
-    def add(launches):
-        for k in counts:
-            counts[k] += launches.get(k, 0)
-
     try:
         t0 = time.perf_counter()
         if serve_ref is None:
-            ref = run_serve_bench(**cell, device=dev, pool_hook=zero,
+            ref = run_serve_bench(**cell, device=dev, pool_hook=zero_counts,
                                   log=lambda m: None)
             serve_ref = (ref, read_all_counts("serve telemetry reference"))
             print(f"[serve telemetry] the plain reference drain of "
@@ -2283,15 +2284,16 @@ def telemetry_phases(dev, bound, serve_ref=None) -> list[dict]:
         scraper = Scraper(telemetry.status.port)
         try:
             rep = run_serve_bench(
-                **cell, device=dev, pool_hook=keep_first, trace_path=trace,
-                telemetry=telemetry, reqtrace_samples=16,
+                **cell, device=dev,
+                pool_hook=keep_tier_operands(keep, zero_counts),
+                trace_path=trace, telemetry=telemetry, reqtrace_samples=16,
                 slo_spec="default=p99:60000",
                 log=lambda m: print(f"[serve telemetry] {m}", flush=True))
             launches = read_all_counts("serve telemetry drain")
         finally:
             scraper.stop()
             telemetry.close()
-        add(launches)
+        add_counts(counts, launches)
         scraper.check("serve telemetry")
         same = ("rounds", "device_rounds", "dispatches", "range_ops",
                 "unit_ops", "evictions", "restores", "promotions",
@@ -2357,10 +2359,10 @@ def telemetry_phases(dev, bound, serve_ref=None) -> list[dict]:
         flight = os.path.join(tmp, "chaos_flight.json")
         crep = run_serve_soak(
             0.0, watchdog_s=0.25, flight_path=flight, device=dev,
-            pool_hook=zero, **TELEMETRY_CHAOS,
+            pool_hook=zero_counts, **TELEMETRY_CHAOS,
             log=lambda m: print(f"[serve telemetry chaos] {m}", flush=True))
         launches = read_all_counts("serve telemetry chaos")
-        add(launches)
+        add_counts(counts, launches)
         per_phase["serve telemetry chaos"] = dict(launches)
         an, fb = crep["anomalies"], crep["flight"]
         stuck = [e for e in an["events"] if e["kind"] == "stuck_round"]
@@ -2417,12 +2419,12 @@ def telemetry_phases(dev, bound, serve_ref=None) -> list[dict]:
             srep = run_serve_soak(
                 SOAK_SECONDS, status_port=0,
                 timeseries_path=os.path.join(tmp, "soak.jsonl"),
-                device=dev, pool_hook=zero, log=soak_log, **SOAK)
+                device=dev, pool_hook=zero_counts, log=soak_log, **SOAK)
             launches = read_all_counts("serve soak (the last drain)")
         finally:
             if "scraper" in soak:
                 soak["scraper"].stop()
-        add(launches)
+        add_counts(counts, launches)
         per_phase["serve soak (last drain)"] = dict(launches)
         if "scraper" not in soak:
             fail("serve soak: no status server started")
@@ -2445,6 +2447,390 @@ def telemetry_phases(dev, bound, serve_ref=None) -> list[dict]:
     return kept_kernel_rows(
         "serve telemetry phases; the launches of [serve telemetry], [serve "
         "telemetry chaos] and the last drain of [serve soak]", kk, counts)
+
+
+#: ``[serve repl]``: the README's replicated cell serve/repl/mixed/512x4
+#: uncut: 512 logical docs of the ``mixed`` table, 4 writers each (2,048
+#: replica rows), seed 0, arrivals over 8 rounds, the serve cell's slots,
+#: B = 64, K = 8, 256 chars a slice, turns of 64 ops, the fused kernel.
+REPL_CELL = dict(mix="mixed", n_docs=512, writers=4, batch=64, macro_k=8,
+                 batch_chars=256, classes=(256, 1024, 4096, 8192, 49152),
+                 slots=(2048, 512, 128, 32, 16), arrival_span=8, seed=0,
+                 turn_ops=64, serve_kernel="fused")
+#: ``[serve repl chaos]``: the JAX bench smoke's replicated chaos leg
+#: (``tools/bench_smoke.sh`` ``--family serve-faults``): 12 docs x 2
+#: writers, a journal with a barrier every 4 rounds, a partition and a
+#: reorder.
+REPL_CHAOS = dict(REPL_CELL, n_docs=12, writers=2, batch=16, macro_k=4,
+                  batch_chars=64, slots=(16, 6, 2, 2, 2), arrival_span=2,
+                  turn_ops=16, journal_dir="auto", snapshot_every=4,
+                  faults="seed=7,span=4,replica_partition=1,merge_reorder=1")
+#: The macro-rounds after which ``[serve repl chaos]``'s journaled fleet
+#: is stopped before ``recover_replicated_fleet`` resumes it.
+REPL_CRASH_ROUNDS = 8
+#: ``[serve reshard]``: the README's reshard acceptance recipe uncut:
+#: serve/mixed/4096 on 8 logical shards, the journal with a barrier every
+#: 8 rounds (every 4th full), ``shrink:8:6@16,batch=64`` under
+#: ``reshard_crash@16``, a seeded verify sample of 64 (65 docs: 13 a class).
+RESHARD_CELL = dict(SERVE_CELL, journal_dir="auto", snapshot_every=8,
+                    snapshot_full_every=4, verify_sample=64,
+                    reshard_spec="shrink:8:6@16,batch=64",
+                    faults="seed=7,reshard_crash@16=1")
+#: The ``reshard`` block's counts ``[serve reshard]`` must equal, as the
+#: JAX package's CPU run of the same recipe wrote them.
+RESHARD_ARTIFACT = os.path.join(REPO, "bench_results",
+                                "serve_reshard_accept.json")
+RESHARD_COUNTS = ("migrated", "evicted", "deferred_lanes", "deferred_ops",
+                  "resumes", "begin_round", "commit_round", "rounds_active")
+#: ``[serve reshard crash]``: the JAX bench smoke's reshard leg (``--family
+#: serve-reshard``): 24 docs on 2 logical shards, ``shrink:2:1@4,batch=2``
+#: under ``reshard_crash@4``, the status server and an SLO.
+RESHARD_SMOKE = dict(
+    mix="mixed", n_docs=24, batch=16, macro_k=4, batch_chars=64,
+    slots=(16, 6, 2, 2, 2), arrival_span=2, verify_sample=6,
+    journal_dir="auto", snapshot_every=3,
+    reshard_spec="shrink:2:1@4,batch=2", faults="seed=5,reshard_crash@4=1")
+#: The macro-rounds after which ``[serve reshard crash]``'s second drain
+#: stops: the reshard began at round 4 and is mid-move (manifest
+#: committed, no commit record).
+RESHARD_CRASH_ROUNDS = 3
+
+
+
+def repl_phases(dev, bound) -> list[dict]:
+    """Multi-writer replication (``serve/replicate/``) on the card.
+
+    ``[serve repl]`` (``REPL_CELL``): ``run_serve_repl_bench``, every count
+    set to 0 just before the drain and read just after: K1's per-row form
+    and K4 once per dispatch, no plain version; all 2,048 replicas
+    byte-identical to the oracle and the RA-linearizability axioms on the
+    16 sampled histories; remote:local 3.00 (4 writers).  Its first
+    operands of each (class, rows) pair go through
+    :func:`kept_kernel_check`.  ``[serve repl chaos]`` (``REPL_CHAOS``):
+    both replication faults fire and recover and every replica converges;
+    then the same fleet journaled, stopped after ``REPL_CRASH_ROUNDS``
+    macro-rounds and resumed by ``recover_replicated_fleet`` on fresh pools
+    to convergence, the RA axioms holding on the recovered histories.
+    Returns the two kernels' rows, their launches summed over the drains."""
+    import shutil
+    import tempfile
+
+    from crdt_benches_tpu_torch.serve.journal import OpJournal
+    from crdt_benches_tpu_torch.serve.pool import DocPool
+    from crdt_benches_tpu_torch.serve.replicate import (
+        ReplicatedScheduler,
+        build_writer_groups,
+        check_convergence,
+        check_ra_linearizability,
+        recover_replicated_fleet,
+    )
+    from crdt_benches_tpu_torch.serve.replicate.bench import (
+        run_serve_repl_bench,
+    )
+    from crdt_benches_tpu_torch.serve.scheduler import prepare_streams
+    from crdt_benches_tpu_torch.serve.workload import build_fleet
+
+    counts = {"resolve_range_rows": 0, "serve_macro_fused": 0}
+    keep: dict[tuple[int, int], tuple] = {}
+
+    def once_a_dispatch(tag, launches, dispatches):
+        if not (launches.get("resolve_range_rows") == dispatches
+                == launches.get("serve_macro_fused")):
+            fail(f"{tag}: launches {launches} for {dispatches} dispatches")
+
+    cell = REPL_CELL
+    t0 = time.perf_counter()
+    rep = run_serve_repl_bench(
+        **cell, device=dev, pool_hook=keep_tier_operands(keep, zero_counts),
+        log=lambda m: print(f"[serve repl] {m}", flush=True))
+    launches = read_all_counts("serve repl")
+    add_counts(counts, launches)
+    once_a_dispatch("serve repl", launches, rep["dispatches"])
+    rb, conv = rep["replication"], rep["convergence"]
+    rows = cell["n_docs"] * cell["writers"]
+    if not (rep["verify_ok"] and rep["ra_ok"]
+            and conv["replicas_checked"] == rows
+            and conv["ra_groups_checked"] == 16):
+        fail(f"serve repl: verify {rep['verify_ok']} ra {rep['ra_ok']} "
+             f"{conv}")
+    ratio = rb["merged_ops"] / rb["local_ops"]
+    print(f"[serve repl] serve/repl/{cell['mix']}/{cell['n_docs']}x"
+          f"{cell['writers']}: {rep['patches_per_sec']:.1f} replica-patches/s"
+          f", merge {rep['merge_unit_ops_per_sec']:.1f} unit-ops/s over "
+          f"{rep['wall_time']:.3f} s, {rep['rounds']} rounds, "
+          f"{rep['dispatches']} dispatches; merged {rb['merged_ops']} remote "
+          f"/ {rb['local_ops']} local range ops (remote:local {ratio:.4f}), "
+          f"{rb['merged_unit_ops']} merged unit ops; broadcast "
+          f"{rb['broadcast_bytes']} B over {rb['broadcast_deliveries']} "
+          f"deliveries of {rb['broadcast_blocks']} blocks; divergence max "
+          f"{rb['divergence_depth_max']} blocks, convergence rounds max "
+          f"{rb['convergence_rounds_max']} mean "
+          f"{rb['convergence_rounds_mean']:.4f}; all {rows} replicas "
+          f"byte-identical to the oracle, RA axioms hold on "
+          f"{conv['ra_groups_checked']} histories; launches {launches}, "
+          f"plain calls 0; macro-round p50 "
+          f"{rep['batch_latency']['p50'] * 1e3:.2f} ms p99 "
+          f"{rep['batch_latency']['p99'] * 1e3:.2f}; evictions "
+          f"{rep['evictions']}, restores {rep['restores']}, promotions "
+          f"{rep['promotions']}; host phase s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rep["phase_seconds"].items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    label = f"serve repl, serve/repl/{cell['mix']}/{cell['n_docs']}x4"
+    kk = kept_kernel_check("serve repl kernels", label, keep,
+                           cell["classes"], dev, bound)
+
+    # ---- [serve repl chaos]: the smoke's chaos leg, then a crash ----
+    t0 = time.perf_counter()
+    crep = run_serve_repl_bench(
+        **REPL_CHAOS, device=dev, pool_hook=zero_counts,
+        log=lambda m: print(f"[serve repl chaos] {m}", flush=True))
+    launches = read_all_counts("serve repl chaos")
+    add_counts(counts, launches)
+    once_a_dispatch("serve repl chaos", launches, crep["dispatches"])
+    evs = {e["kind"]: e for e in crep["faults"]["events"]}
+    if not (crep["verify_ok"] and crep["ra_ok"] and crep["faults_ok"]
+            and all(evs[k]["fired"] and evs[k]["recovered"] for k in
+                    ("replica_partition", "merge_reorder"))):
+        fail(f"serve repl chaos: verify {crep['verify_ok']} ra "
+             f"{crep['ra_ok']} faults {crep['faults']}")
+    c = REPL_CHAOS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_repl_")
+    try:
+        jd = os.path.join(tmp, "journal")
+        sched_kw = dict(turn_ops=c["turn_ops"], batch=c["batch"],
+                        macro_k=c["macro_k"], batch_chars=c["batch_chars"],
+                        snapshot_every=c["snapshot_every"])
+
+        def fleet(spool):
+            sessions = build_fleet(c["n_docs"], mix=c["mix"], seed=c["seed"],
+                                   arrival_span=c["arrival_span"])
+            reps, table = build_writer_groups(sessions, c["writers"])
+            pool = DocPool(classes=c["classes"], slots=c["slots"],
+                           device=dev, spool_dir=os.path.join(tmp, spool))
+            streams = prepare_streams(reps, pool, batch=c["batch"],
+                                      batch_chars=c["batch_chars"])
+            return sessions, table, pool, streams
+
+        zero_counts()
+        _s, table, pool, streams = fleet("a")
+        j = OpJournal(jd)
+        first = ReplicatedScheduler(pool, streams, table, journal=j,
+                                    **sched_kw)
+        first.run(max_rounds=REPL_CRASH_ROUNDS)
+        if first.done:
+            fail("serve repl chaos: the fleet drained before its stop")
+        j.close()
+        pool.close()
+        sessions, table, pool, streams = fleet("b")
+        t_rec = time.perf_counter()
+        j = OpJournal(jd)
+        sched, rrep, replayed = recover_replicated_fleet(
+            pool, streams, table, jd, journal=j, **sched_kw)
+        pool.block()
+        recover_ms = (time.perf_counter() - t_rec) * 1e3
+        stats = sched.run()
+        j.close()
+        report = check_convergence(pool, table, sessions, streams)
+        check_ra_linearizability(sched.bus, table, report)
+        pool.close()
+        launches = read_all_counts("serve repl chaos recovery")
+        add_counts(counts, launches)
+        if not (sched.done and report.converged and report.ra_ok
+                and replayed > 0 and rrep.snapshot_round >= 0):
+            fail(f"serve repl chaos recovery: done {sched.done}, "
+                 f"{report.to_dict()}, {replayed} blocks replayed, snapshot "
+                 f"round {rrep.snapshot_round}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[serve repl chaos] serve/repl/{c['mix']}/{c['n_docs']}x"
+          f"{c['writers']} under {c['faults']}: "
+          + "; ".join(f"{k} fired round {e['fired_round']}, recovered "
+                      f"({e['detail']})" for k, e in sorted(evs.items()))
+          + f"; {crep['replication']['partitions_healed']} partition healed, "
+          f"{crep['replication']['reordered_rounds']} round reordered, "
+          f"divergence max {crep['replication']['divergence_depth_max']}; "
+          f"all {crep['convergence']['replicas_checked']} replicas converged,"
+          f" RA axioms hold; {crep['patches_per_sec']:.1f} replica-patches/s"
+          f"; stopped after {REPL_CRASH_ROUNDS} macro-rounds and recovered "
+          f"by recover_replicated_fleet in {recover_ms:.1f} ms (snapshot "
+          f"round {rrep.snapshot_round}, {replayed} bcast blocks replayed, "
+          f"resume round {rrep.resume_round}), resumed over {stats.rounds} "
+          f"rounds: all {report.replicas_checked} replicas byte-identical "
+          f"to the oracle, RA axioms hold on {report.ra_groups_checked} "
+          f"histories; launches {launches} in the recovered drain "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return kept_kernel_rows(
+        "serve repl phases; the launches of [serve repl] and every drain of "
+        "[serve repl chaos]", kk, counts)
+
+
+def reshard_phases(dev, bound, serve_rate=None) -> list[dict]:
+    """Live resharding (``serve/reshard.py``) on the card.
+
+    ``[serve reshard]`` (``RESHARD_CELL``): every count set to 0 just
+    before the drain and read just after, K1's per-row form and K4 once per
+    dispatch and no plain version; ``reshard_crash`` fired and recovered by
+    the coordinator's resume, shards 6 and 7 retired, no partition error,
+    the seeded sample byte-identical; the ``reshard`` block and the rate
+    against ``[serve]``'s (``serve_rate``; a plain drain here when None);
+    the block's ``RESHARD_COUNTS`` equal to ``RESHARD_ARTIFACT``'s.  Its
+    first operands of each (class, rows) pair, the tiers gathered over
+    the 8 shards, go through :func:`kept_kernel_check`.  ``[serve reshard
+    crash]`` (``RESHARD_SMOKE``): the status server armed, ``/metrics``
+    read from the coordinator's every out-of-window publish (and by a
+    :class:`Scraper` thread), which must show ``serve_reshard_active 1``
+    with ``serve_reshard_pending_docs`` counting down; then the fleet
+    stopped after ``RESHARD_CRASH_ROUNDS`` macro-rounds, mid-move, and
+    ``recover_fleet`` rolling the reshard forward: every document
+    byte-identical and the partition invariant holding.  Returns the two
+    kernels' rows, their launches summed over the drains."""
+    import re
+    import urllib.request
+
+    from crdt_benches_tpu_torch.serve.bench import (
+        build_telemetry,
+        run_serve_bench,
+    )
+
+    counts = {"resolve_range_rows": 0, "serve_macro_fused": 0}
+    keep: dict[tuple[int, int], tuple] = {}
+
+    if serve_rate is None:
+        t0 = time.perf_counter()
+        ref = run_serve_bench(**SERVE_CELL, device=dev, log=lambda m: None)
+        serve_rate = ref["patches_per_sec"]
+        print(f"[serve reshard] the plain reference drain of "
+              f"serve/{SERVE_CELL['mix']}/{SERVE_CELL['n_docs']}: "
+              f"{serve_rate:.1f} patches/s "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    cell = RESHARD_CELL
+    t0 = time.perf_counter()
+    rep = run_serve_bench(
+        **cell, device=dev, pool_hook=keep_tier_operands(keep, zero_counts),
+        log=lambda m: print(f"[serve reshard] {m}", flush=True))
+    launches = read_all_counts("serve reshard")
+    add_counts(counts, launches)
+    rs, ev = rep["reshard"], rep["faults"]["events"]
+    if not (launches.get("resolve_range_rows") == rep["dispatches"]
+            == launches.get("serve_macro_fused")):
+        fail(f"serve reshard: launches {launches} for {rep['dispatches']} "
+             "dispatches")
+    if not (rep["verify_ok"] and rep["faults_ok"] and rs["state"] == "done"
+            and rs["shards"] == [6, 7] and rs["live_shards"] == 6
+            and not rs["partition_errors"] and rs["resumes"] >= 1
+            and ev[0]["fired"] and ev[0]["recovered"]
+            and ev[0]["detail"]["via"] == "coordinator_resume"):
+        fail(f"serve reshard: verify {rep['verify_ok']} faults "
+             f"{rep['faults']} reshard {rs}")
+    with open(RESHARD_ARTIFACT) as f:
+        want = json.load(f)[0]["extra"]["reshard"]
+    differ = {k: (rs[k], want[k]) for k in RESHARD_COUNTS if rs[k] != want[k]}
+    if differ:
+        fail(f"serve reshard: (port, JAX's artifact) differ in {differ}")
+    mid, lat = rs["mid_latency"], rep["batch_latency"]
+    print(f"[serve reshard] serve/reshard/{cell['mix']}/{cell['n_docs']} "
+          f"{cell['reshard_spec']} under {cell['faults']}: "
+          f"{rep['patches_per_sec']:.1f} patches/s, "
+          f"{rep['patches_per_sec'] / serve_rate:.4f} of [serve]'s "
+          f"{serve_rate:.1f} in this run; reshard_crash fired round "
+          f"{ev[0]['fired_round']} ({ev[0]['detail']['docs']} docs on the "
+          f"draining shards), recovered by the coordinator's resume at round "
+          f"{ev[0]['detail']['round']}; shards {rs['shards']} retired (begin "
+          f"r{rs['begin_round']}, commit r{rs['commit_round']}, "
+          f"{rs['rounds_active']} rounds active), {rs['migrated']} row "
+          f"moves + {rs['evicted']} evictions, {rs['deferred_lanes']} lanes "
+          f"deferred ({rs['deferred_ops']} ops), {rs['resumes']} resumes, "
+          f"live shards {rs['live_shards']}/8, no partition error, the "
+          f"counts equal to {os.path.basename(RESHARD_ARTIFACT)}'s; "
+          f"mid-reshard round p50 {mid['p50'] * 1e3:.2f} ms p99 "
+          f"{mid['p99'] * 1e3:.2f} max {mid['max'] * 1e3:.2f} (every round "
+          f"p50 {lat['p50'] * 1e3:.2f} p99 {lat['p99'] * 1e3:.2f}); "
+          f"{rep['rounds']} rounds, {rep['dispatches']} dispatches, "
+          f"launches {launches}, plain calls 0; the seeded sample of "
+          f"{rep['verified_docs']} docs byte-identical to the oracle; "
+          f"{rep['journal']['snapshots']} barriers; host phase s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rep["phase_seconds"].items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    label = (f"serve reshard, serve/reshard/{cell['mix']}/{cell['n_docs']} "
+             "on 8 shards")
+    kk = kept_kernel_check("serve reshard kernels", label, keep,
+                           cell["classes"], dev, bound)
+
+    # ---- [serve reshard crash]: the mid-move scrape, then a crash ----
+    t0 = time.perf_counter()
+    seen: list[tuple[int, int]] = []  # (active, pending) at each publish
+    telemetry = build_telemetry(
+        status_port=0, log=lambda m: print(f"[serve reshard crash] {m}",
+                                           flush=True))
+    base = f"http://127.0.0.1:{telemetry.status.port}"
+    publish = telemetry.publish_metrics_now
+    gauge = re.compile(r"^serve_reshard_(active|pending_docs) (\S+)$", re.M)
+
+    def publish_and_scrape():
+        publish()
+        with urllib.request.urlopen(base + "/metrics", timeout=5) as r:
+            got = dict(gauge.findall(r.read().decode()))
+        seen.append((int(float(got["active"])),
+                     int(float(got["pending_docs"]))))
+
+    telemetry.publish_metrics_now = publish_and_scrape
+    scraper = Scraper(telemetry.status.port)
+    try:
+        srep = run_serve_bench(
+            **RESHARD_SMOKE, device=dev, pool_hook=zero_counts,
+            telemetry=telemetry, slo_spec="default=p99:60000",
+            log=lambda m: print(f"[serve reshard crash] {m}", flush=True))
+        launches = read_all_counts("serve reshard crash (live)")
+    finally:
+        scraper.stop()
+        telemetry.close()
+    add_counts(counts, launches)
+    scraper.check("serve reshard crash")
+    moving = [p for a, p in seen if a == 1]
+    if not (srep["verify_ok"] and srep["faults_ok"]
+            and srep["reshard"]["state"] == "done" and len(moving) >= 2
+            and moving == sorted(moving, reverse=True)
+            and moving[0] > moving[-1] and seen[-1] == (0, 0)):
+        fail(f"serve reshard crash: verify {srep['verify_ok']} faults "
+             f"{srep['faults_ok']} reshard {srep['reshard']}, /metrics "
+             f"(active, pending) {seen}")
+    zero_counts()
+    crep = run_serve_bench(
+        **dict(RESHARD_SMOKE, verify_sample=0), device=dev,
+        crash_after=RESHARD_CRASH_ROUNDS,
+        log=lambda m: print(f"[serve reshard crash] {m}", flush=True))
+    launches = read_all_counts("serve reshard crash (recovered)")
+    add_counts(counts, launches)
+    rec = crep["recovery"]
+    if not (crep["crashed"] and crep["reshard"]["state"] in
+            ("active", "crashed") and rec["reshard_completed"]
+            and rec["reshard_retired"] == [1] and rec["verify_ok"]
+            and rec["verified_docs"] == RESHARD_SMOKE["n_docs"]
+            and crep["verify_ok"]):
+        fail(f"serve reshard crash: crashed {crep['crashed']} reshard "
+             f"{crep['reshard']} recovery {rec}")
+    print(f"[serve reshard crash] serve/reshard/mixed/"
+          f"{RESHARD_SMOKE['n_docs']} {RESHARD_SMOKE['reshard_spec']} under "
+          f"{RESHARD_SMOKE['faults']} with the status server: /metrics "
+          f"(active, pending_docs) at each of the coordinator's publishes "
+          f"{seen}: serve_reshard_active 1 while pending_docs counted "
+          f"{moving[0]} -> {moving[-1]} mid-move; scrapes mid-run "
+          f"{scraper.mid} of {scraper.passes} passes; "
+          f"{srep['reshard']['migrated']} row moves + "
+          f"{srep['reshard']['evicted']} evictions, "
+          f"{srep['reshard']['resumes']} resume, the sample verified; then "
+          f"stopped after {RESHARD_CRASH_ROUNDS} macro-rounds with the "
+          f"reshard {crep['reshard']['state']} (manifest committed, no "
+          f"commit record) and recovered: recover_fleet rolled it forward "
+          f"(retired {rec['reshard_retired']}, {rec['reshard_docs_moved']} "
+          f"docs moved off, recover_ms {rec['recover_ms']:.1f}, redo_ms "
+          f"{rec['redo_ms']:.1f}), every one of {rec['verified_docs']} docs "
+          f"byte-identical to the oracle, the partition invariant held; "
+          f"launches {launches} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return kept_kernel_rows(
+        "serve reshard phases; the launches of [serve reshard] and every "
+        "drain of [serve reshard crash]", kk, counts)
 
 
 def k5_worst_cases(dev, tt, late) -> tuple[int, dict[str, float]]:
@@ -2956,6 +3342,9 @@ MERGE_PATHS = {
                ("flat", 1024)),
     "adversarial": (("unit", 64), ("flat", 64)),
 }
+#: merge/adversarial's delivered ops (``--merge-ops``): 5,000,000, half the
+#: config's 10,000,000 since the replication and reshard phases came
+MERGE_ADVERSARIAL_OPS = 5_000_000
 
 
 def merge_phases(dev, bound) -> tuple[list[dict], dict]:
@@ -3017,7 +3406,8 @@ def merge_phases(dev, bound) -> tuple[list[dict], dict]:
     kept = {}
     k7_err = k5_err = 0
     for config, paths in MERGE_PATHS.items():
-        merge_ops = 10_000_000 if config == "adversarial" else 1_000_000
+        merge_ops = MERGE_ADVERSARIAL_OPS if config == "adversarial" else (
+            1_000_000)
         t0 = time.perf_counter()
         zero_all_counts()
         gen = Spans([(urep, "resolve_batch", "K5")], keep={"K5": 40})
@@ -3803,6 +4193,14 @@ def main(argv=None) -> int:
                     help="run only the device, build and telemetry phases "
                     "([serve telemetry] after a plain drain of its cell, "
                     "[serve telemetry chaos], [serve soak])")
+    ap.add_argument("--repl-only", action="store_true",
+                    help="run only the device, build and replication phases "
+                    "([serve repl], [serve repl kernels], [serve repl "
+                    "chaos])")
+    ap.add_argument("--reshard-only", action="store_true",
+                    help="run only the device, build and reshard phases "
+                    "([serve reshard] after a plain drain of its cell, "
+                    "[serve reshard kernels], [serve reshard crash])")
     ap.add_argument("--stream-full", action="store_true",
                     help="[serve stream] on STREAM_FULL (262,144 docs, "
                     "hot=1024,warm=16384) instead of STREAM_CELL, and the "
@@ -3880,12 +4278,14 @@ def main(argv=None) -> int:
         if "registers" in ln or "bytes stack" in ln:
             print(f"[build] {ln.strip()}", flush=True)
     if (opts.tier_only or opts.chaos_only or opts.stream_only
-            or opts.telemetry_only):
+            or opts.telemetry_only or opts.repl_only or opts.reshard_only):
         rows = (serve_tier_phases(dev, bound, tier_cell, opts.ab_pairs)[1]
                 if opts.tier_only else chaos_phases(dev, bound)
                 if opts.chaos_only else telemetry_phases(dev, bound)
-                if opts.telemetry_only else stream_phases(dev, bound,
-                                                          opts.stream_full))
+                if opts.telemetry_only else repl_phases(dev, bound)
+                if opts.repl_only else reshard_phases(dev, bound)
+                if opts.reshard_only else stream_phases(dev, bound,
+                                                        opts.stream_full))
         print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
         print(json.dumps({"kernels": rows}))
         print(smi_line)
@@ -4866,6 +5266,15 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     rows += telemetry_phases(dev, bound, serve_ref)
     print(f"[serve telemetry] all telemetry phases "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # ---- multi-writer replication and live resharding ----
+    t0 = time.perf_counter()
+    rows += repl_phases(dev, bound)
+    print(f"[serve repl] all replication phases "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    rows += reshard_phases(dev, bound, serve_rate)
+    print(f"[serve reshard] all reshard phases "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     tier_rate, tier_rows = serve_tier_phases(dev, bound, tier_cell,

@@ -25,7 +25,9 @@
         [--serve-trace PATH] [--serve-status PORT]
         [--serve-timeseries PATH] [--serve-timeseries-window 8]
         [--serve-reqtrace N] [--serve-slo SPEC] [--serve-flight PATH]
-        [--serve-soak SECONDS] [--serve-watchdog SECONDS]  (serve)
+        [--serve-soak SECONDS] [--serve-watchdog SECONDS]
+        [--serve-writers W] [--serve-turn-ops 64]
+        [--serve-reshard SPEC]  (serve)
 
 The default is the headline range replay (1024 replicas, batch 1536);
 ``--layout unit --batch 256`` is the unit-op engine (the JAX package's
@@ -67,7 +69,12 @@ and spool files during a journal-less drain; the telemetry flags arm the
 span tracer, the loopback status server, the time-series stream, request
 tracing, SLOs and the flight recorder (``obs/``), and ``--serve-soak S``
 drains re-seeded fleets back to back for S seconds under the anomaly
-detectors);
+detectors; ``--serve-writers W`` (W >= 2) serves every document through W
+writer replicas, ``--serve-turn-ops N`` ops a writer's turn
+(``serve/repl/<mix>/<fleet>xW``, gated on every replica's convergence and
+the RA-linearizability checker), and ``--serve-reshard SPEC`` changes the
+pool's logical shard map mid-drain (``serve/reshard/<mix>/<fleet>``, the
+journal required));
 its metric is fleet patches/sec over the drain's wall time, and it exits
 non-zero when verification fails, in a chaos run when a fault event went
 unfired or unrecovered, or when an anomaly is still active at the end (2
@@ -241,11 +248,71 @@ def _ints(text: str) -> tuple[int, ...]:
     return tuple(int(x) for x in text.split(",") if x.strip())
 
 
+def _serve_repl(args) -> int:
+    """The replicated family: one drain, one JSON line; 1 if a replica
+    diverged, an RA axiom failed or a fault went unfired or unrecovered, 2
+    for a flag it does not take (the JAX runner's refusals)."""
+    from ..serve.replicate.bench import run_serve_repl_bench
+
+    unsupported = [
+        ("--serve-soak", args.serve_soak is not None),
+        ("--serve-longhaul", args.serve_longhaul > 0),
+        ("--serve-recover", args.serve_recover),
+        ("--serve-crash-round", args.serve_crash_round > 0),
+        ("--serve-reshard", args.serve_reshard is not None),
+        ("--serve-record-evict", args.serve_record_evict),
+        ("--serve-tiers", args.serve_tiers is not None),
+        ("--serve-queue-cap", args.serve_queue_cap > 0),
+        ("--serve-status", args.serve_status is not None),
+        ("--serve-timeseries", args.serve_timeseries is not None),
+        ("--serve-trace", args.serve_trace is not None),
+        ("--serve-flight", args.serve_flight is not None),
+        ("--serve-stream", args.serve_stream),
+        ("--serve-stream-scaling", args.serve_stream_scaling is not None),
+    ]
+    bad = [flag for flag, hit in unsupported if hit]
+    if bad:
+        print(f"{', '.join(bad)} not supported with --serve-writers (the "
+              "replicated family verifies the FULL fleet; delivery pacing "
+              "is the broadcast bus's)", file=sys.stderr)
+        return 2
+    try:
+        rep = run_serve_repl_bench(
+            mix=args.serve_mix, n_docs=args.serve_docs,
+            writers=args.serve_writers, batch=args.serve_batch,
+            classes=_ints(args.serve_classes), slots=_ints(args.serve_slots),
+            seed=args.seed, arrival_span=args.serve_arrival_span,
+            macro_k=args.serve_macro, batch_chars=args.serve_batch_chars,
+            serve_kernel=args.serve_kernel, turn_ops=args.serve_turn_ops,
+            journal_dir=args.serve_journal,
+            snapshot_every=args.serve_snapshot_every,
+            faults=args.serve_faults, reqtrace_samples=args.serve_reqtrace,
+            slo_spec=args.serve_slo, device=args.device,
+            log=lambda m: print(m, file=sys.stderr))
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    out = {
+        "metric": (f"serve/repl/{args.serve_mix}/{args.serve_docs}x"
+                   f"{args.serve_writers} replica patches/sec, "
+                   f"K={args.serve_macro}, torch-"
+                   f"{torch.device(args.device).type} ({rep['device']})"),
+        "value": round(rep["patches_per_sec"], 1),
+        "unit": "elements/sec",
+    }
+    out.update(rep)
+    print(json.dumps(out))
+    return 0 if (rep["verify_ok"] and rep["ra_ok"]
+                 and rep["faults_ok"]) else 1
+
+
 def _serve(args) -> int:
     """Drain the serving fleet once (or soak it); one JSON line; 1 if verify
     or the chaos gate fails or an anomaly is still active."""
     from ..serve.bench import run_serve_bench
 
+    if args.serve_writers > 1:
+        return _serve_repl(args)
     if args.serve_record_evict and args.serve_journal is not None:
         print("--serve-record-evict requires a journal-less drain: "
               "recovery re-adopts the spool members the GC reclaims",
@@ -312,13 +379,15 @@ def _serve(args) -> int:
             record_evict=bool(args.serve_record_evict),
             trace_path=args.serve_trace,
             reqtrace_samples=args.serve_reqtrace, slo_spec=args.serve_slo,
-            flight_path=args.serve_flight, device=args.device,
+            flight_path=args.serve_flight, reshard_spec=args.serve_reshard,
+            device=args.device,
             log=lambda m: print(m, file=sys.stderr), **extra,
         )
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    family = ("serve/longhaul" if args.serve_longhaul
+    family = ("serve/reshard" if args.serve_reshard
+              else "serve/longhaul" if args.serve_longhaul
               else "serve/tier" if args.serve_tiers else "serve")
     out = {
         "metric": (f"{family}/{args.serve_mix}/{args.serve_docs} fleet "
@@ -375,6 +444,8 @@ def main(argv=None) -> int:
         ("--serve-kernel", str, "fused", SERVE_KERNELS),
         ("--serve-tiers", str, None),
         ("--serve-arrival-dist", str, "uniform", ("uniform", "zipf")),
+        ("--serve-writers", int, 0), ("--serve-turn-ops", int, 64),
+        ("--serve-reshard", str, None),
     )
     for flag, typ, default, *choices in serve_flags:
         ap.add_argument(flag, type=typ, choices=choices[0] if choices else None,

@@ -91,6 +91,11 @@ from .faults import (
 )
 from .journal import DEFAULT_SEGMENT_BYTES, OpJournal, recover_fleet
 from .pool import DocPool
+from .reshard import (
+    ReshardCoordinator,
+    check_shard_partition,
+    parse_reshard_spec,
+)
 from .scheduler import FleetScheduler, LazyStreams, prepare_streams
 from .workload import FleetSpec, build_fleet
 
@@ -223,27 +228,32 @@ def _verify_ids(pool: DocPool, doc_ids, verify_sample: int,
 def _check_fault_plan(plan: FaultPlan, *, warm_docs: int, journal_dir,
                       snapshot_every: int, snapshot_full_every: int,
                       wal_segment_bytes: int, queue_cap: int, batch: int,
-                      log) -> int:
+                      log, reshard: bool = False) -> int:
     """Refuse a plan whose kinds this drain never polls, or whose
     injection points it cannot reach, with the JAX bench's messages: a
     loud configuration error up front instead of a drain that ends with
-    ``not_fired`` events.  Returns the queue cap (``8 * batch`` for a
+    ``not_fired`` events (the reshard kinds are polled when ``reshard``
+    is armed).  Returns the queue cap (``8 * batch`` for a
     ``queue_overflow`` plan without one)."""
     kinds = {e.kind for e in plan.events}
-    for group, text in (
-        (REPLICATION_KINDS, "need a replicated fleet (--serve-writers >= 2,"
-         " serve/replicate/); a plain serve drain never polls them"),
-        (INGEST_KINDS, "target the live ingest front: --serve-open is "
-         "required — a closed-loop replay never polls them"),
-        (RESHARD_KINDS, "kill the live-reshard coordinator between its "
-         "manifest commit and the per-doc moves: --serve-reshard is "
-         "required — a fixed shard map never reaches the injection "
-         "point"),
-    ):
-        hit = sorted(kinds & set(group))
-        if hit:
-            raise ValueError(f"fault kinds {hit} {text}; not ported yet "
-                             "(ROADMAP.md Queue 1 item 6.5)")
+    hit = sorted(kinds & set(REPLICATION_KINDS))
+    if hit:
+        raise ValueError(
+            f"fault kinds {hit} need a replicated fleet (--serve-writers >= "
+            "2, serve/replicate/); a plain serve drain never polls them")
+    hit = sorted(kinds & set(INGEST_KINDS))
+    if hit:
+        raise ValueError(
+            f"fault kinds {hit} target the live ingest front: --serve-open "
+            "is required — a closed-loop replay never polls them; not "
+            "ported yet (ROADMAP.md Queue 1, serve/ingest/)")
+    hit = sorted(kinds & set(RESHARD_KINDS))
+    if hit and not reshard:
+        raise ValueError(
+            f"fault kinds {hit} kill the live-reshard coordinator between "
+            "its manifest commit and the per-doc moves: --serve-reshard is "
+            "required — a fixed shard map never reaches the injection "
+            "point")
     tier_kinds = sorted(kinds & set(TIER_KINDS))
     if tier_kinds and not warm_docs:
         raise ValueError(
@@ -317,6 +327,7 @@ def run_serve_bench(
     reqtrace_samples: int = 0,
     slo_spec: str | None = None,
     flight_path: str | None = None,
+    reshard_spec: str | None = None,
     device: str | torch.device = "cuda",
     pool_hook=None,
     log=print,
@@ -336,6 +347,11 @@ def run_serve_bench(
     ``stream``, ``record_evict`` and ``construction_scaling`` as the
     module says, and the telemetry arguments too; a ``telemetry`` bundle
     given by the caller (the soak's) is used as it is and not closed.
+    ``reshard_spec`` (``serve/reshard.py`` grammar, e.g.
+    ``shrink:8:6@16,batch=64``) changes the shard map mid-drain on a pool
+    of the spec's logical shards (the ``serve/reshard/<mix>/<fleet>``
+    family, journal required): the report gains a ``reshard`` block, and
+    the shard partition invariant joins the verify gate.
     ``pool_hook(pool)``, if given, runs on the pool just before the drain
     (``chip_smoke.py`` arms the pool's CUDA-event spans or zeroes the
     kernels' counts there)."""
@@ -373,6 +389,24 @@ def run_serve_bench(
                 "the lazy path releases drained streams, which the "
                 "journal's replay window would still reference"
             )
+    # a live shard-map change (the serve/reshard/* family): every migration
+    # decision is journaled, so the journal is required
+    rplan = parse_reshard_spec(reshard_spec) if reshard_spec else None
+    if rplan is not None:
+        if not journal_dir:
+            raise ValueError(
+                "--serve-reshard journals every migration decision (the "
+                "RESHARD_MANIFEST commit point lives in the journal dir): "
+                "--serve-journal is required")
+        if longhaul or warm_docs or stream:
+            raise ValueError(
+                "--serve-reshard is its own bench family (serve/reshard/*);"
+                " --serve-longhaul / --serve-tiers / --serve-stream do not "
+                "compose with it")
+        if rplan.n_shards < 2:
+            raise ValueError(
+                f"reshard spec {reshard_spec!r} does not determine a shard "
+                "count: use drain:S,of=N for logical shards")
     plan = None
     if faults is not None:
         plan = (faults if isinstance(faults, FaultPlan)
@@ -382,7 +416,7 @@ def run_serve_bench(
             snapshot_every=snapshot_every,
             snapshot_full_every=snapshot_full_every,
             wal_segment_bytes=wal_segment_bytes, queue_cap=queue_cap,
-            batch=batch, log=log)
+            batch=batch, log=log, reshard=rplan is not None)
     # a malformed --serve-slo spec fails here, before the journal's temp
     # dir or the telemetry's threads exist: nothing to release yet
     slo = parse_slo(slo_spec)
@@ -418,9 +452,12 @@ def run_serve_bench(
             spec = FleetSpec.build(n_docs, **fleet_kw)
         else:
             sessions = build_fleet(n_docs, **fleet_kw)
+        # a reshard runs on logical shards: the pool is built with the
+        # spec's count, and the coordinator changes the map
+        pool_shards = rplan.n_shards if rplan is not None else None
         pool = DocPool(classes=classes, slots=slots,
                        serve_kernel=serve_kernel, device=dev,
-                       warm_docs=warm_docs)
+                       warm_docs=warm_docs, shards=pool_shards)
         if stream:
             streams = LazyStreams(spec, pool, batch=batch,
                                   batch_chars=batch_chars)
@@ -428,6 +465,16 @@ def run_serve_bench(
             streams = prepare_streams(sessions, pool, batch=batch,
                                       batch_chars=batch_chars)
         injector = FaultInjector(plan) if plan is not None else None
+        coord = None
+        if rplan is not None:
+            coord = ReshardCoordinator(pool, journal, rplan, faults=injector,
+                                       telemetry=telemetry)
+            log(f"serve: reshard ARMED: {rplan.kind} shards "
+                f"{list(coord._shards)} of {pool.n_sh} (batch "
+                f"{rplan.batch}/round; trigger "
+                + (f"round {rplan.at_round}" if rplan.at_round is not None
+                   else f"imbalance > {rplan.imbalance:g}"
+                   if rplan.imbalance is not None else "round 2") + ")")
         sched = FleetScheduler(pool, streams, batch=batch, macro_k=macro_k,
                                batch_chars=batch_chars, queue_cap=queue_cap,
                                overflow_policy=overflow_policy,
@@ -436,7 +483,8 @@ def run_serve_bench(
                                snapshot_keep=snapshot_keep,
                                snapshot_full_every=snapshot_full_every,
                                telemetry=telemetry, reqtrace=reqtrace,
-                               slo=slo, drained_gc=record_evict)
+                               slo=slo, drained_gc=record_evict,
+                               reshard=coord)
         setup_s = time.perf_counter() - t0
         rss_setup = current_rss_bytes()
         if stream:
@@ -536,6 +584,26 @@ def run_serve_bench(
                 f"quarantines {len(stats.quarantines)}, degraded rounds "
                 f"{stats.degraded_rounds}, snapshots {stats.snapshots}")
 
+        partition_errors: list[str] = []
+        if coord is not None:
+            rs = coord.summary()
+            mid = rs["mid_latency"]
+            log(f"serve: reshard: {rs['kind']} {rs['shards']} {rs['state']} "
+                f"(begin r{rs['begin_round']} commit r{rs['commit_round']}, "
+                f"{rs['rounds_active']} rounds); {rs['migrated']} row moves "
+                f"+ {rs['evicted']} evictions, {rs['deferred_lanes']} lanes "
+                f"deferred ({rs['deferred_ops']} ops), {rs['resumes']} "
+                f"resumes; live shards {rs['live_shards']}/{pool.n_sh}"
+                + (f"; mid-reshard round p99 {mid['p99'] * 1e3:.1f} ms"
+                   if mid else ""))
+            if not crashed:
+                # every doc on exactly one shard, none on a retired one:
+                # part of the gate, as the oracle is
+                partition_errors = check_shard_partition(pool)
+                if partition_errors:
+                    log("serve: SHARD PARTITION VIOLATED: "
+                        + "; ".join(partition_errors[:8]))
+
         t1 = time.perf_counter()
         session_of = {} if stream else {s.doc_id: s for s in sessions}
         oracle: dict = {}  # id(trace) or (band, source) -> content
@@ -580,7 +648,7 @@ def run_serve_bench(
             rec = pool.docs[d]
             cls = rec.cls or pool.class_for(max(rec.length, 1))
             docs_per_class[cls] = docs_per_class.get(cls, 0) + 1
-        verify_ok = bool(ids) and not failures
+        verify_ok = bool(ids) and not failures and not partition_errors
         log(f"serve: drained in {stats.wall_time:.3f} s over {stats.rounds} "
             f"macro-rounds ({stats.slices} device rounds, "
             f"{stats.dispatches} dispatches) -> {rate:,.0f} patches/s; "
@@ -666,7 +734,7 @@ def run_serve_bench(
             journal.close()  # flushed: the host state is disk-only now
             rpool = DocPool(classes=classes, slots=slots,
                             serve_kernel=serve_kernel, device=dev,
-                            warm_docs=warm_docs)
+                            warm_docs=warm_docs, shards=pool_shards)
             try:
                 rstreams = prepare_streams(sessions, rpool, batch=batch,
                                            batch_chars=batch_chars)
@@ -694,7 +762,12 @@ def run_serve_bench(
                                                         len(cand)),
                                          replace=False)] if cand else []
                 rfail = mismatches(rpool, rsample)
-                recovered_ok = not rfail and bool(rsample)
+                rpartition = (check_shard_partition(rpool)
+                              if rplan is not None else [])
+                if rpartition:
+                    log("serve: recovered fleet SHARD PARTITION VIOLATED: "
+                        + "; ".join(rpartition[:8]))
+                recovered_ok = not rfail and bool(rsample) and not rpartition
                 if plan is not None and recovered_ok:
                     # the durability kinds close on a proven recovery, and
                     # after a crash (the in-run sweep never ran) a full
@@ -867,6 +940,8 @@ def run_serve_bench(
             "mttr_rounds": summarize(stats.mttr_rounds),
             "degraded_rounds": stats.degraded_rounds,
             "lossy_docs": lossy,
+            "reshard": (None if coord is None else {
+                **coord.summary(), "partition_errors": partition_errors}),
             "journal": journal_block,
             "construction": construction,
             "recovery": recovery_block,

@@ -40,8 +40,10 @@ state by replaying the stream interval through ``engine/merge_fleet.py``
 The journal's counters and durability gauges are registry metrics
 (``serve.journal.*``, attached to a drain's registry by
 :meth:`OpJournal.bind_metrics`); the JAX module's sanitizer hooks are not
-ported.  A journal that holds a reshard record, or a directory that holds a reshard
-manifest, is refused by :func:`recover_fleet` until reshard is ported.
+ported.  :func:`recover_fleet` settles a reshard the journal records
+(``serve/reshard.py recover_torn_reshard``): committed ones stay retired, a
+committed manifest without a commit record rolls forward, a staged one rolls
+back.
 """
 
 from __future__ import annotations
@@ -68,13 +70,12 @@ from ..utils.checkpoint import (
     save_state,
 )
 from .pool import _fresh_row_np
+from .reshard import recover_torn_reshard
 
 SNAP_PREFIX = "snap_"
 WAL_PREFIX = "wal_"
 WAL_ACTIVE = "journal.log"
 GC_MANIFEST = "GC_MANIFEST.json"
-#: the JAX package's reshard commit file, which the port refuses to recover
-RESHARD_MANIFEST = "RESHARD_MANIFEST.json"
 
 #: Roll the active WAL file into a sealed segment past this many bytes.
 DEFAULT_SEGMENT_BYTES = 1 << 20
@@ -959,20 +960,11 @@ class RecoveryReport:
     chain_fallbacks: int = 0  # damaged candidates skipped
     gc_segments_completed: int = 0  # torn GC finished by this recovery
     staging_removed: int = 0  # abandoned snap_*.tmp dirs swept
-    # elastic reconfiguration, which the port does not recover yet: always
-    # empty (a journal that needs it is refused)
+    # the elastic shard map: the shards kept or made retired, the docs
+    # evicted off them, and whether a torn reshard was completed
     reshard_retired: list[int] = field(default_factory=list)
     reshard_docs_moved: int = 0
     reshard_completed: bool = False
-
-
-def _refuse_reshard(journal_dir: str, records) -> None:
-    if any(rec.get("t") == "reshard" for rec in records) or any(
-            os.path.exists(os.path.join(journal_dir, n))
-            for n in (RESHARD_MANIFEST, RESHARD_MANIFEST + ".tmp")):
-        raise ValueError(
-            f"journal {journal_dir!r} holds reshard state; recovering a "
-            "reshard is not ported yet (ROADMAP.md Queue 1 item 6.5)")
 
 
 def recover_fleet(pool, streams, journal_dir: str) -> RecoveryReport:
@@ -983,13 +975,13 @@ def recover_fleet(pool, streams, journal_dir: str) -> RecoveryReport:
     chain, cold start), re-apply the journaled quarantine and shed
     decisions of the tail, and leave the cursors at the chosen barrier so
     the resumed drain replays the tail through the normal macro-round
-    path.  The restored buckets land on the pool's device.  A journal
-    with reshard state raises ``ValueError`` (not ported yet)."""
+    path, and last settle the reshard state (committed reshards' shards
+    retired again, a torn one rolled forward: the docs a snapshot put on
+    them are evicted).  The restored buckets land on the pool's device."""
     report = RecoveryReport()
     report.gc_segments_completed = finish_torn_gc(journal_dir)
     report.staging_removed = len(sweep_staging(journal_dir))
     records, dropped = read_journal(journal_dir)
-    _refuse_reshard(journal_dir, records)
     report.torn_records = dropped
     report.records = len(records)
 
@@ -1047,6 +1039,13 @@ def recover_fleet(pool, streams, journal_dir: str) -> RecoveryReport:
         if st is None:
             continue
         report.ops_replayed += max(0, min(hw, st.n_total) - st.cursor)
+
+    # ---- the shard map: after the restore, which placed docs by the map
+    # of the snapshot's time
+    rs = recover_torn_reshard(pool, journal_dir, records)
+    report.reshard_retired = rs["retired"]
+    report.reshard_docs_moved = rs["moved"]
+    report.reshard_completed = rs["completed"]
     report.resume_round = max(0, max_r + 1)
     return report
 

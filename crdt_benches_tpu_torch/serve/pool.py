@@ -30,10 +30,14 @@ drained docs' records and spool members (:meth:`DocPool.gc_drained_docs`,
 two phases behind ``SPOOL_GC_MANIFEST``, a torn pass completed by the next
 pool on the directory).
 
+With ``shards=N`` every bucket's rows are split over N logical shards
+(row ``r`` on shard ``r // (R / N)``), each live, draining or retired: the
+shard map ``serve/reshard.py`` changes while the fleet serves.
+
 The hot path is :meth:`DocPool.macro_step`: K staged rounds of per-row
-range ops for the first ``Rt`` rows of one class (a row tier from
-:meth:`DocPool.tiers`; the scheduler compacts a macro-round's documents
-into it), applied to the tier's row slice by one of two byte-identical
+range ops for a row tier of one class (:meth:`DocPool.tiers`: the first
+``Rt / N`` rows of every shard; the scheduler compacts a macro-round's
+documents into it), applied to the tier's row slice by one of two byte-identical
 serve kernels (``serve_kernel``).  ``"fused"`` (the default): K1's per-row
 form resolves the K rounds and yields each round's starting visible count,
 :func:`serve_round_inputs` derives the rounds' operands, and one launch of
@@ -126,54 +130,92 @@ class DocRecord:
 
 class Bucket:
     """One capacity class: a PackedState stack of R rows of C slots whose
-    rows are docs.  Free rows sit in a min-heap (lazily invalidated, so the
-    scheduler can claim specific rows), so allocation prefers the lowest
-    row and keeps the occupied set packed toward the front, which is what
-    makes tier slicing effective.  One shard (``n_sh`` 1, ``Rg`` = R: the
-    JAX bucket's values without a mesh)."""
+    rows are docs.
 
-    n_sh = 1
+    Rows are split over ``n_sh`` logical shards: row ``r`` lives on shard
+    ``r // Rg``.  Free rows are per-shard min-heaps of local indices
+    (lazily invalidated, so the scheduler can claim specific rows), and an
+    allocation takes the lowest local row on the emptiest live shard,
+    which balances the shards and keeps each one's occupied set packed
+    toward its front (what makes tier slicing effective).  The ``live``
+    mask is the elastic shard map (``serve/reshard.py``): a draining or
+    retired shard keeps its rows but never receives another doc."""
 
-    def __init__(self, C: int, R: int, device: torch.device):
+    def __init__(self, C: int, R: int, device: torch.device, n_sh: int = 1):
         self.C = C
         self.R = R
-        self.Rg = R  # rows per shard
+        self.n_sh = n_sh
+        self.Rg = R // n_sh  # rows per shard
         self.state = PackedState(
             doc=torch.full((R, C), 2, dtype=I32, device=device),
             length=torch.zeros(R, dtype=I32, device=device),
             nvis=torch.zeros(R, dtype=I32, device=device),
         )
         self.rows: list[int | None] = [None] * R  # row -> doc_id
-        self._heap = list(range(R))
-        self.free: set[int] = set(range(R))
+        self._heaps = [list(range(self.Rg)) for _ in range(n_sh)]
+        self._free = [set(range(self.Rg)) for _ in range(n_sh)]
+        self.live: list[bool] = [True] * n_sh
+
+    @property
+    def free(self) -> list[int]:
+        """The free global rows (a read-only view)."""
+        return [s * self.Rg + r for s in range(self.n_sh)
+                for r in self._free[s]]
 
     @property
     def n_free(self) -> int:
-        return len(self.free)
+        return sum(len(f) for f in self._free)
+
+    def free_locals(self, s: int) -> set[int]:
+        """Shard ``s``'s free local rows."""
+        return self._free[s]
+
+    @property
+    def n_free_live(self) -> int:
+        """Free rows on live shards: the allocatable supply (``n_free``
+        counts physical rows)."""
+        return sum(len(f) for s, f in enumerate(self._free) if self.live[s])
+
+    @property
+    def live_rows(self) -> int:
+        """The live shards' rows."""
+        return self.Rg * sum(self.live)
+
+    @property
+    def usable_rows(self) -> int:
+        """Rows a round may schedule: every live row and the occupied rows
+        of draining shards (their residents serve until they migrate)."""
+        return self.R - (self.n_free - self.n_free_live)
+
+    def set_live(self, shard: int, flag: bool) -> None:
+        self.live[shard] = bool(flag)
 
     def alloc_row(self) -> int:
-        """The lowest free row."""
-        while self._heap:
-            row = heapq.heappop(self._heap)
-            if row in self.free:
-                self.free.discard(row)
-                return row
+        """The lowest local row on the emptiest live shard (ties: the
+        lowest shard)."""
+        lives = [s for s in range(self.n_sh) if self.live[s]]
+        if not lives:
+            raise RuntimeError(f"bucket c{self.C}: no live shard")
+        s = max(lives, key=lambda i: (len(self._free[i]), -i))
+        heap, free = self._heaps[s], self._free[s]
+        while heap:
+            r = heapq.heappop(heap)
+            if r in free:
+                free.discard(r)
+                return s * self.Rg + r
         raise RuntimeError(f"bucket c{self.C}: no free row")
 
     def take_row(self, row: int) -> None:
         """Claim a specific free row (compaction relocations)."""
-        if row not in self.free:
+        s, r = divmod(row, self.Rg)
+        if r not in self._free[s]:
             raise RuntimeError(f"bucket c{self.C}: row {row} not free")
-        self.free.discard(row)  # its heap entry is dropped lazily
+        self._free[s].discard(r)  # its heap entry is dropped lazily
 
     def release_row(self, row: int) -> None:
-        self.free.add(row)
-        heapq.heappush(self._heap, row)
-
-    def free_locals(self, s: int) -> set[int]:
-        """Shard ``s``'s free local rows (the one shard's: every free
-        row)."""
-        return self.free
+        s, r = divmod(row, self.Rg)
+        self._free[s].add(r)
+        heapq.heappush(self._heaps[s], r)
 
 
 @dataclass
@@ -256,6 +298,7 @@ class DocPool:
         device: str | torch.device = "cuda",
         warm_docs: int = 0,
         prefetch: bool = True,
+        shards: int | None = None,
     ):
         if serve_kernel not in SERVE_KERNELS:
             raise ValueError(f"unknown serve kernel {serve_kernel!r}")
@@ -266,11 +309,24 @@ class DocPool:
         for c in classes:
             if c % LANE:
                 raise ValueError(f"capacity class {c} not a multiple of {LANE}")
+        #: logical shards of every bucket's rows (``shards``; 1 without):
+        #: the elastic shard map ``serve/reshard.py`` changes live
+        self.n_sh = 1
+        if shards is not None:
+            for r in slots:
+                if r % shards:
+                    raise ValueError(
+                        f"bucket slots {r} not divisible by shards={shards}")
+            self.n_sh = shards
+        #: each shard's lifecycle: live -> draining (no allocation, its
+        #: residents still serve) -> retired (empty, closed); a grow revives
+        self.shard_state: list[str] = ["live"] * self.n_sh
         self.device = resolve_device(device)
         self.serve_kernel = serve_kernel
         self.classes = tuple(classes)
         self.buckets = {
-            c: Bucket(c, r, self.device) for c, r in zip(classes, slots)
+            c: Bucket(c, r, self.device, self.n_sh)
+            for c, r in zip(classes, slots)
         }
         self.docs: dict[int, DocRecord] = {}
         self._owns_spool = spool_dir is None
@@ -281,8 +337,6 @@ class DocPool:
         self.finish_torn_spool_gc()
         #: staged op-lane dtypes (ops/packing.py), static per pool
         self.op_dtypes = op_lane_dtypes(max(classes))
-        #: mesh shards of the fleet: one (the serve mesh is not ported)
-        self.n_sh = 1
         # typed counters (obs/metrics.py), attached to a drain's registry
         # by bind_metrics; the int properties below read and write them:
         # evictions, restores (admissions that read a cold spool),
@@ -370,10 +424,13 @@ class DocPool:
 
     def _mark_op_rows(self, cls: int, kind: np.ndarray) -> None:
         """Mark the rows a staged (K, Rt, B) op array touches: a row whose
-        every lane is PAD is a no-op end to end and stays clean.  The
-        tier's row r is the bucket's row r (one shard)."""
+        every lane is PAD is a no-op end to end and stays clean.  A tier's
+        row ``r`` is local row ``r % rt`` of shard ``r // rt``."""
+        b = self.buckets[cls]
+        rt = kind.shape[1] // b.n_sh
         self._dirty[cls].update(
-            int(r) for r in np.flatnonzero((kind != PAD).any(axis=(0, 2))))
+            (int(r) // rt) * b.Rg + int(r) % rt
+            for r in np.flatnonzero((kind != PAD).any(axis=(0, 2))))
 
     # ---- registration / class arithmetic ----
 
@@ -416,14 +473,39 @@ class DocPool:
 
     def tiers(self, cls: int) -> list[int]:
         """Row-count tiers a macro step may run on, ascending: factor-4
-        steps down from the bucket's rows, the smallest at most 4."""
-        out, rt = [], self.buckets[cls].R
+        steps down from the bucket's rows, the smallest at most 4 local
+        rows a shard.  A tier of ``Rt`` rows is the first ``Rt / n_sh``
+        local rows of every shard."""
+        b = self.buckets[cls]
+        out, rt = [], b.Rg
         while True:
-            out.append(rt)
+            out.append(rt * b.n_sh)
             if rt <= 4:
                 break
             rt = max(rt // 4, 4)
         return sorted(out)
+
+    def tier_rows(self, cls: int, Rt: int) -> PackedState:
+        """The tier's rows of class ``cls`` as one (Rt, C) state: a view of
+        the bucket's first ``Rt`` rows on one shard or at the full tier, a
+        gathered copy of every shard's first ``Rt / n_sh`` rows
+        otherwise."""
+        b = self.buckets[cls]
+        st = b.state
+        if b.n_sh == 1 or Rt == b.R:
+            return PackedState(st.doc[:Rt], st.length[:Rt], st.nvis[:Rt])
+        rt = Rt // b.n_sh
+        take = lambda x: x.view(b.n_sh, b.Rg, *x.shape[1:])[:, :rt].reshape(
+            Rt, *x.shape[1:])
+        return PackedState(take(st.doc), take(st.length), take(st.nvis))
+
+    def _put_tier(self, cls: int, Rt: int, new: PackedState) -> None:
+        """Write a gathered tier (:meth:`tier_rows`) back into its rows."""
+        b = self.buckets[cls]
+        rt = Rt // b.n_sh
+        for x, y in zip(b.state, new):
+            x.view(b.n_sh, b.Rg, *x.shape[1:])[:, :rt].copy_(
+                y.view(b.n_sh, rt, *y.shape[1:]))
 
     # ---- row movement (host round trips, off the macro step) ----
 
@@ -807,18 +889,20 @@ class DocPool:
 
     def macro_step(self, cls: int, kind: np.ndarray, pos: np.ndarray,
                    rlen: np.ndarray, slot0: np.ndarray, nbits: int) -> None:
-        """Apply K staged rounds to the first ``Rt`` rows of class ``cls``:
-        op arrays [K, Rt, B] in the pool's staged lane dtypes
-        (:attr:`op_dtypes`), row r of round k the ops of the doc in row r
-        (PAD lanes are no-ops), through :attr:`serve_kernel`.  ``nbits``
+        """Apply K staged rounds to the tier of ``Rt`` rows of class ``cls``
+        (:meth:`tier_rows`): op arrays [K, Rt, B] in the pool's staged lane
+        dtypes (:attr:`op_dtypes`), row r of round k the ops of the doc in
+        the tier's row r (PAD lanes are no-ops), through
+        :attr:`serve_kernel`.  ``nbits``
         (the scheduler's ``bit_length(batch_chars)``, which JAX's kernels
         need for their roll cascade) is unused: the port expands with one
         gather.  Nothing syncs."""
         del nbits
         b = self.buckets[cls]
         K, Rt, B = kind.shape
-        if not 1 <= Rt <= b.R:
-            raise ValueError(f"tier {Rt} incompatible with bucket {b.R}")
+        if not 1 <= Rt <= b.R or Rt % b.n_sh:
+            raise ValueError(f"tier {Rt} incompatible with bucket {b.R} "
+                             f"over {b.n_sh} shards")
         self._mark_op_rows(cls, kind)
         spans = self.spans if self.device.type == "cuda" else None
         marks = []
@@ -833,8 +917,7 @@ class DocPool:
         ops = torch.from_numpy(np.stack(widen_ops(kind, pos, rlen, slot0)))
         kd, pd, ld, sd = ops.to(self.device).unbind(0)
         mark("upload")
-        st = b.state
-        sub = PackedState(st.doc[:Rt], st.length[:Rt], st.nvis[:Rt])
+        sub = self.tier_rows(cls, Rt)
         if self.serve_kernel == "fused":
             tokens, dints, _ = resolve_range_rows(kd, pd, ld, sd, sub.nvis)
             mark("resolve")
@@ -851,6 +934,8 @@ class DocPool:
             sub.doc.copy_(new.doc)  # the tier's rows back into the bucket
         sub.length.copy_(new.length)
         sub.nvis.copy_(new.nvis)
+        if b.n_sh > 1 and Rt < b.R:
+            self._put_tier(cls, Rt, sub)  # the gathered tier back
         if spans is not None:
             spans.extend((name, marks[i][1], ev)
                          for i, (name, ev) in enumerate(marks[1:]))
@@ -881,13 +966,54 @@ class DocPool:
         return {c: 1.0 - b.n_free / b.R for c, b in self.buckets.items()}
 
     def shard_occupancy(self) -> list[int]:
-        """Occupied rows per shard over every class (one shard); their sum
-        is the fleet's resident-doc count."""
+        """Occupied rows per shard over every class; their sum is the
+        fleet's resident-doc count."""
         out = [0] * self.n_sh
         for b in self.buckets.values():
             for s in range(b.n_sh):
                 out[s] += b.Rg - len(b.free_locals(s))
         return out
+
+    # ---- the elastic shard map (serve/reshard.py drives these) ----
+
+    @property
+    def live_shard_count(self) -> int:
+        return sum(1 for s in self.shard_state if s == "live")
+
+    def docs_on_shard(self, shard: int) -> list[tuple[int, int, int]]:
+        """``(doc_id, cls, row)`` of every resident of ``shard``, read from
+        the bucket row tables (the ground truth, not the records)."""
+        out: list[tuple[int, int, int]] = []
+        for cls, b in self.buckets.items():
+            base = shard * b.Rg
+            out.extend((d, cls, base + r)
+                       for r, d in enumerate(b.rows[base:base + b.Rg])
+                       if d is not None)
+        return out
+
+    def drain_shard(self, shard: int) -> None:
+        """live -> draining: allocation on the shard stops now, its
+        residents serve until the reshard coordinator moves them.
+        Idempotent (recovery drains again)."""
+        if self.shard_state[shard] == "retired":
+            raise ValueError(f"shard {shard} already retired")
+        self.shard_state[shard] = "draining"
+        for b in self.buckets.values():
+            b.set_live(shard, False)
+
+    def retire_shard(self, shard: int) -> None:
+        """draining -> retired: the shard must be empty in every class."""
+        occupied = len(self.docs_on_shard(shard))
+        if occupied:
+            raise RuntimeError(
+                f"shard {shard}: {occupied} residents, cannot retire")
+        self.shard_state[shard] = "retired"
+
+    def revive_shard(self, shard: int) -> None:
+        """-> live (a grow): the shard allocates again in every class."""
+        self.shard_state[shard] = "live"
+        for b in self.buckets.values():
+            b.set_live(shard, True)
 
     def close(self) -> None:
         """Stop the prefetch thread, then delete the spool directory if

@@ -59,7 +59,13 @@ fixed points of each round):
   ``degrade_window`` rounds the scheduler plans K = 1 rounds, fenced each,
   for ``degrade_rounds`` rounds, then restores K;
 - **idempotent admission**: the cursor is the delivery high-water mark, so
-  a duplicated batch is clamped and dropped (``dup_ops_dropped``).
+  a duplicated batch is clamped and dropped (``dup_ops_dropped``);
+- **logical shards** (a pool built with ``shards=``): a tier is the first
+  rows of every shard, installs balance the live shards, and ``reshard``
+  (``serve/reshard.py ReshardCoordinator``) is ticked each round after the
+  plan and before its WAL record, its migrations joining the round's
+  boundary moves; a draining shard's residents still serve (on top of the
+  live-row cap) and are never eviction or shed victims.
 
 Telemetry (``obs/``): :class:`ServeStats` keeps its per-round series in the
 drain's ``MetricsRegistry`` (fixed-bucket histograms of round latency,
@@ -568,7 +574,7 @@ class FleetScheduler:
                  degrade_after: int = 3, degrade_window: int = 8,
                  degrade_rounds: int = 4, start_round: int = 0,
                  telemetry=None, reqtrace=None, slo=None,
-                 drained_gc: bool = False, gc_keep=None):
+                 drained_gc: bool = False, gc_keep=None, reshard=None):
         if overflow_policy not in ("defer", "shed"):
             raise ValueError(f"unknown overflow policy {overflow_policy!r}")
         self.pool = pool
@@ -679,6 +685,11 @@ class FleetScheduler:
             faults.bind_metrics(reg)
         if slo is not None:
             slo.bind(reg)  # the burn-rate gauges, pre-registered
+        #: the live shard-map change (serve/reshard.py ReshardCoordinator),
+        #: ticked once a round between the plan and its WAL record
+        self.reshard = reshard
+        if reshard is not None:
+            reshard.bind_metrics(reg)  # the serve.reshard.* series
         self.reqtrace.bind(self.stats)
         self._m_faults_seen = reg.counter("serve.faults.seen")
         # the durability gauges: the newest barrier's delta-chain depth and
@@ -790,6 +801,24 @@ class FleetScheduler:
         if dt is not None:  # None: never admitted, or already closed
             self.stats.note_doc_drained(tag, dt)
 
+    # ---- the elastic shard map's hooks (serve/reshard.py) ----
+
+    def _shard_imbalance(self) -> float:
+        """The live shards' occupancy imbalance (peak x live / total): the
+        reshard coordinator's rebalance trigger."""
+        occ = self.pool.shard_occupancy()
+        live = [occ[s] for s in range(self.pool.n_sh)
+                if self.pool.shard_state[s] == "live"]
+        total = sum(live)
+        if not live or total <= 0:
+            return 1.0
+        return max(live) * len(live) / total
+
+    def _note_reshard_deferred(self, ops: int) -> None:
+        """A migrating doc's lane was pulled from the round: its ops defer
+        (scheduled again from a live shard), they are never shed."""
+        self.stats.deferred_ops += ops
+
     def _flush_drained_gc(self, force: bool = False) -> None:
         """Reclaim the queued drained docs in batches of 32 (the manifest's
         fsyncs amortized); the flush at the drain's end is forced."""
@@ -809,8 +838,9 @@ class FleetScheduler:
         pool = self.pool
         scheduled: list[int] = []
         deferred: list[int] = []
-        n_lanes: dict[int, int] = {}
-        open_classes = {c for c in pool.classes if pool.buckets[c].R > 0}
+        live_need: dict[int, int] = {}  # lanes taking a live row
+        open_classes = {c for c in pool.classes
+                        if pool.buckets[c].usable_rows > 0}
         popped_live = 0  # arrived, undrained docs this scan handled
         while self._rr:
             if not open_classes:
@@ -850,17 +880,24 @@ class FleetScheduler:
             rec = pool.docs[doc_id]
             cls = pool.class_for(
                 max(rec.n_init + st.ins_before(end), rec.length, 1))
-            R = pool.buckets[cls].R
+            b = pool.buckets[cls]
             lanes = plan.lanes.setdefault(cls, [])
-            n = n_lanes.get(cls, 0)
-            if n >= R:
+            # the lane cap is the live rows, taken by every lane but a
+            # resident already serving from a draining shard (it keeps its
+            # row until it migrates, on top of the cap)
+            on_drain = rec.cls == cls and not b.live[rec.row // b.Rg]
+            need = live_need.get(cls, 0)
+            if not on_drain and need >= b.live_rows:
                 plan.waiting += 1
                 deferred.append(doc_id)
-                open_classes.discard(cls)
+                if b.usable_rows <= b.live_rows:
+                    open_classes.discard(cls)  # no free rider left: full
                 continue
             lanes.append(_Lane(stream=st, takes=takes, end=end))
-            n_lanes[cls] = n + 1
-            if n + 1 >= R:
+            if not on_drain:
+                need += 1
+                live_need[cls] = need
+            if need >= b.live_rows and b.usable_rows <= b.live_rows:
                 open_classes.discard(cls)
             # the admission edge: one request an episode
             self.reqtrace.open_request(doc_id, self.round, cap_cls=cls)
@@ -877,8 +914,11 @@ class FleetScheduler:
         any class (a resident about to promote out) are spared when
         possible; only this class's own selection must leave a
         candidate."""
-        candidates = [d for d, _row in self.pool.residents(cls)
-                      if d not in selected]
+        b = self.pool.buckets[cls]
+        # a draining shard's residents are the reshard coordinator's to
+        # move (evicting one would free no allocatable row)
+        candidates = [d for d, row in self.pool.residents(cls)
+                      if d not in selected and b.live[row // b.Rg]]
         if not candidates:
             raise RuntimeError(
                 f"bucket c{cls}: no eviction candidate "
@@ -943,7 +983,7 @@ class FleetScheduler:
             # make room: one victim per missing free row; to the spool,
             # or with a warm tier to limbo (deposited at the boundary)
             warm_mode = pool.warm.budget > 0
-            while b.n_free < len(pending):
+            while b.n_free_live < len(pending):
                 victim = self._pick_victim(cls, selected, selected_all)
                 vrec = pool.docs[victim]
                 plan.evictions.append((victim, cls, vrec.row))
@@ -960,19 +1000,37 @@ class FleetScheduler:
             # lowest that holds the residents (relocating high ones into
             # free low rows) and the installs
             k_eff = min(max(len(l.takes) for l in lanes), self._k_round)
-            resident = [lane for lane in lanes if lane.row >= 0]
+            resident = [(lane, divmod(lane.row, b.Rg)) for lane in lanes
+                        if lane.row >= 0]
             n_installs = len(pending)
             chosen_rt = b.R
             relocs: list[tuple[_Lane, int]] = []
             install_rows: list[int] = []
-            for rt in pool.tiers(cls):
-                fb = sorted(r for r in b.free if r < rt)
-                high = [lane for lane in resident if lane.row >= rt]
-                if len(high) > len(fb) or len(fb) - len(high) < n_installs:
+            for rt_total in pool.tiers(cls):
+                rt = rt_total // b.n_sh
+                # a shard that is not live takes no install or relocation
+                fb = [sorted(r for r in b.free_locals(s) if r < rt)
+                      if b.live[s] else [] for s in range(b.n_sh)]
+                high = [[] for _ in range(b.n_sh)]
+                for lane, (s, r) in resident:
+                    if r >= rt:
+                        high[s].append(lane)
+                if any(len(high[s]) > len(fb[s]) for s in range(b.n_sh)):
                     continue
-                chosen_rt = rt
-                relocs = list(zip(high, fb))
-                install_rows = fb[len(high):len(high) + n_installs]
+                if sum(len(fb[s]) - len(high[s])
+                       for s in range(b.n_sh)) < n_installs:
+                    continue
+                chosen_rt = rt_total
+                # high rows to the lowest free rows of their own shard;
+                # installs into the rest, balanced over the shards
+                spare: list[list[int]] = []
+                for s in range(b.n_sh):
+                    relocs.extend((lane, s * b.Rg + r)
+                                  for lane, r in zip(high[s], fb[s]))
+                    spare.append(fb[s][len(high[s]):])
+                for _ in range(n_installs):
+                    s = max(range(b.n_sh), key=lambda i: (len(spare[i]), -i))
+                    install_rows.append(s * b.Rg + spare[s].pop(0))
                 break
             plan.k_eff[cls] = k_eff
             plan.rt[cls] = chosen_rt
@@ -991,6 +1049,11 @@ class FleetScheduler:
                 rec.cls, rec.row = cls, row
                 lane.row = row
                 inst.append((rec.doc_id, row, source))
+                if self.telemetry is not None and source[0] == "pull":
+                    # a promotion landing on another shard than its source
+                    src_rg = pool.buckets[source[1]].Rg
+                    if source[2] // src_rg != row // b.Rg:
+                        self.telemetry.shards.note_relocation(row // b.Rg)
             for lane, dst in relocs:
                 rec = pool.docs[lane.stream.doc_id]
                 src = rec.row
@@ -1052,13 +1115,16 @@ class FleetScheduler:
         dt_kind, dt_pos, dt_rlen, dt_slot = self.pool.op_dtypes
         for cls, lanes in plan.lanes.items():
             K, Rt = plan.k_eff[cls], plan.rt[cls]
+            b = self.pool.buckets[cls]
+            rt = Rt // b.n_sh
             kind = np.full((K, Rt, B), PAD, dt_kind)
             pos = np.zeros((K, Rt, B), dt_pos)
             rlen = np.zeros((K, Rt, B), dt_rlen)
             slot0 = np.zeros((K, Rt, B), dt_slot)
             for lane in lanes:
                 st = lane.stream
-                r = lane.row
+                s, r = divmod(lane.row, b.Rg)
+                r += s * rt  # the lane's row in the tier
                 c = st.cursor
                 for k, take in enumerate(lane.takes):
                     kind[k, r, :take] = st.kind[c:c + take]
@@ -1095,6 +1161,11 @@ class FleetScheduler:
             return
         cands = sorted(d for d, s in self.streams.items()
                        if s.remaining > 0 and s.delivered is not None)
+        if self.overflow_policy == "shed" and self.reshard is not None:
+            # a doc mid-move defers for a round; it is never the shed victim
+            migrating = self.reshard.migrating_docs()
+            if migrating:
+                cands = [d for d in cands if d not in migrating]
         if not cands:
             return  # stays pending; retried next round
         deep = [d for d in cands
@@ -1799,13 +1870,16 @@ class FleetScheduler:
             out["durability"] = d
         if self.slo is not None:
             out["slo"] = self.slo.status_fields()
+        if self.reshard is not None:
+            # the live migration view (its gauges are serve.reshard.*)
+            out["reshard"] = self.reshard.status_fields()
         return out
 
     # ---- the drain loop ----
 
     def run_round(self) -> bool:
         """One macro-round (prefetch harvest -> overflow and tier-pressure
-        faults -> plan -> WAL record -> stage -> stall fault -> boundary
+        faults -> plan -> the reshard tick -> WAL record -> stage -> stall fault -> boundary
         moves -> prefetch submissions -> spool fault -> one dispatch per
         class, each polled for a device loss -> advance -> the degraded
         fence -> snapshot barrier), each phase a span (``serve.*``) and a
@@ -1835,6 +1909,18 @@ class FleetScheduler:
             ph["plan"] += t1 - th
             if plan is None:
                 return False
+            if self.reshard is not None and self.reshard.state != "done":
+                # the placed plan in hand, its WAL record not yet written:
+                # the migrations join this round's boundary moves, and the
+                # journal sees the round after every move decision
+                with span("serve.reshard"):
+                    self.reshard.tick(
+                        plan.base_round, plan,
+                        imbalance=self._shard_imbalance(),
+                        note_deferred=self._note_reshard_deferred)
+                tr = time.perf_counter()
+                ph["plan"] += tr - t1  # the coordinator's planning
+                t1 = tr
             if rt.armed:
                 # the lane set is final: this round's segments fold into
                 # exactly these docs' requests
@@ -1906,6 +1992,10 @@ class FleetScheduler:
         # the final fence into the last round before it is recorded
         self._flush_round()
         self._pending_round = (time.perf_counter() - t0, compiled, barrier)
+        if self.reshard is not None:
+            # the rounds served while a move is in flight (the reshard
+            # block's mid-reshard latency)
+            self.reshard.note_round_latency(time.perf_counter() - t0)
         return True
 
     def _flush_round(self) -> None:
@@ -1931,6 +2021,12 @@ class FleetScheduler:
             dt, c, b = self._pending_round
             self._pending_round = (dt + time.perf_counter() - t1, c, b)
         self._flush_round()
+        if self.reshard is not None and self.done:
+            # before the fault sweep: a crashed coordinator resumes and
+            # commits here, closing its reshard_crash event as a recovery.
+            # An interrupted drain leaves the manifest to recover_fleet
+            with span("serve.reshard.finalize"):
+                self.reshard.finalize(self.round)
         self._flush_drained_gc(force=True)
         if self.faults is not None and self.done:
             # only a completed drain sweeps its faults: an interrupted one

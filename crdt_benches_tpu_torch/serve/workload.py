@@ -92,6 +92,47 @@ class Session:
     burst: int | None = None  # producer delivery rate (ops/round)
 
 
+# ---- the multi-writer split (serve/replicate/) -----------------------------
+
+
+def split_turns(n_ops: int, writers: int,
+                turn_ops: int) -> list[tuple[int, int, int]]:
+    """Partition a doc's op stream ``[0, n_ops)`` into contiguous turn
+    blocks of up to ``turn_ops`` coalesced range ops, block ``j`` owned by
+    writer ``j % writers``: ``[(lo, hi, writer), ...]`` in sequence order.
+    The blocks concatenate back to the original stream, so the group's
+    arbitration order (ascending sequence) replays to the oracle's
+    content; the split is arithmetic alone, which is what lets a crashed
+    replicated fleet recover from the workload."""
+    if writers < 1:
+        raise ValueError(f"writers must be >= 1, got {writers}")
+    if turn_ops < 1:
+        raise ValueError(f"turn_ops must be >= 1, got {turn_ops}")
+    blocks: list[tuple[int, int, int]] = []
+    lo = seq = 0
+    while lo < n_ops:
+        hi = min(lo + turn_ops, n_ops)
+        blocks.append((lo, hi, seq % writers))
+        lo = hi
+        seq += 1
+    return blocks
+
+
+def replicate_sessions(sessions: list[Session],
+                       writers: int) -> list[Session]:
+    """Each logical session as ``writers`` replica sessions, one pool doc
+    each, with dense ids ``logical * writers + w``.  Replicas share the
+    trace object (``prepare_streams`` tensorizes it once) and the arrival
+    round; the producer ``burst`` is dropped (the broadcast bus paces a
+    replicated fleet)."""
+    if writers < 1:
+        raise ValueError(f"writers must be >= 1, got {writers}")
+    return [Session(doc_id=s.doc_id * writers + w, band=s.band,
+                    source=s.source, trace=s.trace, arrival=s.arrival,
+                    burst=None)
+            for s in sessions for w in range(writers)]
+
+
 @functools.lru_cache(maxsize=8)
 def _full_trace(name: str) -> TestData:
     return load_testing_data(name)

@@ -27,6 +27,7 @@ from crdt_benches_tpu.serve.workload import build_fleet as jax_build_fleet
 from crdt_benches_tpu_torch.oracle.text_oracle import replay_trace
 from crdt_benches_tpu_torch.serve import journal as pj
 from crdt_benches_tpu_torch.serve.pool import DocPool
+from crdt_benches_tpu_torch.serve.reshard import RESHARD_MANIFEST
 from crdt_benches_tpu_torch.serve.scheduler import (
     FleetScheduler,
     prepare_streams,
@@ -398,22 +399,32 @@ def test_cold_start_without_a_journal_directory(tmp_path):
 
 
 def test_reshard_state_is_refused(tmp_path):
-    """A journal holding reshard state cannot be recovered by the port yet:
-    it raises and names the roadmap item, never ignoring the record."""
+    """Reshard state in a journal is no longer refused: a begin record
+    without a commit settles nothing, and a damaged manifest reads as
+    absent (nothing was promised), so both recover as JAX's
+    ``recover_fleet`` does, with empty ``reshard_*`` fields."""
     jd = str(tmp_path / "j")
     j = pj.OpJournal(jd)
     j.event("reshard", phase="begin", id=1, r=0)
     j.close()
-    pool = DocPool(**POOL, device="cpu", spool_dir=str(tmp_path / "s"))
-    streams = prepare_streams(build_fleet(**TINY), pool, **DRAIN)
-    with pytest.raises(ValueError, match="item 6.5"):
-        pj.recover_fleet(pool, streams, jd)
     jd2 = str(tmp_path / "j2")
     os.makedirs(jd2)
-    open(os.path.join(jd2, pj.RESHARD_MANIFEST), "w").write("{}")
-    with pytest.raises(ValueError, match="item 6.5"):
-        pj.recover_fleet(pool, streams, jd2)
-    pool.close()
+    open(os.path.join(jd2, RESHARD_MANIFEST), "w").write("{}")
+    for i, d in enumerate((jd, jd2)):
+        pool = DocPool(**POOL, device="cpu",
+                       spool_dir=str(tmp_path / f"s{i}"))
+        streams = prepare_streams(build_fleet(**TINY), pool, **DRAIN)
+        rep = pj.recover_fleet(pool, streams, d)
+        jpool = JaxPool(**POOL, spool_dir=str(tmp_path / f"js{i}"))
+        jrep = jj.recover_fleet(
+            jpool, jax_prepare(jax_build_fleet(**TINY), jpool, **DRAIN), d)
+        assert (rep.reshard_retired, rep.reshard_docs_moved,
+                rep.reshard_completed) == ([], 0, False) == (
+            jrep.reshard_retired, jrep.reshard_docs_moved,
+            jrep.reshard_completed)
+        assert rep.resume_round == jrep.resume_round
+        pool.close()
+        jpool.close()
 
 
 # ---- three tiers ----

@@ -64,6 +64,7 @@ from crdt_benches_tpu_torch.serve.bench import run_serve_bench
 from crdt_benches_tpu_torch.serve.construction import probe
 from crdt_benches_tpu_torch.serve.journal import rebuild_doc
 from crdt_benches_tpu_torch.serve.pool import DocPool
+from crdt_benches_tpu_torch.serve.replicate.bench import run_serve_repl_bench
 from crdt_benches_tpu_torch.traces.tensorize import (
     tensorize,
     tensorize_ranges,
@@ -101,7 +102,7 @@ def test_port_imports_no_jax_and_no_reference_module():
     )
     assert done.returncode == 0, done.stderr
     n, old = done.stdout.split(" ", 1)
-    assert int(n) >= 63  # every module of the port was imported
+    assert int(n) >= 70  # every module of the port was imported
     assert old.strip() == "[]"
     for mod in ("ops.idpos", "ops.apply", "engine.downstream",
                 "ops.packing", "ops.serve_fused", "oracle.text_oracle",
@@ -118,7 +119,10 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "utils.fsdur", "serve.faults", "serve.construction",
                 "obs.__init__", "obs.metrics", "obs.trace",
                 "obs.timeseries", "obs.shard", "obs.status", "obs.anomaly",
-                "obs.reqtrace", "obs.slo", "obs.flight"):
+                "obs.reqtrace", "obs.slo", "obs.flight", "serve.reshard",
+                "serve.replicate.__init__", "serve.replicate.group",
+                "serve.replicate.broadcast", "serve.replicate.checker",
+                "serve.replicate.scheduler", "serve.replicate.bench"):
         assert os.path.exists(os.path.join(
             REPO, "crdt_benches_tpu_torch", *mod.split(".")) + ".py"), mod
 
@@ -187,6 +191,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: run_serve_bench(n_docs=2, stream=True, record_evict=True),
         lambda: probe(2),
         lambda: probe(2, stream=False),
+        lambda: run_serve_repl_bench(n_docs=2, writers=2),
+        lambda: run_serve_bench(n_docs=4, reshard_spec="shrink:2:1",
+                                journal_dir="auto"),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -384,6 +391,26 @@ def test_chaos_bench_entry_without_cuda_exits_with_error():
 
 
 @pytest.mark.parametrize("argv", [
+    ["--serve-writers", "2", "--serve-turn-ops", "16"],
+    ["--serve-reshard", "shrink:2:1", "--serve-journal", "{tmp}"],
+])
+def test_repl_and_reshard_entries_without_cuda_exit_with_error(argv,
+                                                                tmp_path):
+    """A replicated or resharding serve run changes nothing about the
+    device: without CUDA it exits with the error and prints no result."""
+    _no_cuda()
+    done = subprocess.run(
+        [sys.executable, "-m", "crdt_benches_tpu_torch.bench", "--group",
+         "serve", "--serve-docs", "4",
+         *(a.format(tmp=tmp_path) for a in argv)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert done.returncode != 0
+    assert "CUDA is not available" in done.stderr
+    assert done.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("argv", [
     ["--group", "downstream", "--layout", "unit"],
     ["--group", "downstream", "--unit-engine", "v3"],
     ["--engine", "v3"],
@@ -405,6 +432,56 @@ def test_bench_entry_rejects_the_other_groups_flags(argv, capsys):
         main(argv + ["--device", "cpu"])
     assert done.value.code == 2
     assert "belong" in capsys.readouterr().err
+
+
+_REPL = ["--group", "serve", "--device", "cpu", "--serve-docs", "2",
+         "--serve-writers", "2"]
+
+
+@pytest.mark.parametrize("extra,flag", [
+    (["--serve-soak", "0"], "--serve-soak"),
+    (["--serve-longhaul", "2"], "--serve-longhaul"),
+    (["--serve-journal", "auto", "--serve-recover"], "--serve-recover"),
+    (["--serve-crash-round", "3"], "--serve-crash-round"),
+    (["--serve-reshard", "shrink:2:1"], "--serve-reshard"),
+    (["--serve-record-evict"], "--serve-record-evict"),
+    (["--serve-tiers", "warm=4"], "--serve-tiers"),
+    (["--serve-queue-cap", "8"], "--serve-queue-cap"),
+    (["--serve-status", "0"], "--serve-status"),
+    (["--serve-timeseries", "ts.jsonl"], "--serve-timeseries"),
+    (["--serve-trace", "t.json"], "--serve-trace"),
+    (["--serve-flight", "f.json"], "--serve-flight"),
+    (["--serve-stream"], "--serve-stream"),
+    (["--serve-stream-scaling", "8"], "--serve-stream-scaling"),
+])
+def test_repl_entry_refuses_the_flags_jax_refuses(extra, flag, capsys):
+    """``--serve-writers`` with a flag the replicated family does not take
+    exits 2 naming it, before any fleet is built (the JAX runner's list,
+    without the flags the port does not have)."""
+    from crdt_benches_tpu_torch.bench.__main__ import main
+
+    assert main(_REPL + extra) == 2
+    err = capsys.readouterr().err
+    assert flag in err and "not supported with --serve-writers" in err
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--serve-reshard", "shrink:2:1"], "--serve-journal is required"),
+    (["--serve-reshard", "shrink:2:2", "--serve-journal", "auto"],
+     "FROM > TO"),
+    (["--serve-reshard", "drain:0", "--serve-journal", "auto"],
+     "does not determine a shard count"),
+    (["--serve-reshard", "shrink:2:1", "--serve-journal", "auto",
+      "--serve-tiers", "warm=4"], "own bench family"),
+    (["--serve-faults", "reshard_crash=1"], "--serve-reshard is required"),
+    (["--serve-faults", "replica_partition=1"], "replicated fleet"),
+])
+def test_reshard_entry_refusals_exit_2(argv, msg, capsys):
+    from crdt_benches_tpu_torch.bench.__main__ import main
+
+    assert main(["--group", "serve", "--device", "cpu", "--serve-docs",
+                 "2"] + argv) == 2
+    assert msg in capsys.readouterr().err
 
 
 def test_chip_smoke_fails_without_cuda():
