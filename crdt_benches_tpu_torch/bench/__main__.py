@@ -27,7 +27,9 @@
         [--serve-reqtrace N] [--serve-slo SPEC] [--serve-flight PATH]
         [--serve-soak SECONDS] [--serve-watchdog SECONDS]
         [--serve-writers W] [--serve-turn-ops 64]
-        [--serve-reshard SPEC]  (serve)
+        [--serve-reshard SPEC] [--serve-open RATE[:poisson|burst]]
+        [--serve-open-sweep R1,R2,...] [--serve-tenants SPEC]
+        [--serve-deadline] [--serve-deadline-budget N]  (serve)
 
 The default is the headline range replay (1024 replicas, batch 1536);
 ``--layout unit --batch 256`` is the unit-op engine (the JAX package's
@@ -74,7 +76,13 @@ writer replicas, ``--serve-turn-ops N`` ops a writer's turn
 (``serve/repl/<mix>/<fleet>xW``, gated on every replica's convergence and
 the RA-linearizability checker), and ``--serve-reshard SPEC`` changes the
 pool's logical shard map mid-drain (``serve/reshard/<mix>/<fleet>``, the
-journal required));
+journal required); ``--serve-open RATE`` serves the fleet open-loop
+(``serve/open/<mix>/<fleet>``: ops arrive over a live loopback TCP front at
+RATE ops a macro-round, pass the per-tenant admission of
+``--serve-tenants`` into bounded queues, and ``--serve-deadline`` selects
+earliest-deadline-first over ``--serve-deadline-budget`` rounds), and
+``--serve-open-sweep R1,R2,...`` probes those offered rates first and
+attaches the p99-against-utilization knee to the run at RATE);
 its metric is fleet patches/sec over the drain's wall time, and it exits
 non-zero when verification fails, in a chaos run when a fault event went
 unfired or unrecovered, or when an anomaly is still active at the end (2
@@ -267,6 +275,7 @@ def _serve_repl(args) -> int:
         ("--serve-timeseries", args.serve_timeseries is not None),
         ("--serve-trace", args.serve_trace is not None),
         ("--serve-flight", args.serve_flight is not None),
+        ("--serve-open", args.serve_open is not None),
         ("--serve-stream", args.serve_stream),
         ("--serve-stream-scaling", args.serve_stream_scaling is not None),
     ]
@@ -306,23 +315,74 @@ def _serve_repl(args) -> int:
                  and rep["faults_ok"]) else 1
 
 
+def _open_refusals(args) -> str | None:
+    """The JAX runner's refusals of the open-loop flags: the message of a
+    refused combination, or None."""
+    if args.serve_open is not None:
+        # recovery and longhaul replay a closed-loop journal tail, the
+        # tiered, streamed and reshard families are bench ids of their own
+        unsupported = [
+            ("--serve-longhaul", args.serve_longhaul > 0),
+            ("--serve-recover", args.serve_recover),
+            ("--serve-crash-round", args.serve_crash_round > 0),
+            ("--serve-reshard", args.serve_reshard is not None),
+            ("--serve-tiers", args.serve_tiers is not None),
+            ("--serve-stream", args.serve_stream),
+        ]
+        bad = [flag for flag, hit in unsupported if hit]
+        if bad:
+            return (f"{', '.join(bad)} not supported with --serve-open (the "
+                    "open-loop family serves live wire arrivals; see "
+                    "serve/ingest/)")
+        if args.serve_open_sweep is not None and args.serve_soak is not None:
+            return ("--serve-open-sweep probes are one-shot drains; "
+                    "--serve-soak does not compose with the sweep")
+        return None
+    orphaned = [
+        ("--serve-tenants", args.serve_tenants is not None),
+        ("--serve-deadline", args.serve_deadline),
+        ("--serve-deadline-budget", args.serve_deadline_budget > 0),
+        ("--serve-open-sweep", args.serve_open_sweep is not None),
+    ]
+    bad = [flag for flag, hit in orphaned if hit]
+    if bad:
+        return (f"{', '.join(bad)} configure the live ingest front: "
+                "--serve-open RATE is required")
+    return None
+
+
 def _serve(args) -> int:
-    """Drain the serving fleet once (or soak it); one JSON line; 1 if verify
-    or the chaos gate fails or an anomaly is still active."""
+    """Drain the serving fleet once (or soak it, or sweep its offered load);
+    one JSON line; 1 if verify or the chaos gate fails or an anomaly is
+    still active."""
     from ..serve.bench import run_serve_bench
 
     if args.serve_writers > 1:
         return _serve_repl(args)
+    why = _open_refusals(args)
+    if why:
+        print(why, file=sys.stderr)
+        return 2
     if args.serve_record_evict and args.serve_journal is not None:
         print("--serve-record-evict requires a journal-less drain: "
               "recovery re-adopts the spool members the GC reclaims",
               file=sys.stderr)
         return 2
-    if args.serve_stream_scaling and args.serve_soak is not None:
+    if args.serve_stream_scaling and (args.serve_soak is not None
+                                      or args.serve_open_sweep is not None):
         print("--serve-stream-scaling attaches the fleet-size probe table "
               "to ONE serve run's report; it does not compose with "
-              "--serve-soak", file=sys.stderr)
+              "--serve-soak / --serve-open-sweep", file=sys.stderr)
         return 2
+    rates = None
+    if args.serve_open_sweep is not None:
+        try:
+            rates = [float(x) for x in args.serve_open_sweep.split(",")
+                     if x.strip()]
+        except ValueError:
+            print(f"--serve-open-sweep: bad rate list "
+                  f"{args.serve_open_sweep!r}", file=sys.stderr)
+            return 2
     scaling = None
     if args.serve_stream_scaling:
         # the fleet-size probe table: one fresh process a (size, mode)
@@ -356,6 +416,14 @@ def _serve(args) -> int:
                 timeseries_path=args.serve_timeseries,
                 timeseries_window=args.serve_timeseries_window,
                 watchdog_s=args.serve_watchdog)
+        elif rates is not None:
+            # the knee sweep: each offered rate probed, then the configured
+            # rate drained with the knee attached
+            from functools import partial
+
+            from ..serve.bench import run_serve_open_sweep
+
+            run = partial(run_serve_open_sweep, rates)
         rep = run(
             mix=args.serve_mix, n_docs=args.serve_docs,
             batch=args.serve_batch, classes=_ints(args.serve_classes),
@@ -380,7 +448,9 @@ def _serve(args) -> int:
             trace_path=args.serve_trace,
             reqtrace_samples=args.serve_reqtrace, slo_spec=args.serve_slo,
             flight_path=args.serve_flight, reshard_spec=args.serve_reshard,
-            device=args.device,
+            open_spec=args.serve_open, tenants_spec=args.serve_tenants,
+            deadline=bool(args.serve_deadline),
+            deadline_budget=args.serve_deadline_budget, device=args.device,
             log=lambda m: print(m, file=sys.stderr), **extra,
         )
     except (RuntimeError, ValueError) as e:
@@ -388,7 +458,29 @@ def _serve(args) -> int:
         return 2
     family = ("serve/reshard" if args.serve_reshard
               else "serve/longhaul" if args.serve_longhaul
-              else "serve/tier" if args.serve_tiers else "serve")
+              else "serve/tier" if args.serve_tiers
+              else "serve/open" if args.serve_open else "serve")
+    ing = rep.get("ingest")
+    if ing is not None:
+        # the ingest and knee summaries (stderr: stdout is the one line)
+        fr, dl = ing["front"], ing["deadline"]
+        print(f"  ingest: {fr['ops_delivered']} ops / {fr['ops_frames']} "
+              f"frames over {fr['sessions_opened']} sessions "
+              f"({fr['sessions_resumed']} resumed, {fr['churn_drops']} churn "
+              "drops); "
+              + "; ".join(f"{t}: admit {d['admitted_ops']} defer "
+                          f"{d['deferred_ops']} shed {d['shed_ops']}"
+                          for t, d in sorted(
+                              ing["admission"]["tenants"].items()))
+              + f"; deadline hit rate {dl['hit_rate']:.3f} "
+              f"({'EDF' if dl['edf'] else 'rr'})", file=sys.stderr)
+    knee = rep.get("knee")
+    if knee is not None:
+        print(f"  knee: capacity {knee['capacity_ops_per_round']:.1f} "
+              f"ops/round over {len(knee['points'])} probes: "
+              + ", ".join(f"u={p['utilization']:.2f}:p99 "
+                          f"{p['p99_ms']:.1f}ms" for p in knee["points"]),
+              file=sys.stderr)
     out = {
         "metric": (f"{family}/{args.serve_mix}/{args.serve_docs} fleet "
                    f"patches/sec, K={args.serve_macro}, torch-"
@@ -561,6 +653,34 @@ def main(argv=None) -> int:
     )
     for flag, typ, _default, metavar, text in telemetry_flags:
         ap.add_argument(flag, type=typ, metavar=metavar, help=text)
+    # the open-loop family's flags, with the JAX runner's help
+    ingest_flags = (
+        ("--serve-open", str, None, "RATE",
+         "open-loop live serving (serve/ingest/): start the sessioned TCP "
+         "ingest front and offer RATE ops/macro-round over seeded arrivals "
+         "('RATE' or 'RATE:poisson' / 'RATE:burst'); the family becomes "
+         "serve/open/<mix>/<fleet>, the per-doc queue cap defaults on "
+         "(8*batch) and delivery flows only through per-tenant admission"),
+        ("--serve-tenants", str, None, "SPEC",
+         "ingest admission tenants, 'name=RATE[:BURST[:BUDGET]],...': token "
+         "refill per round, bucket depth (default 4*RATE), in-queue op "
+         "budget (default unbounded); e.g. 'gold=256:1024,free=16:32:256' "
+         "(requires --serve-open)"),
+        ("--serve-deadline-budget", int, 0, "N",
+         "default per-doc deadline budget in macro-rounds past arrival (0 "
+         "= derived from the offered load)"),
+        ("--serve-open-sweep", str, None, "RATES",
+         "offered-load sweep: probe the open-loop drain at each "
+         "comma-separated rate, then run --serve-open's rate as the final "
+         "drain with the p99-vs-utilization knee curve attached (requires "
+         "--serve-open)"),
+    )
+    for flag, typ, _default, metavar, text in ingest_flags:
+        ap.add_argument(flag, type=typ, metavar=metavar, help=text)
+    ap.add_argument("--serve-deadline", action="store_true", default=None,
+                    help="earliest-deadline-first selection over per-class "
+                    "latency budgets (serve/ingest/deadline.py) instead of "
+                    "round-robin (requires --serve-open)")
     ap.add_argument("--serve-recover", action="store_true", default=None,
                     help="measure the recovery-time objective after the "
                     "drain: drop the live fleet, recover a fresh one from "
@@ -572,7 +692,10 @@ def main(argv=None) -> int:
                          for flag, typ, default, *_ in fault_flags)
     serve_flags += tuple((flag, typ, default)
                          for flag, typ, default, *_ in telemetry_flags)
+    serve_flags += tuple((flag, typ, default)
+                         for flag, typ, default, *_ in ingest_flags)
     serve_flags += (("--serve-recover", bool, False),
+                    ("--serve-deadline", bool, False),
                     ("--serve-stream", bool, False),
                     ("--serve-record-evict", bool, False),
                     ("--serve-stream-scaling", str, None))

@@ -35,6 +35,19 @@ report's ``construction`` block (both modes) holds the construction time
 materialized, released and prefetch-built docs, the genesis docs left and
 ``construction_scaling`` (``serve/construction.py scaling_table``'s rows).
 
+``open_spec`` (``RATE[:poisson|burst]``, ``serve/ingest/``) makes the drain
+open-loop (``serve/open/<mix>/<fleet>``): the ops arrive over a live
+loopback TCP front at that offered load while the fleet drains, pass the
+per-tenant admission (``tenants_spec``, ``serve/ingest/admission.py``
+grammar; one ``default`` tenant at twice the rate otherwise) into bounded
+queues (``8 * batch`` unless ``queue_cap`` says), and are selected by
+``DeadlineScheduler`` (earliest-deadline-first with ``deadline``, over a
+budget of ``deadline_budget`` rounds or one derived from the load).  The
+report then carries the ``ingest`` block, and the ``conn_churn`` and
+``tenant_flood`` fault kinds are polled.  :func:`run_serve_open_sweep`
+probes the drain at several offered rates and attaches the
+p99-against-utilization ``knee`` block to the configured rate's run.
+
 Telemetry (``obs/``; each report block is None when disarmed):
 ``trace_path`` arms the span tracer for the drain and writes (and
 validates) the Chrome trace there; ``status_port`` starts the loopback
@@ -88,6 +101,21 @@ from .faults import (
     TIER_KINDS,
     FaultInjector,
     FaultPlan,
+)
+from .ingest.admission import (
+    DEFAULT_TENANT,
+    AdmissionController,
+    TenantPolicy,
+    parse_tenant_spec,
+)
+from .ingest.deadline import DeadlineScheduler
+from .ingest.front import IngestFront
+from .ingest.loadgen import (
+    IngestPump,
+    OpenLoadClient,
+    build_open_plan,
+    drive_open_loop,
+    parse_open_spec,
 )
 from .journal import DEFAULT_SEGMENT_BYTES, OpJournal, recover_fleet
 from .pool import DocPool
@@ -228,13 +256,14 @@ def _verify_ids(pool: DocPool, doc_ids, verify_sample: int,
 def _check_fault_plan(plan: FaultPlan, *, warm_docs: int, journal_dir,
                       snapshot_every: int, snapshot_full_every: int,
                       wal_segment_bytes: int, queue_cap: int, batch: int,
-                      log, reshard: bool = False) -> int:
+                      log, reshard: bool = False,
+                      open_loop: bool = False) -> int:
     """Refuse a plan whose kinds this drain never polls, or whose
     injection points it cannot reach, with the JAX bench's messages: a
     loud configuration error up front instead of a drain that ends with
     ``not_fired`` events (the reshard kinds are polled when ``reshard``
-    is armed).  Returns the queue cap (``8 * batch`` for a
-    ``queue_overflow`` plan without one)."""
+    is armed, the ingest kinds when ``open_loop`` is).  Returns the queue
+    cap (``8 * batch`` for a ``queue_overflow`` plan without one)."""
     kinds = {e.kind for e in plan.events}
     hit = sorted(kinds & set(REPLICATION_KINDS))
     if hit:
@@ -242,11 +271,10 @@ def _check_fault_plan(plan: FaultPlan, *, warm_docs: int, journal_dir,
             f"fault kinds {hit} need a replicated fleet (--serve-writers >= "
             "2, serve/replicate/); a plain serve drain never polls them")
     hit = sorted(kinds & set(INGEST_KINDS))
-    if hit:
+    if hit and not open_loop:
         raise ValueError(
             f"fault kinds {hit} target the live ingest front: --serve-open "
-            "is required — a closed-loop replay never polls them; not "
-            "ported yet (ROADMAP.md Queue 1, serve/ingest/)")
+            "is required — a closed-loop replay never polls them")
     hit = sorted(kinds & set(RESHARD_KINDS))
     if hit and not reshard:
         raise ValueError(
@@ -328,6 +356,11 @@ def run_serve_bench(
     slo_spec: str | None = None,
     flight_path: str | None = None,
     reshard_spec: str | None = None,
+    open_spec: str | None = None,
+    tenants_spec: str | None = None,
+    deadline: bool = False,
+    deadline_budget: int = 0,
+    knee_block: dict | None = None,
     device: str | torch.device = "cuda",
     pool_hook=None,
     log=print,
@@ -352,9 +385,11 @@ def run_serve_bench(
     of the spec's logical shards (the ``serve/reshard/<mix>/<fleet>``
     family, journal required): the report gains a ``reshard`` block, and
     the shard partition invariant joins the verify gate.
-    ``pool_hook(pool)``, if given, runs on the pool just before the drain
-    (``chip_smoke.py`` arms the pool's CUDA-event spans or zeroes the
-    kernels' counts there)."""
+    ``open_spec``, ``tenants_spec``, ``deadline``, ``deadline_budget`` and
+    ``knee_block`` (the sweep's, attached to the report) as the module
+    says.  ``pool_hook(pool)``, if given, runs on the pool just before the
+    drain (``chip_smoke.py`` arms the pool's CUDA-event spans or zeroes
+    the kernels' counts there)."""
     warm_docs = 0
     if serve_tiers:
         slots, warm_docs = parse_tier_spec(serve_tiers, slots)
@@ -372,9 +407,46 @@ def run_serve_bench(
             "--serve-tiers and --serve-longhaul are separate bench "
             "families (serve/tier/* vs serve/longhaul/*); pick one"
         )
+    # open-loop serving (serve/open/<mix>/<fleet>): the live ingest front,
+    # per-tenant admission and the deadline-aware scheduler; the arrivals
+    # come over the wire at an offered load, not from the trace replay
+    open_rate, open_process = 0.0, ""
+    policies = None
+    if open_spec:
+        open_rate, open_process = parse_open_spec(open_spec)
+        if longhaul or warm_docs:
+            raise ValueError(
+                "--serve-open is its own bench family (serve/open/*); "
+                "--serve-longhaul / --serve-tiers do not compose with it"
+            )
+        if measure_recovery or crash_after:
+            raise ValueError(
+                "--serve-open does not support the measured recovery "
+                "leg (--serve-recover / --serve-crash-round): the "
+                "open-loop drain has no resumable closed-loop replay"
+            )
+        if queue_cap <= 0:
+            # the pump delivers through the bounded-queue rule; unbounded
+            # queues would make admission meaningless
+            queue_cap = 8 * batch
+            log(f"serve: open-loop needs a bounded queue; "
+                f"defaulting queue_cap={queue_cap}")
+        # parsed before any resource is taken, as the SLO spec is
+        policies = (parse_tenant_spec(tenants_spec) if tenants_spec
+                    else {DEFAULT_TENANT: TenantPolicy(
+                        DEFAULT_TENANT, rate=max(1.0, 2.0 * open_rate))})
+    if tenants_spec and not open_spec:
+        raise ValueError(
+            "--serve-tenants configures the ingest admission "
+            "controller: --serve-open is required"
+        )
+    if deadline and not open_spec:
+        raise ValueError(
+            "--serve-deadline selects EDF over the ingest deadline "
+            "budgets: --serve-open is required"
+        )
     # streaming construction rides the closed-loop families (serve/ and
     # serve/tier/); the legs that replay eagerly built streams refuse it
-    # (the open loop, which tensorizes every stream up front, has no port)
     if stream:
         if longhaul or measure_recovery or crash_after:
             raise ValueError(
@@ -389,6 +461,11 @@ def run_serve_bench(
                 "the lazy path releases drained streams, which the "
                 "journal's replay window would still reference"
             )
+        if open_spec:
+            raise ValueError(
+                "--serve-stream does not compose with --serve-open: "
+                "the open-loop plan tensorizes every stream up front"
+            )
     # a live shard-map change (the serve/reshard/* family): every migration
     # decision is journaled, so the journal is required
     rplan = parse_reshard_spec(reshard_spec) if reshard_spec else None
@@ -398,15 +475,20 @@ def run_serve_bench(
                 "--serve-reshard journals every migration decision (the "
                 "RESHARD_MANIFEST commit point lives in the journal dir): "
                 "--serve-journal is required")
-        if longhaul or warm_docs or stream:
+        if longhaul or warm_docs or open_spec or stream:
             raise ValueError(
-                "--serve-reshard is its own bench family (serve/reshard/*);"
-                " --serve-longhaul / --serve-tiers / --serve-stream do not "
-                "compose with it")
+                "--serve-reshard is its own bench family "
+                "(serve/reshard/*); --serve-longhaul / --serve-tiers / "
+                "--serve-open / --serve-stream do not compose with it")
         if rplan.n_shards < 2:
             raise ValueError(
                 f"reshard spec {reshard_spec!r} does not determine a shard "
                 "count: use drain:S,of=N for logical shards")
+    mix_name = mix if isinstance(mix, str) else "custom"
+    mix_label = (f"reshard/{mix_name}" if rplan is not None
+                 else f"longhaul/{mix_name}" if longhaul
+                 else f"tier/{mix_name}" if warm_docs
+                 else f"open/{mix_name}" if open_rate else mix_name)
     plan = None
     if faults is not None:
         plan = (faults if isinstance(faults, FaultPlan)
@@ -416,7 +498,8 @@ def run_serve_bench(
             snapshot_every=snapshot_every,
             snapshot_full_every=snapshot_full_every,
             wal_segment_bytes=wal_segment_bytes, queue_cap=queue_cap,
-            batch=batch, log=log, reshard=rplan is not None)
+            batch=batch, log=log, reshard=rplan is not None,
+            open_loop=bool(open_spec))
     # a malformed --serve-slo spec fails here, before the journal's temp
     # dir or the telemetry's threads exist: nothing to release yet
     slo = parse_slo(slo_spec)
@@ -438,6 +521,9 @@ def run_serve_bench(
     # last before the try that releases it
     reqtrace = arm_reqtrace(reqtrace_samples, slo, slo_spec, log)
     pool = None
+    # a live front is stopped on every exit path: a failed drain or verify
+    # leaves no listening socket behind
+    front = None
     try:
         if telemetry is not None:
             telemetry.note_phase("building")  # the staleness heartbeat
@@ -475,16 +561,40 @@ def run_serve_bench(
                 + (f"round {rplan.at_round}" if rplan.at_round is not None
                    else f"imbalance > {rplan.imbalance:g}"
                    if rplan.imbalance is not None else "round 2") + ")")
-        sched = FleetScheduler(pool, streams, batch=batch, macro_k=macro_k,
-                               batch_chars=batch_chars, queue_cap=queue_cap,
-                               overflow_policy=overflow_policy,
-                               faults=injector, journal=journal,
-                               snapshot_every=snapshot_every,
-                               snapshot_keep=snapshot_keep,
-                               snapshot_full_every=snapshot_full_every,
-                               telemetry=telemetry, reqtrace=reqtrace,
-                               slo=slo, drained_gc=record_evict,
-                               reshard=coord)
+        sched_kw = dict(batch=batch, macro_k=macro_k,
+                        batch_chars=batch_chars, queue_cap=queue_cap,
+                        overflow_policy=overflow_policy, faults=injector,
+                        journal=journal, snapshot_every=snapshot_every,
+                        snapshot_keep=snapshot_keep,
+                        snapshot_full_every=snapshot_full_every,
+                        telemetry=telemetry, reqtrace=reqtrace, slo=slo,
+                        drained_gc=record_evict, reshard=coord)
+        open_plan = admission = pump = load_client = None
+        if open_rate:
+            # delivery belongs to the ingest pump alone: burst 0 makes the
+            # scheduler's own per-round delivery a no-op, so every op
+            # reaches the bounded queues through the admission
+            for st in streams.values():
+                st.burst = 0
+            admission = AdmissionController(policies, slo=slo,
+                                            journal=journal)
+            open_plan = build_open_plan(
+                streams, rate=open_rate, process=open_process, seed=seed,
+                tenant_names=tuple(policies))
+            expected = -(-open_plan.total_ops // max(1, int(open_rate)))
+            sched = DeadlineScheduler(
+                pool, streams, edf=deadline,
+                default_budget=deadline_budget or max(
+                    64, 2 * expected + arrival_span),
+                **sched_kw)
+            log(f"serve: open-loop {open_process} arrivals at "
+                f"{open_rate:g} ops/round over {len(open_plan.sessions)} "
+                f"sessions ({open_plan.total_frames} frames, horizon "
+                f"{open_plan.horizon} rounds); tenants "
+                f"{','.join(sorted(policies))}; selection "
+                f"{'EDF' if deadline else 'round-robin'}")
+        else:
+            sched = FleetScheduler(pool, streams, **sched_kw)
         setup_s = time.perf_counter() - t0
         rss_setup = current_rss_bytes()
         if stream:
@@ -526,16 +636,34 @@ def run_serve_bench(
                 f"{overflow_policy}")
         if pool_hook is not None:
             pool_hook(pool)
+        if open_rate:
+            # the front goes live last, just before the drain
+            front = IngestFront(set(streams), tuple(admission.policies))
+            admission.bind(sched.stats.metrics)
+            port = front.start()
+            log(f"serve: ingest front on 127.0.0.1:{port} "
+                f"({len(open_plan.sessions)} sessions inbound)")
+            pump = IngestPump(sched, front, admission,
+                              tenant_of=open_plan.tenant_of,
+                              faults=sched.faults)
+            sched.ingest_status = pump.status_fields
+            load_client = OpenLoadClient(port, open_plan)
         tracer, armed_here = None, False
         if trace_path:
             obs_trace.arm()
             armed_here = True
             log(f"serve: span tracer ARMED -> {trace_path}")
         try:
-            # crash_after > 0: the injected crash stops the drain after
-            # that many macro-rounds; the recovery leg resumes from the
-            # journal
-            stats = sched.run(max_rounds=crash_after or None)
+            if open_rate:
+                load_client.start()
+                stats = drive_open_loop(sched, pump, load_client)
+                load_client.join()
+                front.stop()
+            else:
+                # crash_after > 0: the injected crash stops the drain
+                # after that many macro-rounds; the recovery leg resumes
+                # from the journal
+                stats = sched.run(max_rounds=crash_after or None)
         except BaseException as e:
             # the crash post-mortem: the flight window is dumped before
             # the exception leaves the drain (best effort: a failure here
@@ -558,6 +686,20 @@ def run_serve_bench(
                 f"{trace_path} ("
                 + ("valid" if not trace_errors
                    else f"INVALID: {trace_errors[:4]}") + ")")
+        if front is not None:
+            ff = front.status_fields()
+            dl = sched.deadline_fields()
+            log(f"serve: ingest: {ff['ops_frames']} op frames / "
+                f"{ff['ops_delivered']} ops over {ff['sessions_opened']} "
+                f"sessions ({ff['sessions_resumed']} resumed, "
+                f"{ff['churn_drops']} churn drops); "
+                + "; ".join(
+                    f"{t}: admit {d['admitted_ops']} defer "
+                    f"{d['deferred_ops']} shed {d['shed_ops']}"
+                    for t, d in sorted(
+                        admission.status_fields()["tenants"].items()))
+                + f"; deadline hit rate {dl['hit_rate']:.3f} ("
+                + ("EDF" if dl["edf"] else "round-robin") + ")")
         crashed = crash_after > 0 and not sched.done
         if crash_after:
             log(f"serve: CRASH injected after {stats.rounds} macro-rounds "
@@ -883,6 +1025,7 @@ def run_serve_bench(
         anomalies_ok = (telemetry is None or telemetry.anomaly is None
                         or telemetry.anomaly.uncleared == 0)
         return {
+            "bench_id": f"serve/{mix_label}/{n_docs}",
             "fleet_docs": n_docs, "mix": mix, "seed": seed,
             "batch": batch, "batch_chars": batch_chars, "macro_k": macro_k,
             "serve_kernel": serve_kernel,
@@ -942,6 +1085,25 @@ def run_serve_bench(
             "lossy_docs": lossy,
             "reshard": (None if coord is None else {
                 **coord.summary(), "partition_errors": partition_errors}),
+            # the live ingest (None without open_spec): the offered load,
+            # the front's and the client's counters, the per-tenant
+            # admit/defer/shed, the deadline hit rate
+            "ingest": None if front is None else {
+                "version": 1,
+                "open": open_plan.to_dict(),
+                "front": front.status_fields(),
+                "client": load_client.to_dict(),
+                "admission": admission.to_dict(),
+                "deadline": sched.deadline_fields(),
+                "late_frames": pump.late_frames,
+                "admitted_frames": pump.admitted_frames,
+                "dup_frames": pump.dup_frames,
+                "shed_docs": pump.shed_docs,
+                "drained_frames": pump.drained_frames,
+            },
+            # the offered-load sweep's p99-against-utilization curve
+            # (run_serve_open_sweep's final run only)
+            "knee": knee_block,
             "journal": journal_block,
             "construction": construction,
             "recovery": recovery_block,
@@ -978,6 +1140,8 @@ def run_serve_bench(
             "anomalies_ok": anomalies_ok,
         }
     finally:
+        if front is not None:
+            front.stop()  # idempotent: ends the handler threads on a crash
         reqtrace.release()
         if pool is not None:
             pool.close()
@@ -987,6 +1151,63 @@ def run_serve_bench(
                 shutil.rmtree(journal_dir, ignore_errors=True)
         if owns_telemetry and telemetry is not None:
             telemetry.close()  # stop the status server, close the stream
+
+
+def run_serve_open_sweep(sweep_rates, *, open_spec: str, log=print,
+                         **kw) -> dict:
+    """The offered-load sweep: probe the open-loop drain at each rate of
+    ``sweep_rates``, then run the configured rate (``open_spec``) as the
+    final drain, its report carrying the measured knee curve as its
+    ``knee`` block.
+
+    Each probe is a whole open-loop drain (live front, real wire) at its
+    rate with the heavy side-channels stripped (faults, the status
+    server, the time-series, the tracer, the journal: the probes measure
+    latency against load and nothing else).  A probe records its offered
+    rate, its served rate (``range_ops / rounds``), its p50/p99 round
+    latency and its defer and shed tallies; ``capacity`` is the highest
+    served rate any probe sustained, each point's utilization is
+    ``offered / capacity``, and p99 against utilization is the knee
+    curve."""
+    rate, process = parse_open_spec(open_spec)
+    rates = sorted({float(r) for r in sweep_rates} | {rate})
+    points = []
+    for probe_rate in rates:
+        probe_kw = dict(kw)
+        for heavy in ("faults", "status_port", "timeseries_path",
+                      "trace_path", "journal_dir"):
+            probe_kw.pop(heavy, None)
+        rep = run_serve_bench(open_spec=f"{probe_rate:g}:{process}",
+                              log=lambda *_a, **_k: None, **probe_kw)
+        lat = rep["batch_latency"]
+        served = rep["range_ops"] / max(1, rep["rounds"])
+        points.append({
+            "offered_rate": probe_rate,
+            "served_rate": round(served, 3),
+            "rounds": rep["rounds"],
+            "p50_ms": round(lat["p50"] * 1e3, 4),
+            "p99_ms": round(lat["p99"] * 1e3, 4),
+            "deferred_ops": rep["deferred_ops"],
+            "shed_ops": rep["shed_ops"],
+            "verify_ok": bool(rep["verify_ok"]),
+        })
+        log(f"serve: sweep probe {probe_rate:g} ops/round: served "
+            f"{served:.1f}, p99 {lat['p99'] * 1e3:.2f} ms, deferred "
+            f"{rep['deferred_ops']} shed {rep['shed_ops']}")
+    capacity = max(p["served_rate"] for p in points) or 1.0
+    for p in points:
+        p["utilization"] = round(p["offered_rate"] / capacity, 4)
+    knee_block = {
+        "version": 1,
+        "process": process,
+        "capacity_ops_per_round": capacity,
+        "points": points,
+    }
+    log(f"serve: knee: capacity {capacity:.1f} ops/round over "
+        f"{len(points)} probes; final run at {rate:g} (utilization "
+        f"{rate / capacity:.2f})")
+    return run_serve_bench(open_spec=open_spec, knee_block=knee_block,
+                           log=log, **kw)
 
 
 def run_serve_soak(soak_seconds: float = 0.0, *, seed: int = 0,
@@ -1000,7 +1221,8 @@ def run_serve_soak(soak_seconds: float = 0.0, *, seed: int = 0,
     (``seed + i``) and verified, under ONE telemetry bundle with the
     anomaly detectors armed (the time-series, detectors and status server
     run on across the drains; ``/healthz`` turns stale after 120 s without
-    a publish).  Returns the last drain's report, its ``timeseries`` and
+    a publish; ``kw`` goes to every drain, the open-loop arguments among
+    it).  Returns the last drain's report, its ``timeseries`` and
     ``anomalies`` blocks the whole soak's, with ``verify_ok`` and
     ``faults_ok`` the AND over every drain, ``anomalies_ok`` False when an
     anomaly is still active at the end, and ``iterations``."""

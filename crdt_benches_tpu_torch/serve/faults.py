@@ -90,10 +90,13 @@ smoke exits nonzero when any event goes unfired or unrecovered.
 
 The port's scheduler polls the kinds of a single-host serve drain
 (spool, device loss, duplicates, stalls, queue overflow, poisoned
-rebuilds, the journal's and the warm tier's kinds); the replication,
-ingest and reshard kinds parse here and are refused by
-``run_serve_bench`` until those layers are ported.  Each firing is an
-instant on the span tracer's timeline (``obs/trace.py``), and
+rebuilds, the journal's and the warm tier's kinds); the replicated
+scheduler (``serve/replicate/``) polls the replication kinds, the reshard
+coordinator (``serve/reshard.py``) the reshard kind and the open-loop
+ingest pump (``serve/ingest/loadgen.py``) the ingest kinds, and
+``run_serve_bench`` refuses up front a kind its drain never polls.
+Each firing is an instant on the span tracer's timeline
+(``obs/trace.py``), and
 :meth:`FaultInjector.bind_metrics` registers the per-kind
 ``serve.faults.fired.<kind>`` / ``serve.faults.recovered.<kind>`` counters
 in a drain's registry (``fired_counts`` / ``recovered_counts`` read them).

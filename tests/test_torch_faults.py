@@ -567,11 +567,11 @@ def test_tier_fault_kinds_require_tiers(tmp_path):
 def test_unported_kinds_are_refused_up_front(kind):
     """A plain drain refuses the kinds it never polls: the replication
     kinds need a replicated fleet, the reshard kind a reshard, and the
-    ingest kinds the ingest front, which is not ported yet."""
+    ingest kinds the open-loop ingest front."""
     msg = {"replica_partition": "replicated fleet",
            "merge_reorder": "replicated fleet",
            "reshard_crash": "--serve-reshard is required"}.get(
-        kind, "not ported yet")
+        kind, "--serve-open is required")
     with pytest.raises(ValueError, match=msg):
         run_serve_bench(mix=TINY_MIX, n_docs=4, bands=TINY_BANDS,
                         classes=(128,), slots=(4,), faults=f"{kind}=1",

@@ -60,7 +60,10 @@ from crdt_benches_tpu_torch.ops.apply2 import (
 )
 from crdt_benches_tpu_torch.parallel.launch import run_ranks
 from crdt_benches_tpu_torch.parallel.mesh import device_memory_stats
-from crdt_benches_tpu_torch.serve.bench import run_serve_bench
+from crdt_benches_tpu_torch.serve.bench import (
+    run_serve_bench,
+    run_serve_open_sweep,
+)
 from crdt_benches_tpu_torch.serve.construction import probe
 from crdt_benches_tpu_torch.serve.journal import rebuild_doc
 from crdt_benches_tpu_torch.serve.pool import DocPool
@@ -122,7 +125,10 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "obs.reqtrace", "obs.slo", "obs.flight", "serve.reshard",
                 "serve.replicate.__init__", "serve.replicate.group",
                 "serve.replicate.broadcast", "serve.replicate.checker",
-                "serve.replicate.scheduler", "serve.replicate.bench"):
+                "serve.replicate.scheduler", "serve.replicate.bench",
+                "serve.ingest.__init__", "serve.ingest.admission",
+                "serve.ingest.front", "serve.ingest.deadline",
+                "serve.ingest.loadgen"):
         assert os.path.exists(os.path.join(
             REPO, "crdt_benches_tpu_torch", *mod.split(".")) + ".py"), mod
 
@@ -194,6 +200,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: run_serve_repl_bench(n_docs=2, writers=2),
         lambda: run_serve_bench(n_docs=4, reshard_spec="shrink:2:1",
                                 journal_dir="auto"),
+        lambda: run_serve_bench(n_docs=2, open_spec="8", deadline=True,
+                                tenants_spec="gold=8"),
+        lambda: run_serve_open_sweep([4, 16], open_spec="8", n_docs=2),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -393,6 +402,8 @@ def test_chaos_bench_entry_without_cuda_exits_with_error():
 @pytest.mark.parametrize("argv", [
     ["--serve-writers", "2", "--serve-turn-ops", "16"],
     ["--serve-reshard", "shrink:2:1", "--serve-journal", "{tmp}"],
+    ["--serve-open", "8", "--serve-tenants", "gold=8", "--serve-deadline",
+     "--serve-faults", "conn_churn=1"],
 ])
 def test_repl_and_reshard_entries_without_cuda_exit_with_error(argv,
                                                                 tmp_path):
@@ -453,6 +464,7 @@ _REPL = ["--group", "serve", "--device", "cpu", "--serve-docs", "2",
     (["--serve-flight", "f.json"], "--serve-flight"),
     (["--serve-stream"], "--serve-stream"),
     (["--serve-stream-scaling", "8"], "--serve-stream-scaling"),
+    (["--serve-open", "32"], "--serve-open"),
 ])
 def test_repl_entry_refuses_the_flags_jax_refuses(extra, flag, capsys):
     """``--serve-writers`` with a flag the replicated family does not take
@@ -482,6 +494,62 @@ def test_reshard_entry_refusals_exit_2(argv, msg, capsys):
     assert main(["--group", "serve", "--device", "cpu", "--serve-docs",
                  "2"] + argv) == 2
     assert msg in capsys.readouterr().err
+
+
+_OPEN_NEEDED = "configure the live ingest front: --serve-open RATE is required"
+_OPEN_REFUSED = "not supported with --serve-open"
+
+
+@pytest.mark.parametrize("extra,msg", [
+    # tests/test_ingest.py's runner matrix
+    (["--serve-open", "32", "--serve-longhaul", "1"],
+     "--serve-longhaul " + _OPEN_REFUSED),
+    (["--serve-open", "32", "--serve-recover"],
+     "--serve-recover " + _OPEN_REFUSED),
+    # the port has no serve mesh yet: argparse refuses the flag
+    (["--serve-open", "32", "--serve-mesh", "3"],
+     "unrecognized arguments: --serve-mesh 3"),
+    (["--serve-open", "bogus"], "--serve-open: bad rate 'bogus'"),
+    (["--serve-tenants", "gold=8"], "--serve-tenants " + _OPEN_NEEDED),
+    (["--serve-deadline"], "--serve-deadline " + _OPEN_NEEDED),
+    (["--serve-open-sweep", "8,16"], "--serve-open-sweep " + _OPEN_NEEDED),
+    # and the rest of the JAX runner's open-loop refusals
+    (["--serve-deadline-budget", "9"],
+     "--serve-deadline-budget " + _OPEN_NEEDED),
+    (["--serve-open", "32", "--serve-crash-round", "3", "--serve-journal",
+      "auto"], "--serve-crash-round " + _OPEN_REFUSED),
+    (["--serve-open", "32", "--serve-reshard", "shrink:2:1",
+      "--serve-tiers", "warm=4", "--serve-stream"],
+     "--serve-reshard, --serve-tiers, --serve-stream " + _OPEN_REFUSED),
+    (["--serve-open", "32", "--serve-open-sweep", "8", "--serve-soak", "0"],
+     "--serve-soak does not compose with the sweep"),
+    (["--serve-open", "32", "--serve-open-sweep", "8,x"],
+     "--serve-open-sweep: bad rate list '8,x'"),
+    (["--serve-open", "32", "--serve-open-sweep", "8",
+      "--serve-stream-scaling", "8"], "--serve-soak / --serve-open-sweep"),
+    (["--serve-open", "32:steady"], "unknown arrival process 'steady'"),
+    (["--serve-open", "32", "--serve-tenants", "gold=0"],
+     "rate must be a positive finite"),
+    (["--serve-faults", "conn_churn=1"],
+     "target the live ingest front: --serve-open is required"),
+    (["--serve-faults", "tenant_flood=1"],
+     "target the live ingest front: --serve-open is required"),
+])
+def test_open_entry_refusals_exit_2(extra, msg, capsys):
+    """The JAX runner's refusals of the open-loop flags
+    (``crdt_benches_tpu/bench/runner.py`` and ``tests/test_ingest.py``'s
+    matrix) through the port's entry: exit 2 with the message, before
+    any fleet is built."""
+    from crdt_benches_tpu_torch.bench.__main__ import main
+
+    argv = ["--group", "serve", "--serve-docs", "8"] + extra
+    try:
+        rc = main(argv)
+    except SystemExit as e:  # argparse's own refusal
+        rc = e.code
+    assert rc == 2
+    out = capsys.readouterr()
+    assert msg in out.err and out.out == ""
 
 
 def test_chip_smoke_fails_without_cuda():
