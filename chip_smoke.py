@@ -10,6 +10,8 @@ their plain PyTorch versions.
 ``--repl-only`` the device, build and replication phases alone,
 ``--reshard-only`` the device, build and reshard phases alone,
 ``--open-only`` the device, build and open-loop phases alone,
+``--mesh-only`` the device, build and serve mesh phases alone (after a
+plain drain of serve/mixed/4096 for the reference rate),
 ``--tier-full`` drains the README's 65,536-document tier cell in ``[serve
 tier]`` in place of its cut, ``--stream-full`` the README's
 262,144-document streamed cell in ``[serve stream]`` (and adds eager rows
@@ -125,7 +127,17 @@ Phases (one line each; any failure exits non-zero):
     oracle, every bucket state, row map and doc record and every counter
     equal to the fused drain's, its latency and spans; K1's per-row form
     and K4 at K = 1 held against their plain versions and timed on round 0
-    of the fused drain's kept dispatches; then three-tier residency:
+    of the fused drain's kept dispatches; then ``[serve mesh]``: the
+    README's serve command (``--family serve --serve-docs 4096 --serve-mix
+    mixed --serve-mesh 8 --serve-macro 8``, every document verified)
+    in-process through the port's runner, 8 mesh shards on the one card:
+    exit 0, JAX's artifact keys, every document byte-identical to the
+    oracle, K1's per-row form and K4 once a shard of every dispatch, both
+    held against their plain versions and timed on shard 0's kept
+    operands, the rate against ``[serve]``'s, the drain's seconds and the
+    device's idle share over a profiled drain, each line with the
+    placement and the card's name and power limit; then three-tier
+    residency:
     ``[serve tier]``, the README's tiered cell cut to 2,048 documents
     (``TIER_CELL``: zipf arrivals over 32 rounds, ``--serve-tiers
     hot=32,warm=512``, 64 times over-subscribed) through
@@ -289,6 +301,10 @@ Phases (one line each; any failure exits non-zero):
     plain versions on one batch of these paths;
 21. ``[dryrun]``: ``entry.dryrun_multichip(1)`` on the card and on the
     CPU (gloo), the same three digests.
+
+serve/mixed/4096's sessions are built once and shared by every drain of
+that fleet, and each of their oracle texts computed once
+(:func:`share_serve_fleet`).
 
 The line before the last holds the kernels' numbers as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -497,6 +513,24 @@ def kernel_row(name, cu, replaces, launches, err, ms, plain_ms, bound,
     }
 
 
+def profiled_drain_busy_ms(pool, sched) -> tuple[float, float]:
+    """Device milliseconds and wall milliseconds of one drain
+    (``sched.run()``) under the profiler (CUDA activity only), for a
+    device's idle share against a timed drain run without the profiler
+    (and the profiler's cost beside it); closes the pool."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        stats = sched.run()
+    pool.close()
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6, \
+        stats.wall_time * 1e3
+
+
 def serve_phases(dev, bound) -> tuple[float, list[dict], tuple]:
     """The serving fleet's fused macro step on ``SERVE_CELL``.
 
@@ -510,15 +544,13 @@ def serve_phases(dev, bound) -> tuple[float, list[dict], tuple]:
     holds the largest class's widest tier).  ``[serve]``: the drain
     through ``run_serve_bench`` with every count set to 0 just before and
     read just after, every document verified against the oracle, and
-    CUDA-event stage spans; a third drain
-    under the profiler gives the device's idle share.  ``bound(bytes,
+    CUDA-event stage spans; a third drain under the profiler gives the
+    device's idle share (:func:`profiled_drain_busy_ms`).  ``bound(bytes,
     ops)`` gives (ms, "bytes" or "operations").  Returns the timed drain's
     patches/s, the kernels' rows of the ``kernels`` line and the timed
     drain's report and launches (``[serve telemetry]``'s reference)."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from crdt_benches_tpu_torch.ops import resolve_range as rr
     from crdt_benches_tpu_torch.ops import serve_fused as sf
@@ -775,17 +807,11 @@ def serve_phases(dev, bound) -> tuple[float, list[dict], tuple]:
 
     # ---- the device's idle share over a whole drain ----
     t0 = time.perf_counter()
-    pool, sched = fresh_drain()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        pstats = sched.run()
-    pool.close()
-    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-               if e.device_type() == DeviceType.CUDA) / 1e6
+    busy, pwall = profiled_drain_busy_ms(*fresh_drain())
     wall = rep["wall_time"] * 1e3
     idle = (f"device busy {busy:.2f} of {wall:.2f} ms wall (the timed drain;"
-            f" profiled drain {pstats.wall_time * 1e3:.2f} ms), idle "
-            f"{100 * (1 - busy / wall):.1f}%" if busy > 0 else
+            f" busy from a third drain under the profiler, {pwall:.2f} ms "
+            f"wall), idle {100 * (1 - busy / wall):.1f}%" if busy > 0 else
             "idle not measured (no device time)")
     lat = rep["batch_latency"]
     ph = rep["phase_seconds"]
@@ -893,6 +919,252 @@ def serve_phases(dev, bound) -> tuple[float, list[dict], tuple]:
                    "serve_fused.py:685", scan_launches["serve_macro_fused"],
                    err["k4_k1"], sk4_ms, scan_at["k4_plain_ms"], sk4_b),
     ], (rep, launches)
+
+
+#: The README's serve command (``README.md``, JAX's runner docstring)
+#: through the port's runner, as ``[serve mesh]`` runs it: serve/mixed/4096
+#: over 8 mesh shards, every document verified by the runner
+#: (``--serve-verify-sample 0``; the runner's default draws a sample of 8).
+MESH_ARGV = ("--family", "serve", "--serve-docs", "4096", "--serve-mix",
+             "mixed", "--serve-mesh", "8", "--serve-macro", "8",
+             "--serve-verify-sample", "0")
+MESH_SHARDS = 8
+#: The ``extra`` keys of JAX's serve artifact (``crdt_benches_tpu/serve/
+#: bench.py``), which the runner's artifact must carry.
+JAX_SERVE_KEYS = frozenset((
+    "family", "fleet_docs", "batch", "batch_chars", "macro_k", "kernel",
+    "op_dtypes", "classes", "slots", "mesh_devices", "rounds",
+    "device_rounds", "range_ops", "unit_ops", "coalesce_ratio",
+    "pad_fraction", "patches_per_sec", "batch_latency", "compile_time",
+    "compile_rounds", "barrier_time", "barrier_rounds", "steady_rounds",
+    "occupancy_mean", "queue_depth_mean", "queue_depth_max", "evictions",
+    "restores", "promotions", "admissions", "queue_cap", "overflow_policy",
+    "shed_ops", "deferred_ops", "overflow_events", "backpressure_rounds",
+    "dup_ops_dropped", "stall_rounds", "quarantines", "recoveries",
+    "ops_replayed", "replay_dispatches", "mttr_rounds", "degraded_rounds",
+    "lossy_docs", "journal", "longhaul", "construction", "residency",
+    "recovery", "reshard", "ingest", "knee", "faults", "boundary_syncs",
+    "thread_crossings", "fs_ops", "lifecycle", "ranges", "metrics",
+    "doc_drain_latency", "profile", "timeseries", "anomalies", "reqtrace",
+    "slo", "flight", "status_port", "trace", "docs_per_class",
+    "verified_docs", "verify_ok"))
+
+
+def share_serve_fleet() -> dict:
+    """Build ``SERVE_CELL``'s 4,096 sessions once for every drain of that
+    fleet (``[serve]``, ``[serve scan]``, ``[serve mesh]``, the telemetry,
+    journal and reshard drains): ``build_fleet`` memoized on the cell's
+    arguments, and the oracle's text of each of their traces computed once
+    (a drain reads sessions and never writes them: its state lives in its
+    streams and pool).  Every other fleet is built as before.  Returns the
+    counts of builds and oracle replays saved."""
+    from crdt_benches_tpu_torch.serve import bench as bench_mod
+    from crdt_benches_tpu_torch.serve import workload
+
+    build, replay = workload.build_fleet, bench_mod.replay_trace
+    want = dict(mix=SERVE_CELL["mix"], seed=SERVE_CELL["seed"],
+                arrival_span=SERVE_CELL["arrival_span"],
+                arrival_dist="uniform", bands=None, horizon=1, delivery=None)
+    held: dict = {"builds_saved": 0, "replays_saved": 0, "texts": {}}
+
+    def shared_fleet(n_docs, **kw):
+        if n_docs != SERVE_CELL["n_docs"] or {**want, **kw} != want:
+            return build(n_docs, **kw)
+        if "sessions" in held:
+            held["builds_saved"] += 1
+        else:
+            held["sessions"] = build(n_docs, **kw)
+            held["traces"] = {id(s.trace) for s in held["sessions"]}
+        return held["sessions"]
+
+    def shared_replay(tr):
+        if id(tr) not in held.get("traces", ()):
+            return replay(tr)
+        if id(tr) in held["texts"]:
+            held["replays_saved"] += 1
+        else:
+            held["texts"][id(tr)] = replay(tr)
+        return held["texts"][id(tr)]
+
+    workload.build_fleet = bench_mod.build_fleet = shared_fleet
+    bench_mod.replay_trace = shared_replay
+    return held
+
+
+def serve_mesh_phase(dev, bound, serve_rate, smi_line) -> list[dict]:
+    """``[serve mesh]``: the README's serve command (:data:`MESH_ARGV`)
+    in-process through the port's runner (``bench/runner.py --family
+    serve``), serve/mixed/4096 over 8 mesh shards on the one card (shard s
+    on ``cuda:(s mod 1)``).  Every count is set to 0 just before the runner
+    and read just after: K1's per-row form and K4 once a shard of every
+    dispatch, no plain version.  The runner exits 0, its artifact has
+    JAX's keys and every document verified against the oracle.  K1's
+    per-row form and K4 are held against their plain versions on shard 0's
+    operands of the widest dispatch (kept during the drain) and timed
+    there; a second mesh drain under the profiler (no runner, no verify)
+    gives the device's idle share against the runner's drain, as
+    ``[serve]``'s third drain does.  Each line names the placement and the
+    card.
+    Returns the two kernels' rows of the ``kernels`` line."""
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from crdt_benches_tpu_torch.bench import harness, runner
+    from crdt_benches_tpu_torch.ops import resolve_range as rr
+    from crdt_benches_tpu_torch.ops import serve_fused as sf
+    from crdt_benches_tpu_torch.ops.apply2 import PackedState
+    from crdt_benches_tpu_torch.parallel.mesh import fleet_mesh
+    from crdt_benches_tpu_torch.serve import pool as pool_mod
+    from crdt_benches_tpu_torch.serve.scheduler import (
+        FleetScheduler,
+        prepare_streams,
+    )
+    from crdt_benches_tpu_torch.serve.workload import build_fleet
+
+    cell = SERVE_CELL
+    mesh = fleet_mesh(MESH_SHARDS, dev)
+    where = f"{mesh.describe()}; {smi_line}"
+    calls = {"k1": 0, "k4": 0}
+    keep: dict = {}
+    k1, k4 = pool_mod.resolve_range_rows, pool_mod.serve_macro_fused
+
+    def k1_kept(kind, pos, rlen, slot0, v0):
+        # a dispatch resolves shard 0 first: keep its operands at the
+        # widest dispatch so far, and the same dispatch's shard-0 K4 launch
+        if calls["k1"] % MESH_SHARDS == 0 and (
+                "k1" not in keep or kind.numel() > keep["k1"][0].numel()):
+            keep["k1"] = (kind, pos, rlen, slot0, v0.clone())
+            keep["k4_next"] = True
+        calls["k1"] += 1
+        return k1(kind, pos, rlen, slot0, v0)
+
+    def k4_kept(sub, tokens, dints, *, inputs=None, out=None):
+        if calls["k4"] % MESH_SHARDS == 0 and keep.pop("k4_next", False):
+            keep["k4"] = (PackedState(sub.doc.clone(), sub.length.clone(),
+                                      sub.nvis.clone()), tokens, dints)
+        calls["k4"] += 1
+        return k4(sub, tokens, dints, inputs=inputs, out=out)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    saved_dir = harness.RESULTS_DIR
+    harness.RESULTS_DIR = tmp
+    pool_mod.resolve_range_rows, pool_mod.serve_macro_fused = k1_kept, k4_kept
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.synchronize()
+        zero_all_counts()
+        with contextlib.redirect_stdout(out):
+            rc = runner.main(list(MESH_ARGV))
+        launches = read_all_counts("serve mesh")
+        with open(os.path.join(tmp, "torch_serve_mixed_4096.json")) as fh:
+            (rec,) = json.load(fh)
+    finally:
+        pool_mod.resolve_range_rows, pool_mod.serve_macro_fused = k1, k4
+        harness.RESULTS_DIR = saved_dir
+        shutil.rmtree(tmp, ignore_errors=True)
+    run_s = time.perf_counter() - t0
+    for ln in out.getvalue().splitlines():
+        print(f"[serve mesh] runner: {ln}", flush=True)
+    x = rec["extra"]
+    if rc != 0:
+        fail(f"serve mesh: the runner exited {rc}")
+    if set(x) != JAX_SERVE_KEYS:
+        fail(f"serve mesh: artifact keys differ from JAX's: missing "
+             f"{sorted(JAX_SERVE_KEYS - set(x))}, extra "
+             f"{sorted(set(x) - JAX_SERVE_KEYS)}")
+    if not (x["verify_ok"] and x["verified_docs"] == list(range(
+            cell["n_docs"])) and x["mesh_devices"] == MESH_SHARDS
+            and sum(x["docs_per_class"].values()) == cell["n_docs"]):
+        fail(f"serve mesh: verify_ok {x['verify_ok']} on "
+             f"{len(x['verified_docs'])} docs, mesh {x['mesh_devices']}, "
+             f"per class {x['docs_per_class']}")
+    n = calls["k1"]
+    if not (n and n == calls["k4"] and n % MESH_SHARDS == 0 and launches
+            == {"resolve_range_rows": n, "serve_macro_fused": n}):
+        fail(f"serve mesh: launches {launches} for {n} and {calls['k4']} "
+             "shard calls")
+    wall = rec["samples"][0]
+    print(f"[serve mesh] serve/mixed/4096, {where}: "
+          f"{x['patches_per_sec']:.1f} patches/s ({rec['elements']} "
+          f"patches), {x['patches_per_sec'] / serve_rate:.4f} of "
+          f"[serve]'s {serve_rate:.1f} in this run", flush=True)
+    print(f"[serve mesh] drain, {where}: {wall:.4f} s over {x['rounds']} "
+          f"rounds ({x['device_rounds']} slices, {n // MESH_SHARDS} "
+          f"dispatches); runner call {run_s:.1f} s with set-up and the "
+          f"oracle verify of all {len(x['verified_docs'])} docs (every one "
+          f"byte-identical); artifact keys JAX's", flush=True)
+    print(f"[serve mesh] launches, {where}: {launches} ({n // MESH_SHARDS} "
+          f"dispatches x {MESH_SHARDS} shards), plain calls 0", flush=True)
+
+    # ---- the kernels on shard 0's kept operands ----
+    args = keep["k1"]
+    got = rr.resolve_range_rows(*args)
+    want = rr.resolve_range_rows_plain(*args)
+    e1 = max_err((*got[0], *got[1], got[2]), (*want[0], *want[1], want[2]))
+    st, tokens, dints = keep["k4"]
+    got4 = sf.serve_macro_fused(st, tokens, dints)
+    want4 = sf.serve_macro_plain(st, tokens, dints)
+    e4 = max_err(tuple(got4), tuple(want4))
+    if e1 or e4:
+        fail(f"serve mesh: shard 0's kept operands: K1 rows error {e1}, K4 "
+             f"error {e4}")
+    K1r, R1r, B1r = args[0].shape
+    T1r = rr.effective_token_list_size(B1r, None)
+    k1_ms = elapsed_ms(lambda: rr.resolve_range_rows(*args), 10)
+    k1_plain_ms = elapsed_ms(lambda: rr.resolve_range_rows_plain(*args), 1)
+    k1_bound = bound(4 * args[0].numel() * 4 + R1r * 4
+                     + K1r * R1r * (4 * T1r + 3 * B1r + 1) * 4,
+                     k1_rows_ops(*args))
+    inputs = sf.serve_round_inputs(tokens, dints, st.length, st.nvis)
+    K4, Rt, T = tokens[0].shape
+    C = st.doc.shape[1]
+    sf.serve_macro_fused(st, tokens, dints, inputs=inputs)  # warm-up
+    k4_ms = elapsed_ms(lambda: sf.serve_macro_fused(st, tokens, dints,
+                                                    inputs=inputs), 20)
+    k4_plain_ms = elapsed_ms(lambda: sf.serve_macro_plain(st, tokens, dints),
+                             3)
+    k4_bnd = k4_bound(bound, st.length, inputs[5], dints[0].shape[2], T, C)
+    print(f"[serve mesh] kernels, {where}: shard 0's operands of the "
+          f"widest dispatch equal the plain versions (max abs "
+          f"error 0); K1 per-row at (K, R, B, T) = {(K1r, R1r, B1r, T1r)} "
+          f"{k1_ms:.4f} ms, plain {k1_plain_ms:.1f} ms, bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}); K4 at (K, Rt, C) = "
+          f"{(K4, Rt, C)} {k4_ms:.4f} ms, plain {k4_plain_ms:.3f} ms, bound "
+          f"{k4_bnd[0]:.4f} ms ({k4_bnd[1]})", flush=True)
+    del keep, args, st, tokens, dints
+
+    # ---- the device's idle share: a second mesh drain, profiled ----
+    sessions = build_fleet(cell["n_docs"], mix=cell["mix"], seed=cell["seed"],
+                           arrival_span=cell["arrival_span"])
+    pool = pool_mod.DocPool(classes=cell["classes"], slots=cell["slots"],
+                            device=dev, mesh=mesh)
+    streams = prepare_streams(sessions, pool, batch=cell["batch"],
+                              batch_chars=cell["batch_chars"])
+    busy, pwall = profiled_drain_busy_ms(pool, FleetScheduler(
+        pool, streams, batch=cell["batch"], macro_k=cell["macro_k"],
+        batch_chars=cell["batch_chars"]))
+    idle = (f"device busy {busy:.2f} of {wall * 1e3:.2f} ms wall (the "
+            f"runner's drain; busy from a second drain under the "
+            f"profiler, {pwall:.2f} ms wall), idle "
+            f"{100 * (1 - busy / (wall * 1e3)):.1f}%"
+            if busy > 0 else "idle not measured (no device time)")
+    print(f"[serve mesh] idle, {where}: {idle}", flush=True)
+    return [
+        kernel_row(f"resolve_range_rows (mesh, {MESH_SHARDS} shards on 1 "
+                   f"GPU, shard (K, R, B) = ({K1r}, {R1r}, {B1r}))",
+                   "resolve_range.cu", "resolve_range_pallas.py:255",
+                   launches["resolve_range_rows"], e1, k1_ms, k1_plain_ms,
+                   k1_bound),
+        kernel_row(f"serve_macro_fused (mesh, {MESH_SHARDS} shards on 1 "
+                   f"GPU, shard (K, Rt, C) = ({K4}, {Rt}, {C}))",
+                   "serve_macro.cu", "serve_fused.py:685",
+                   launches["serve_macro_fused"], e4, k4_ms, k4_plain_ms,
+                   k4_bnd),
+    ]
 
 
 #: The README's tiered cell, serve/tier/mixed/65536 (the ``--serve-tiers
@@ -4717,6 +4989,10 @@ def main(argv=None) -> int:
                     help="run only the device, build and open-loop phases "
                     "([serve open], [serve open kernels], [serve open "
                     "sweep], [serve open chaos])")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run only the device, build and serve mesh phases "
+                    "(a plain drain of serve/mixed/4096 for the reference "
+                    "rate, then [serve mesh])")
     ap.add_argument("--open-full", action="store_true",
                     help="[serve open] on the uncut OPEN_FULL cell (4,096 "
                     "docs at 16,384 ops/round)")
@@ -4799,6 +5075,18 @@ def main(argv=None) -> int:
     for ln in _build.build_log.splitlines():
         if "registers" in ln or "bytes stack" in ln:
             print(f"[build] {ln.strip()}", flush=True)
+    fleet = share_serve_fleet()
+    if opts.mesh_only:
+        from crdt_benches_tpu_torch.serve.bench import run_serve_bench
+
+        ref = run_serve_bench(**SERVE_CELL, device=dev, log=lambda m: None)
+        print(f"[serve] serve/mixed/4096 (the reference): "
+              f"{ref['patches_per_sec']:.1f} patches/s", flush=True)
+        rows = serve_mesh_phase(dev, bound, ref["patches_per_sec"], smi_line)
+        print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(json.dumps({"kernels": rows}))
+        print(smi_line)
+        return 0
     if (opts.tier_only or opts.chaos_only or opts.stream_only
             or opts.telemetry_only or opts.repl_only or opts.reshard_only
             or opts.open_only):
@@ -5813,6 +6101,11 @@ def main(argv=None) -> int:
     # ---- the serving fleet: K1's per-row form and K4 ----
     serve_rate, serve_rows, serve_ref = serve_phases(dev, bound)
     rows += serve_rows
+    # ---- the serve mesh through the runner's serve family ----
+    t0 = time.perf_counter()
+    rows += serve_mesh_phase(dev, bound, serve_rate, smi_line)
+    print(f"[serve mesh] all mesh phases {time.perf_counter() - t0:.1f} s",
+          flush=True)
     # ---- the telemetry (obs/) against [serve]'s drain ----
     t0 = time.perf_counter()
     rows += telemetry_phases(dev, bound, serve_ref)
@@ -5876,6 +6169,9 @@ def main(argv=None) -> int:
     del traces
     print(f"[mesh] all mesh and dry-run phases "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[fleet] serve/mixed/4096's sessions built once: "
+          f"{fleet['builds_saved']} builds and {fleet['replays_saved']} "
+          f"oracle replays saved", flush=True)
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi_line)

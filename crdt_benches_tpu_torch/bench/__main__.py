@@ -107,13 +107,21 @@ from statistics import median
 
 import torch
 
-from ..serve.pool import SERVE_KERNELS
 from .merge import CONFIGS as MERGE_CONFIGS
 from .merge import ENGINES as MERGE_ENGINES
+from .serve_flags import (
+    SERVE_FLAGS,
+    add_serve_flags,
+    serve_defaults,
+    serve_refusal,
+)
 
 DOWN_ENGINES = ("v5", "v3", "v1", "range", "runs", "patch", "unitwire")
 #: downstream engine -> granularity of the run merge that carries it
 RUN_GRANULARITY = {"runs": "coalesced", "patch": "patch", "unitwire": "unit"}
+#: this entry's serve defaults where they differ from the runner's: every
+#: document verified
+MAIN_DEFAULTS = {"--serve-verify-sample": 0}
 
 
 def _native_rate(trace, run, samples: int) -> float:
@@ -259,32 +267,9 @@ def _ints(text: str) -> tuple[int, ...]:
 def _serve_repl(args) -> int:
     """The replicated family: one drain, one JSON line; 1 if a replica
     diverged, an RA axiom failed or a fault went unfired or unrecovered, 2
-    for a flag it does not take (the JAX runner's refusals)."""
+    when the drain refuses its arguments."""
     from ..serve.replicate.bench import run_serve_repl_bench
 
-    unsupported = [
-        ("--serve-soak", args.serve_soak is not None),
-        ("--serve-longhaul", args.serve_longhaul > 0),
-        ("--serve-recover", args.serve_recover),
-        ("--serve-crash-round", args.serve_crash_round > 0),
-        ("--serve-reshard", args.serve_reshard is not None),
-        ("--serve-record-evict", args.serve_record_evict),
-        ("--serve-tiers", args.serve_tiers is not None),
-        ("--serve-queue-cap", args.serve_queue_cap > 0),
-        ("--serve-status", args.serve_status is not None),
-        ("--serve-timeseries", args.serve_timeseries is not None),
-        ("--serve-trace", args.serve_trace is not None),
-        ("--serve-flight", args.serve_flight is not None),
-        ("--serve-open", args.serve_open is not None),
-        ("--serve-stream", args.serve_stream),
-        ("--serve-stream-scaling", args.serve_stream_scaling is not None),
-    ]
-    bad = [flag for flag, hit in unsupported if hit]
-    if bad:
-        print(f"{', '.join(bad)} not supported with --serve-writers (the "
-              "replicated family verifies the FULL fleet; delivery pacing "
-              "is the broadcast bus's)", file=sys.stderr)
-        return 2
     try:
         rep = run_serve_repl_bench(
             mix=args.serve_mix, n_docs=args.serve_docs,
@@ -315,65 +300,18 @@ def _serve_repl(args) -> int:
                  and rep["faults_ok"]) else 1
 
 
-def _open_refusals(args) -> str | None:
-    """The JAX runner's refusals of the open-loop flags: the message of a
-    refused combination, or None."""
-    if args.serve_open is not None:
-        # recovery and longhaul replay a closed-loop journal tail, the
-        # tiered, streamed and reshard families are bench ids of their own
-        unsupported = [
-            ("--serve-longhaul", args.serve_longhaul > 0),
-            ("--serve-recover", args.serve_recover),
-            ("--serve-crash-round", args.serve_crash_round > 0),
-            ("--serve-reshard", args.serve_reshard is not None),
-            ("--serve-tiers", args.serve_tiers is not None),
-            ("--serve-stream", args.serve_stream),
-        ]
-        bad = [flag for flag, hit in unsupported if hit]
-        if bad:
-            return (f"{', '.join(bad)} not supported with --serve-open (the "
-                    "open-loop family serves live wire arrivals; see "
-                    "serve/ingest/)")
-        if args.serve_open_sweep is not None and args.serve_soak is not None:
-            return ("--serve-open-sweep probes are one-shot drains; "
-                    "--serve-soak does not compose with the sweep")
-        return None
-    orphaned = [
-        ("--serve-tenants", args.serve_tenants is not None),
-        ("--serve-deadline", args.serve_deadline),
-        ("--serve-deadline-budget", args.serve_deadline_budget > 0),
-        ("--serve-open-sweep", args.serve_open_sweep is not None),
-    ]
-    bad = [flag for flag, hit in orphaned if hit]
-    if bad:
-        return (f"{', '.join(bad)} configure the live ingest front: "
-                "--serve-open RATE is required")
-    return None
-
-
 def _serve(args) -> int:
     """Drain the serving fleet once (or soak it, or sweep its offered load);
     one JSON line; 1 if verify or the chaos gate fails or an anomaly is
     still active."""
     from ..serve.bench import run_serve_bench
 
-    if args.serve_writers > 1:
-        return _serve_repl(args)
-    why = _open_refusals(args)
+    why = serve_refusal(args)  # the JAX runner's refusals
     if why:
         print(why, file=sys.stderr)
         return 2
-    if args.serve_record_evict and args.serve_journal is not None:
-        print("--serve-record-evict requires a journal-less drain: "
-              "recovery re-adopts the spool members the GC reclaims",
-              file=sys.stderr)
-        return 2
-    if args.serve_stream_scaling and (args.serve_soak is not None
-                                      or args.serve_open_sweep is not None):
-        print("--serve-stream-scaling attaches the fleet-size probe table "
-              "to ONE serve run's report; it does not compose with "
-              "--serve-soak / --serve-open-sweep", file=sys.stderr)
-        return 2
+    if args.serve_writers > 1:
+        return _serve_repl(args)
     rates = None
     if args.serve_open_sweep is not None:
         try:
@@ -525,180 +463,12 @@ def main(argv=None) -> int:
     for flag, typ, default, choices in merge_flags:
         ap.add_argument(flag, type=typ, choices=choices,
                         help=f"merge (default {default})")
-    serve_flags = (
-        ("--serve-docs", int, 4096), ("--serve-mix", str, "mixed"),
-        ("--serve-batch", int, 64), ("--serve-macro", int, 8),
-        ("--serve-batch-chars", int, 256),
-        ("--serve-classes", str, "256,1024,4096,8192,49152"),
-        ("--serve-slots", str, "2048,512,128,32,16"),
-        ("--serve-arrival-span", int, 8),
-        ("--serve-verify-sample", int, 0), ("--seed", int, 0),
-        ("--serve-kernel", str, "fused", SERVE_KERNELS),
-        ("--serve-tiers", str, None),
-        ("--serve-arrival-dist", str, "uniform", ("uniform", "zipf")),
-        ("--serve-writers", int, 0), ("--serve-turn-ops", int, 64),
-        ("--serve-reshard", str, None),
-    )
-    for flag, typ, default, *choices in serve_flags:
-        ap.add_argument(flag, type=typ, choices=choices[0] if choices else None,
-                        help=f"serve (default {default})")
-    # the journal's flags, with the JAX runner's defaults and help
-    journal_flags = (
-        ("--serve-journal", str, None, "DIR",
-         "enable the write-ahead op journal + snapshot barriers in DIR "
-         "('auto' = an owned temp dir, removed after the run)"),
-        ("--serve-snapshot-every", int, 32, "N",
-         "fleet snapshot barrier period in macro-rounds (journal mode "
-         "only)"),
-        ("--serve-snapshot-keep", int, 2, "N",
-         "retained snapshot CHAINS (a delta's base links always survive "
-         "with it; <=0 = never prune).  Also the WAL GC floor: segments "
-         "are kept back to the oldest retained barrier so chain fallback "
-         "always finds its redo tail"),
-        ("--serve-full-every", int, 4, "N",
-         "every Nth barrier is a chain-rooting FULL snapshot; the "
-         "barriers between persist only rows dirty since the previous "
-         "one as a CRC-chained DELTA (1 = every barrier full, the "
-         "pre-delta behavior)"),
-        ("--serve-wal-segment-bytes", int, 1 << 20, "BYTES",
-         "roll the active WAL file into a sealed numbered segment past "
-         "this size; segments fully covered by a committed snapshot are "
-         "garbage-collected crash-safely (0 = never roll, the "
-         "pre-segmentation behavior)"),
-        ("--serve-longhaul", int, 0, "H",
-         "the serve/longhaul/<mix>/<fleet> durability family: synthetic "
-         "streams carry H-times the band op count (days-of-edits "
-         "scale), the journal is required, and the run ends with a "
-         "measured recovery leg (recover_ms + redo span + chain depth "
-         "in the report)"),
-        ("--serve-crash-round", int, 0, "N",
-         "inject a crash: kill the drain after N macro-rounds and gate "
-         "the run on the recovered fleet's oracle byte-verify (implies "
-         "--serve-recover)"),
-    )
-    for flag, typ, _default, metavar, text in journal_flags:
-        ap.add_argument(flag, type=typ, metavar=metavar, help=text)
-    # the chaos run's flags, with the JAX runner's defaults and help
-    fault_flags = (
-        ("--serve-faults", str, None, "SPEC", None,
-         "seeded chaos drain: serve/faults.py spec, e.g. "
-         "'seed=7,span=8,spool_corrupt=1,device_loss=1,queue_overflow=1,"
-         "dup_batch=1,stall=1'"),
-        ("--serve-queue-cap", int, 0, "N", None,
-         "bound each doc's pending op queue (0 = unbounded legacy "
-         "behavior; overflow past the cap is an explicit defer/shed "
-         "decision)"),
-        ("--serve-overflow-policy", str, "defer", None, ("defer", "shed"),
-         "decision at a queue-cap overflow: backpressure the producer "
-         "(defer) or tail-drop the session's remaining ops (shed; surfaced "
-         "as shed_ops + lossy_docs)"),
-    )
-    for flag, typ, _default, metavar, choices, text in fault_flags:
-        ap.add_argument(flag, type=typ, metavar=metavar, choices=choices,
-                        help=text)
-    stream_flags = (
-        ("--serve-stream", "streaming fleet construction: the fleet is a "
-         "lazy FleetSpec, each doc's trace tensorized at its first "
-         "admission (off the drain by the prefetcher with --serve-tiers); "
-         "set-up cost and host memory scale with the active set"),
-        ("--serve-record-evict", "reclaim drained docs' pool records and "
-         "spool members mid-drain (two-phase GC, serve/pool.py "
-         "gc_drained_docs): the footprint tracks the active set.  "
-         "Journal-less drains only (recovery re-adopts spool members)"),
-    )
-    for flag, text in stream_flags:
-        ap.add_argument(flag, action="store_true", default=None, help=text)
-    ap.add_argument("--serve-stream-scaling", default=None,
-                    metavar="N1,N2,...",
-                    help="construction probe table: one fresh process per "
-                    "(fleet size, mode) cell (serve/construction.py), run "
-                    "before the drain and carried in its construction block")
-    # the telemetry's flags, with the JAX runner's help
-    telemetry_flags = (
-        ("--serve-trace", str, None, "PATH",
-         "arm the obs/trace.py span tracer for the drain and write "
-         "Perfetto-loadable Chrome trace JSON to PATH (validated after)"),
-        ("--serve-status", int, None, "PORT",
-         "start the obs/status.py live status server on 127.0.0.1:PORT (0 "
-         "= ephemeral, bound port logged): /healthz, /status.json, and "
-         "/metrics in Prometheus text exposition"),
-        ("--serve-timeseries", str, None, "PATH",
-         "stream closed obs/timeseries.py windows as JSONL to PATH (also "
-         "arms the windowed recorder: the report gains a versioned "
-         "'timeseries' block)"),
-        ("--serve-timeseries-window", int, 8, "N",
-         "macro-rounds folded per time-series window"),
-        ("--serve-reqtrace", int, 0, "N",
-         "arm obs/reqtrace.py request tracing, keeping the last N sampled "
-         "request traces (0 = disarmed; the report gains a versioned "
-         "'reqtrace' block with per-request segments and exemplars)"),
-        ("--serve-slo", str, None, "SPEC",
-         "per-class latency objectives, class=pQ:MS[,class=pQ:MS...], e.g. "
-         "'default=p99:250,c4096=p99.9:1500'; arms request tracing, exports "
-         "burn-rate gauges on /metrics and /status.json, and adds a "
-         "versioned 'slo' block (a malformed spec exits 2)"),
-        ("--serve-flight", str, None, "PATH",
-         "arm the obs/flight.py flight recorder: recent rounds, request "
-         "traces and the registry, dumped atomically to PATH on an anomaly, "
-         "an unrecovered fault or a crash (python -m "
-         "crdt_benches_tpu_torch.obs.flight PATH validates it)"),
-        ("--serve-soak", float, None, "SECONDS",
-         "soak mode: drain re-seeded fleets back to back for SECONDS (0 = "
-         "one drain) under one telemetry bundle with the obs/anomaly.py "
-         "detectors armed; exits 1 when an anomaly is still active at the "
-         "end"),
-        ("--serve-watchdog", float, 0.0, "SECONDS",
-         "stuck-round watchdog threshold for soak mode (0 = auto: 25x the "
-         "rolling median steady-round latency, floored at 1 s)"),
-    )
-    for flag, typ, _default, metavar, text in telemetry_flags:
-        ap.add_argument(flag, type=typ, metavar=metavar, help=text)
-    # the open-loop family's flags, with the JAX runner's help
-    ingest_flags = (
-        ("--serve-open", str, None, "RATE",
-         "open-loop live serving (serve/ingest/): start the sessioned TCP "
-         "ingest front and offer RATE ops/macro-round over seeded arrivals "
-         "('RATE' or 'RATE:poisson' / 'RATE:burst'); the family becomes "
-         "serve/open/<mix>/<fleet>, the per-doc queue cap defaults on "
-         "(8*batch) and delivery flows only through per-tenant admission"),
-        ("--serve-tenants", str, None, "SPEC",
-         "ingest admission tenants, 'name=RATE[:BURST[:BUDGET]],...': token "
-         "refill per round, bucket depth (default 4*RATE), in-queue op "
-         "budget (default unbounded); e.g. 'gold=256:1024,free=16:32:256' "
-         "(requires --serve-open)"),
-        ("--serve-deadline-budget", int, 0, "N",
-         "default per-doc deadline budget in macro-rounds past arrival (0 "
-         "= derived from the offered load)"),
-        ("--serve-open-sweep", str, None, "RATES",
-         "offered-load sweep: probe the open-loop drain at each "
-         "comma-separated rate, then run --serve-open's rate as the final "
-         "drain with the p99-vs-utilization knee curve attached (requires "
-         "--serve-open)"),
-    )
-    for flag, typ, _default, metavar, text in ingest_flags:
-        ap.add_argument(flag, type=typ, metavar=metavar, help=text)
-    ap.add_argument("--serve-deadline", action="store_true", default=None,
-                    help="earliest-deadline-first selection over per-class "
-                    "latency budgets (serve/ingest/deadline.py) instead of "
-                    "round-robin (requires --serve-open)")
-    ap.add_argument("--serve-recover", action="store_true", default=None,
-                    help="measure the recovery-time objective after the "
-                    "drain: drop the live fleet, recover a fresh one from "
-                    "the journal directory, resume the redo tail, "
-                    "byte-verify vs the oracle (requires --serve-journal)")
-    serve_flags += tuple((flag, typ, default)
-                         for flag, typ, default, *_ in journal_flags)
-    serve_flags += tuple((flag, typ, default)
-                         for flag, typ, default, *_ in fault_flags)
-    serve_flags += tuple((flag, typ, default)
-                         for flag, typ, default, *_ in telemetry_flags)
-    serve_flags += tuple((flag, typ, default)
-                         for flag, typ, default, *_ in ingest_flags)
-    serve_flags += (("--serve-recover", bool, False),
-                    ("--serve-deadline", bool, False),
-                    ("--serve-stream", bool, False),
-                    ("--serve-record-evict", bool, False),
-                    ("--serve-stream-scaling", str, None))
+    # the serve flags (bench/serve_flags.py, shared with the runner's serve
+    # family), unset so the ones given show; every sampled doc by default
+    add_serve_flags(ap, unset=True)
+    ap.add_argument("--seed", type=int, help="serve (default 0)")
+    serve_flags = tuple((flag, typ, default) for flag, typ, default, *_
+                        in SERVE_FLAGS) + (("--seed", int, 0),)
     args = ap.parse_args(argv)
     flag_set = lambda flags: [f for f, *_ in flags
                               if getattr(args, f[2:].replace("-", "_"))
@@ -725,8 +495,8 @@ def main(argv=None) -> int:
             ap.error("--replicas, --batch, --layout, --unit-engine, "
                      "--engine and --schedule do not belong to --group "
                      "serve")
-        for flag, _, default, *_ in serve_flags:
-            key = flag[2:].replace("-", "_")
+        defaults = {**serve_defaults(MAIN_DEFAULTS), "seed": 0}
+        for key, default in defaults.items():
             if getattr(args, key) is None:
                 setattr(args, key, default)
         if args.serve_tiers is not None:

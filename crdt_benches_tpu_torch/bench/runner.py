@@ -34,9 +34,26 @@ against the native treap's merge of the same delivered log) and exits 1
 on a mismatch; ``--verify-only`` checks and times nothing.  A cell whose
 backend is unavailable (no native library) or whose workload exceeds the
 engine's bound is skipped, and the skip is printed.  Without CUDA this
-exits with an error unless ``--device cpu`` is given.  ``--family serve``
-is not ported here: the serve drain is ``python -m
-crdt_benches_tpu_torch.bench --group serve``.
+exits with an error unless ``--device cpu`` is given.
+
+``--family serve`` is the JAX runner's serve family (:func:`run_serve`):
+
+    python -m crdt_benches_tpu_torch.bench.runner --family serve \\
+        --serve-docs 4096 --serve-mix mixed --serve-mesh 8 --serve-macro 8
+
+drains the document fleet once (``serve/bench.py``; the replicated family
+with ``--serve-writers W``, the knee sweep with ``--serve-open-sweep``, the
+soak with ``--serve-soak``), verifies a seeded per-class sample against the
+oracle (``--serve-verify-sample``, drawn with ``--serve-sample-seed``,
+default ``--serve-seed`` + 1), prints JAX's summary lines and writes JAX's
+artifact through :func:`save_results` as ``torch_serve_<mix>_<docs>.json``
+(``--serve-save-name NAME``: ``torch_NAME.json``).  ``--serve-mesh N``
+shards every bucket's rows over N shards (``parallel/mesh.py fleet_mesh``:
+on CUDA shard s on ``cuda:(s mod GPUs)``).  It exits 1 on a verification
+miss, an unfired or unrecovered fault or an anomaly still active, and 2 on
+a refused flag combination (JAX's refusals, word for word);
+``--serve-profile`` and ``--serve-edgecheck`` exit 2: the device profiler
+and the edge harness are ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -57,6 +74,7 @@ from .harness import (
     measure,
     save_results,
 )
+from .serve_flags import add_serve_flags, serve_refusal
 
 UPSTREAM_TORCH = ("torch", "torch-unit")
 DOWNSTREAM_TORCH = ("torch", "torch-pos", "torch-range", "torch-runs",
@@ -450,13 +468,312 @@ def _verify(args, device) -> list[tuple[str, str, str]]:
     return failures
 
 
+#: The JAX artifact's blocks that ROADMAP Queue 1 item 7 ports (the lint
+#: sanitizers' ground truth and the device profile): recorded as None.
+ITEM7_BLOCKS = ("boundary_syncs", "thread_crossings", "fs_ops", "lifecycle",
+                "ranges", "profile")
+
+#: Keys of a serve report the JAX artifact carries under the same name.
+_SERVE_KEYS = (
+    "fleet_docs", "batch", "batch_chars", "macro_k", "op_dtypes", "classes",
+    "slots", "mesh_devices", "rounds", "device_rounds", "range_ops",
+    "unit_ops", "coalesce_ratio", "pad_fraction", "patches_per_sec",
+    "batch_latency", "compile_time", "compile_rounds", "barrier_time",
+    "barrier_rounds", "steady_rounds", "occupancy_mean", "queue_depth_mean",
+    "queue_depth_max", "evictions", "restores", "promotions", "admissions",
+    "queue_cap", "overflow_policy", "shed_ops", "deferred_ops",
+    "overflow_events", "backpressure_rounds", "dup_ops_dropped",
+    "stall_rounds", "quarantines", "recoveries", "ops_replayed",
+    "replay_dispatches", "mttr_rounds", "degraded_rounds", "lossy_docs",
+    "journal", "longhaul", "construction", "recovery", "reshard", "ingest",
+    "knee", "faults", "metrics", "doc_drain_latency", "timeseries",
+    "anomalies", "reqtrace", "slo", "flight", "status_port", "trace",
+    "docs_per_class", "verify_ok")
+_REPL_KEYS = (
+    "fleet_docs", "writers", "replica_rows", "batch", "batch_chars",
+    "macro_k", "classes", "slots", "rounds", "range_ops", "unit_ops",
+    "patches_per_sec", "merge_unit_ops_per_sec", "batch_latency",
+    "compile_time", "compile_rounds", "steady_rounds", "occupancy_mean",
+    "evictions", "restores", "promotions", "coalesce_ratio", "pad_fraction",
+    "replication", "convergence", "faults", "journal", "metrics", "reqtrace",
+    "slo", "verify_ok", "ra_ok")
+
+
+def serve_artifact(rep: dict) -> tuple[BenchResult, str]:
+    """JAX's artifact of one serve report (``serve/bench.py`` or the
+    replicated family's) and its default name, JAX's: the same bench id and
+    ``extra`` keys, the item-7 blocks None."""
+    if rep.get("family") == "serve-repl":
+        n, w = rep["fleet_docs"], rep["writers"]
+        extra = {"family": "serve-repl",
+                 **{k: rep[k] for k in _REPL_KEYS},
+                 "kernel": rep["serve_kernel"], "thread_crossings": None}
+        return (BenchResult("serve/repl", rep["mix"], f"{n}x{w}",
+                            rep["patches"], [rep["wall_time"]], replicas=w,
+                            extra=extra),
+                f"serve_repl_{rep['mix']}_{n}x{w}")
+    label = rep["bench_id"].split("/", 1)[1].rsplit("/", 1)[0]
+    extra = {"family": "serve", **{k: rep.get(k) for k in _SERVE_KEYS},
+             "kernel": rep["serve_kernel"],
+             "residency": rep.get("residency"),
+             "verified_docs": rep["verified_ids"],
+             **{k: None for k in ITEM7_BLOCKS}}
+    n = rep["fleet_docs"]
+    return (BenchResult("serve", label, str(n), rep["patches"],
+                        [rep["wall_time"]], replicas=1, extra=extra),
+            f"serve_{label.replace('/', '_')}_{n}")
+
+
+def _serve_summary(r: BenchResult, iterations: int) -> None:
+    """JAX's summary lines of a serve run (standard output)."""
+    x = r.extra
+    print(f"{r.bench_id}: {r.elements_per_sec:,.0f} patches/s "
+          f"(K={x['macro_k']}, kernel={x['kernel']}, steady batch latency "
+          f"p50 {x['batch_latency']['p50'] * 1e3:.1f}ms "
+          f"/ p99 {x['batch_latency']['p99'] * 1e3:.1f}ms, "
+          f"compile {x['compile_time']:.2f}s, "
+          f"coalesce x{x['coalesce_ratio']:.2f}, "
+          f"pad {x['pad_fraction']:.3f})")
+    if x.get("residency") is not None:
+        res = x["residency"]
+        hr = res.get("hit_rate")
+        print(f"  residency: hot {res['hot_rows_budget']} rows / warm "
+              f"{res['warm_budget']} docs / cold compressed; warm hits "
+              f"{res['warm_hits']} (prefetched {res['prefetch_hits']}), "
+              f"cold restores {res['cold_restores']}, hit rate "
+              + (f"{hr:.3f}" if hr is not None else "n/a"))
+    if x.get("ingest") is not None:
+        ing = x["ingest"]
+        fr, dl = ing["front"], ing["deadline"]
+        hit = dl.get("hit_rate")
+        print(f"  ingest: {fr['ops_delivered']} ops / {fr['ops_frames']} "
+              f"frames over {fr['sessions_opened']} sessions "
+              f"({fr['sessions_resumed']} resumed, {fr['churn_drops']} churn "
+              "drops); "
+              + "; ".join(f"{t}: admit {d['admitted_ops']} defer "
+                          f"{d['deferred_ops']} shed {d['shed_ops']}"
+                          for t, d in sorted(
+                              ing["admission"]["tenants"].items()))
+              + (f"; deadline hit rate {hit:.3f} "
+                 f"({'EDF' if dl['edf'] else 'rr'})"
+                 if hit is not None else ""))
+    if x.get("knee") is not None:
+        knee = x["knee"]
+        print(f"  knee: capacity {knee['capacity_ops_per_round']:.1f} "
+              f"ops/round over {len(knee['points'])} probes — "
+              + ", ".join(f"u={p['utilization']:.2f}:p99 {p['p99_ms']:.1f}ms"
+                          for p in knee["points"]))
+    if x["faults"] is not None:
+        f, mttr = x["faults"], x["mttr_rounds"]
+        print(f"  chaos: {f['injected']} injected / {f['recovered']} "
+              f"recovered ({f['not_fired']} not fired), "
+              f"MTTR {mttr['mean']:.1f} rounds (max {mttr['max']}), "
+              f"replayed {x['ops_replayed']} ops, shed {x['shed_ops']}, "
+              f"quarantines {len(x['quarantines'])}, "
+              f"degraded rounds {x['degraded_rounds']}")
+    if x.get("recovery") is not None:
+        rec = x["recovery"]
+        print(f"  recovery: {rec['recover_ms']:.1f}ms restore "
+              f"(snapshot round {rec['snapshot_round']}, chain depth "
+              f"{rec['chain_depth']}, {rec['chain_fallbacks']} fallbacks)"
+              f" + {rec['redo_ms']:.1f}ms redo of {rec['redo_ops']} ops, "
+              f"WAL {rec['journal_disk_bytes']} B on disk, "
+              f"verify {'ok' if rec['verify_ok'] else 'FAILED'}")
+    if x.get("reshard") is not None:
+        rs = x["reshard"]
+        mid = rs["mid_latency"]
+        print(f"  reshard: {rs['kind']} {rs['shards']} {rs['state']} "
+              f"(rounds {rs['begin_round']}..{rs['commit_round']}); "
+              f"{rs['migrated']} row moves + {rs['evicted']} demotions, "
+              f"{rs['deferred_lanes']} lanes / {rs['deferred_ops']} ops "
+              f"deferred, {rs['resumes']} crash resumes"
+              + (f"; mid-reshard round p99 {mid['p99'] * 1e3:.1f}ms"
+                 if mid else ""))
+    if x.get("anomalies") is not None:
+        a = x["anomalies"]
+        print(f"  soak: {iterations} drain(s), "
+              f"anomalies {a['fired']} fired / {a['uncleared']} uncleared"
+              + (f" (active: {', '.join(a['active'])})" if a["active"]
+                 else ""))
+
+
+def run_serve(args) -> int:
+    """The serve family (the JAX runner's ``run_serve``): the replicated
+    family, the open-loop sweep, the soak or one drain, in JAX's order and
+    behind JAX's refusals; the artifact saved through :func:`save_results`.
+    Returns 0, 1 on a verification miss, an unfired or unrecovered fault,
+    an anomaly still active or a missing CUDA device (as the classic
+    family), 2 on a refused combination.  A drain's ValueError (its own
+    refusals) exits 2; any other failure keeps its traceback."""
+    log = lambda m: print(m, file=sys.stderr)
+    if args.serve_edgecheck is not None:
+        log("--serve-edgecheck is not ported: the dtype-edge harness "
+            "(serve/edgecheck.py) is ROADMAP Queue 1 item 7")
+        return 2
+    why = serve_refusal(args)
+    if why:
+        log(why)
+        return 2
+    if args.serve_profile > 0:
+        log("--serve-profile is not ported: the device profiler is ROADMAP "
+            "Queue 1 item 7")
+        return 2
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"runner: {e}", file=sys.stderr)
+        return 1
+    from ..serve.bench import (
+        run_serve_bench,
+        run_serve_open_sweep,
+        run_serve_soak,
+    )
+    from ..serve.replicate.bench import run_serve_repl_bench
+
+    ints = lambda text: tuple(int(x) for x in text.split(",") if x.strip())
+    try:
+        if args.serve_writers > 1:
+            rep = run_serve_repl_bench(
+                mix=args.serve_mix, n_docs=args.serve_docs,
+                writers=args.serve_writers, batch=args.serve_batch,
+                classes=ints(args.serve_classes),
+                slots=ints(args.serve_slots), seed=args.serve_seed,
+                arrival_span=args.serve_arrival_span,
+                macro_k=args.serve_macro, batch_chars=args.serve_batch_chars,
+                serve_kernel=args.serve_kernel,
+                turn_ops=args.serve_turn_ops,
+                journal_dir=args.serve_journal,
+                snapshot_every=args.serve_snapshot_every,
+                faults=args.serve_faults,
+                reqtrace_samples=args.serve_reqtrace,
+                slo_spec=args.serve_slo, device=args.device, log=log)
+            r, name = serve_artifact(rep)
+            log(f"serve/repl: wrote {save_results([r], args.serve_save_name or name)}")
+            rb, conv = r.extra["replication"], r.extra["convergence"]
+            print(f"{r.bench_id}: {r.extra['patches_per_sec']:,.0f} "
+                  f"replica-patches/s, merge "
+                  f"{r.extra['merge_unit_ops_per_sec']:,.0f} unit-ops/s, "
+                  f"broadcast {rb['broadcast_bytes'] / 1024:.1f} KiB, "
+                  f"divergence max {rb['divergence_depth_max']} blocks, "
+                  f"converged {conv['replicas_checked']} replicas "
+                  f"(RA axioms {'ok' if conv['ra_ok'] else 'VIOLATED'})")
+            return 0 if (rep["verify_ok"] and rep["ra_ok"]
+                         and rep["faults_ok"]) else 1
+        common = dict(
+            mix=args.serve_mix, n_docs=args.serve_docs,
+            batch=args.serve_batch, classes=ints(args.serve_classes),
+            slots=ints(args.serve_slots),
+            arrival_span=args.serve_arrival_span,
+            arrival_dist=args.serve_arrival_dist,
+            mesh_devices=args.serve_mesh,
+            verify_sample=args.serve_verify_sample,
+            stream=args.serve_stream, sample_seed=args.serve_sample_seed,
+            macro_k=args.serve_macro, batch_chars=args.serve_batch_chars,
+            serve_kernel=args.serve_kernel, serve_tiers=args.serve_tiers,
+            journal_dir=args.serve_journal,
+            snapshot_every=args.serve_snapshot_every,
+            snapshot_keep=args.serve_snapshot_keep,
+            snapshot_full_every=args.serve_full_every,
+            wal_segment_bytes=args.serve_wal_segment_bytes,
+            longhaul=args.serve_longhaul,
+            measure_recovery=args.serve_recover,
+            crash_after=args.serve_crash_round,
+            reshard_spec=args.serve_reshard,
+            record_evict=args.serve_record_evict,
+            faults=args.serve_faults, queue_cap=args.serve_queue_cap,
+            overflow_policy=args.serve_overflow_policy,
+            open_spec=args.serve_open, tenants_spec=args.serve_tenants,
+            deadline=args.serve_deadline,
+            deadline_budget=args.serve_deadline_budget,
+            trace_path=args.serve_trace,
+            reqtrace_samples=args.serve_reqtrace, slo_spec=args.serve_slo,
+            flight_path=args.serve_flight, device=args.device, log=log)
+        telemetry = dict(status_port=args.serve_status,
+                         timeseries_path=args.serve_timeseries,
+                         timeseries_window=args.serve_timeseries_window)
+        if args.serve_soak is not None:
+            # repeated drains under one telemetry bundle, the anomaly
+            # detectors armed: an anomaly still active fails the run
+            rep = run_serve_soak(soak_seconds=args.serve_soak,
+                                 seed=args.serve_seed,
+                                 watchdog_s=args.serve_watchdog,
+                                 **telemetry, **common)
+        elif args.serve_open_sweep is not None:
+            # each offered rate probed, then the configured rate drained
+            # with the knee attached
+            try:
+                rates = [float(x) for x in args.serve_open_sweep.split(",")
+                         if x.strip()]
+            except ValueError:
+                log(f"--serve-open-sweep: bad rate list "
+                    f"{args.serve_open_sweep!r}")
+                return 2
+            sweep_kw = dict(common)
+            open_spec = sweep_kw.pop("open_spec")
+            rep = run_serve_open_sweep(rates, open_spec=open_spec,
+                                       seed=args.serve_seed, **telemetry,
+                                       **sweep_kw)
+        else:
+            scaling = None
+            if args.serve_stream_scaling:
+                # one fresh process a (size, mode) cell: ru_maxrss only
+                # grows in a process
+                from ..serve.construction import scaling_table
+
+                try:
+                    sizes = ints(args.serve_stream_scaling)
+                except ValueError:
+                    log(f"--serve-stream-scaling: bad size list "
+                        f"{args.serve_stream_scaling!r}")
+                    return 2
+                scaling = scaling_table(
+                    sizes, mix=args.serve_mix, seed=args.serve_seed,
+                    arrival_span=args.serve_arrival_span,
+                    arrival_dist=args.serve_arrival_dist,
+                    serve_tiers=args.serve_tiers, device=args.device,
+                    log=log)
+            rep = run_serve_bench(seed=args.serve_seed,
+                                  construction_scaling=scaling,
+                                  **telemetry, **common)
+    except ValueError as e:
+        log(f"error: {e}")
+        return 2
+    r, name = serve_artifact(rep)
+    log(f"serve: wrote {save_results([r], args.serve_save_name or name)}")
+    _serve_summary(r, rep.get("iterations", 1))
+    ok = rep["verify_ok"] and rep["faults_ok"] and rep["anomalies_ok"]
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--family", default="classic",
                     choices=("classic", "serve"),
-                    help="'classic' = the per-trace matrix; 'serve' is not "
-                         "ported to this runner")
+                    help="'classic' = the per-trace matrix; 'serve' = the "
+                         "document-fleet engine (serve/)")
+    add_serve_flags(ap)
+    # the serve family's flags of this entry alone
+    ap.add_argument("--serve-mesh", type=int, default=0, metavar="N",
+                    help="shard every bucket's rows over N shards "
+                         "(parallel/mesh.py fleet_mesh; on CUDA shard s on "
+                         "cuda:(s mod GPUs)); 0 or 1 = no mesh")
+    ap.add_argument("--serve-seed", type=int, default=0,
+                    help="the fleet's seed (a soak re-seeds each drain)")
+    ap.add_argument("--serve-sample-seed", type=int, default=None,
+                    metavar="SEED",
+                    help="seed of the sampled oracle verify (default: "
+                         "--serve-seed + 1); recorded in the artifact "
+                         "(construction.verify_sample_seed) next to the "
+                         "picked doc ids")
+    ap.add_argument("--serve-save-name", default=None,
+                    help="artifact basename (default serve_<mix>_<docs>; "
+                         "written as torch_<name>.json)")
+    ap.add_argument("--serve-profile", type=int, default=0, metavar="N",
+                    help="not ported (ROADMAP Queue 1 item 7): exits 2")
+    ap.add_argument("--serve-edgecheck", default=None,
+                    choices=("small", "full"), metavar="MODE",
+                    help="not ported (ROADMAP Queue 1 item 7): exits 2")
     ap.add_argument("--traces", default=",".join(TRACES))
     ap.add_argument("--backends", default="cpp-rope,cpp-crdt,cpp-cola,torch")
     ap.add_argument("--filter", default="", help="substring filter on group")
@@ -491,11 +808,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.family == "serve":
-        print("runner: the serve family is not ported to this runner; run "
-              "the serve drain with `python -m crdt_benches_tpu_torch.bench "
-              "--group serve` (the rest of the serve family is ROADMAP "
-              "Queue 1 item 6)", file=sys.stderr)
-        return 2
+        return run_serve(args)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

@@ -117,8 +117,10 @@ class ShardMetrics:
         # ``torch.cuda.memory_stats`` has no ``bytes_in_use`` key (JAX's
         # ``Device.memory_stats()`` name); the allocator's live bytes are
         # ``allocated_bytes.all.current``
+        # a mesh's shards each read their own device
         for s, ms in enumerate(device_memory_stats(
-                self.n_sh, device=self.pool.device)):
+                self.n_sh, device=self.pool.device,
+                devices=getattr(self.pool, "shard_devices", None))):
             if ms is not None and MEM_KEY in ms:
                 self._mem[s].set(float(ms[MEM_KEY]))
 

@@ -520,13 +520,17 @@ def resolve_range_rows(kind, pos, rlen, slot0, v0):
     dlo, dhi, dn = mk(B), mk(B), mk(B)
     starts = torch.empty((K, R), dtype=I32, device=v0.device)
     if K and R:
-        err = kernels().crdt_resolve_range_rows(
-            kind.data_ptr(), pos.data_ptr(), rlen.data_ptr(),
-            slot0.data_ptr(), v0.data_ptr(), K, R, B, T,
-            ttype.data_ptr(), ta.data_ptr(), tch.data_ptr(), tlen.data_ptr(),
-            dlo.data_ptr(), dhi.data_ptr(), dn.data_ptr(), starts.data_ptr(),
-            torch.cuda.current_stream(v0.device).cuda_stream,
-        )
+        # the launch goes to the host thread's current device: make it the
+        # operands' (a mesh shard may live on another GPU)
+        with torch.cuda.device(v0.device):
+            err = kernels().crdt_resolve_range_rows(
+                kind.data_ptr(), pos.data_ptr(), rlen.data_ptr(),
+                slot0.data_ptr(), v0.data_ptr(), K, R, B, T,
+                ttype.data_ptr(), ta.data_ptr(), tch.data_ptr(),
+                tlen.data_ptr(), dlo.data_ptr(), dhi.data_ptr(),
+                dn.data_ptr(), starts.data_ptr(),
+                torch.cuda.current_stream(v0.device).cuda_stream,
+            )
         check(err, "crdt_resolve_range_rows")
         resolve_range_rows.launches += 1
     return (ttype, ta, tch, tlen), (dlo, dhi, dn), starts

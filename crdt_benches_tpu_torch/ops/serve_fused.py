@@ -70,6 +70,14 @@ def serve_round_inputs(tokens, dints, length0, nvis0):
     volumes of the rounds before it.  Returns (live, gvis, cumlen
     int32[K, R, T], len_k, nvis_k, newlen int32[K, R], length_K, nvis_K
     int32[R])."""
+    dev = tokens[0].device
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):  # launches on the operands' device
+            return _round_inputs(tokens, dints, length0, nvis0)
+    return _round_inputs(tokens, dints, length0, nvis0)
+
+
+def _round_inputs(tokens, dints, length0, nvis0):
     ttype, ta, tch, tlen = tokens
     dlo, dhi, dcount = dints
     K, R, T = ttype.shape
@@ -355,16 +363,19 @@ def serve_macro_fused(state: PackedState, tokens, dints, *, inputs=None,
     if not resident:  # rows past the shared-memory reach
         scratch = torch.empty(R * n * _slice_ints(width), dtype=I32,
                               device=dev)
-    err = kernels().crdt_serve_macro(
-        state.doc.data_ptr(), dints[0].data_ptr(), dints[1].data_ptr(),
-        gvis.data_ptr(), live.data_ptr(), cumlen.data_ptr(),
-        tokens[1].data_ptr(), tokens[2].data_ptr(), tokens[3].data_ptr(),
-        len_k.data_ptr(),
-        nvis_k.data_ptr(), newlen.data_ptr(), K, R, B, T, C, n, width,
-        int(resident), doc_out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # the launch goes to the host thread's current device: make it the
+    # state's (a mesh shard may live on another GPU)
+    with torch.cuda.device(dev):
+        err = kernels().crdt_serve_macro(
+            state.doc.data_ptr(), dints[0].data_ptr(), dints[1].data_ptr(),
+            gvis.data_ptr(), live.data_ptr(), cumlen.data_ptr(),
+            tokens[1].data_ptr(), tokens[2].data_ptr(), tokens[3].data_ptr(),
+            len_k.data_ptr(),
+            nvis_k.data_ptr(), newlen.data_ptr(), K, R, B, T, C, n, width,
+            int(resident), doc_out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     check(err, "crdt_serve_macro")
     serve_macro_fused.launches += 1
     return PackedState(doc_out, length_K, nvis_K)

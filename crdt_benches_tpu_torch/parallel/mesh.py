@@ -19,9 +19,13 @@ concatenated in rank order, then flattened, which is the order of JAX's
 ``all_gather(..., tiled=True).reshape(-1)``.
 
 JAX's ``nbits`` (the roll cascade of its run merge) has no counterpart:
-the port's applies expand with one gather.  ``fleet_sharding`` (the serve
-fleet's docs over the mesh) comes with the sharded buckets of the serve
-mesh, not here.
+the port's applies expand with one gather.
+
+The serve fleet's mesh (:class:`FleetMesh`, :func:`fleet_mesh`,
+:func:`fleet_sharding`) is another thing: one process keeps shard s's rows
+of every ``DocPool`` bucket on shard s's device and launches the serve
+kernels once a shard.  Resolve and apply are row-local, so the fleet step
+needs no collective and no process group.
 """
 
 from __future__ import annotations
@@ -79,13 +83,61 @@ def replica_mesh(device: str | torch.device = "cuda") -> ReplicaMesh:
     return ReplicaMesh(rank, world, dev)
 
 
+@dataclass(frozen=True)
+class FleetMesh:
+    """The serve fleet's mesh: one device per shard, in shard order (the
+    port's ``Mesh`` of JAX's docs-over-mesh layout)."""
+
+    devices: tuple[torch.device, ...]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def describe(self) -> str:
+        """The placement in words, e.g. ``8 shards on 1 GPU: cuda:0``."""
+        used = sorted({str(d) for d in self.devices})
+        if self.devices[0].type != "cuda":
+            return f"{self.size} shards on the CPU"
+        n = len(used)
+        return (f"{self.size} shards on {n} GPU{'s' if n > 1 else ''}: "
+                + ", ".join(used))
+
+
+def fleet_mesh(n: int, device: str | torch.device = "cuda") -> FleetMesh:
+    """A mesh of ``n`` shards (``n >= 2``; fewer is no mesh).  On the CPU
+    every shard lives on the CPU (JAX's virtual CPU mesh); on CUDA shard s
+    lives on ``cuda:(s mod G)``, G the visible GPUs, so the shards always
+    number ``n`` whatever the card count."""
+    if n < 2:
+        raise ValueError(f"fleet_mesh: a mesh needs 2 or more shards, got {n}")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        g = torch.cuda.device_count()
+        return FleetMesh(tuple(torch.device("cuda", s % g) for s in range(n)))
+    if dev.type != "cpu":
+        raise ValueError(f"fleet_mesh: unsupported device {dev}")
+    return FleetMesh((torch.device("cpu"),) * n)
+
+
+def fleet_sharding(mesh: FleetMesh) -> tuple[torch.device, ...]:
+    """The docs-over-mesh layout of every ``DocPool`` bucket (JAX's
+    ``NamedSharding(mesh, P(AXIS))``): the row axis splits into
+    ``mesh.size`` equal blocks, block s on ``fleet_sharding(mesh)[s]``."""
+    return mesh.devices
+
+
 def device_memory_stats(n_devices: int | None = None,
-                        device: str | torch.device = "cuda"
-                        ) -> list[dict | None]:
+                        device: str | torch.device = "cuda",
+                        devices=None) -> list[dict | None]:
     """Allocator stats of the first ``n_devices`` devices (all visible ones
-    by default): ``torch.cuda.memory_stats`` for each GPU, and None for the
-    CPU, which has no allocator telemetry (as JAX answers for its virtual
-    CPU mesh).  A local query, not a sync."""
+    by default), or of each device of ``devices`` (a mesh's shards, one
+    entry a shard): ``torch.cuda.memory_stats`` for each GPU, and None for
+    the CPU, which has no allocator telemetry (as JAX answers for its
+    virtual CPU mesh).  A local query, not a sync."""
+    if devices is not None:
+        return [torch.cuda.memory_stats(d) if d.type == "cuda" else None
+                for d in devices]
     dev = resolve_device(device)
     if dev.type != "cuda":
         return [None] * (1 if n_devices is None else n_devices)

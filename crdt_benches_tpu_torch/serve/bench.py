@@ -117,6 +117,7 @@ from .ingest.loadgen import (
     drive_open_loop,
     parse_open_spec,
 )
+from ..parallel.mesh import fleet_mesh
 from .journal import DEFAULT_SEGMENT_BYTES, OpJournal, recover_fleet
 from .pool import DocPool
 from .reshard import (
@@ -229,11 +230,11 @@ def parse_tier_spec(spec: str, slots: tuple[int, ...]
 
 
 def _verify_ids(pool: DocPool, doc_ids, verify_sample: int,
-                seed: int, lossy: set[int]) -> list[int]:
+                vseed: int, lossy: set[int]) -> list[int]:
     """Every id of ``doc_ids`` not in ``lossy`` (``verify_sample`` 0), or a
-    seeded sample of about ``verify_sample`` of them spread over every final
-    class (the JAX bench's rule: ceil(sample / classes) per class, seed +
-    1)."""
+    sample of about ``verify_sample`` of them spread over every final class,
+    drawn with seed ``vseed`` (the JAX bench's rule: ceil(sample / classes)
+    per class)."""
     if verify_sample <= 0:
         return [d for d in doc_ids if d not in lossy]
     by_class: dict[int, list[int]] = {}
@@ -244,7 +245,7 @@ def _verify_ids(pool: DocPool, doc_ids, verify_sample: int,
         cls = rec.cls or pool.class_for(max(rec.length, 1))
         by_class.setdefault(cls, []).append(d)
     per_class = max(1, -(-verify_sample // max(1, len(by_class))))
-    rng = np.random.default_rng(seed + 1)
+    rng = np.random.default_rng(vseed)
     out: list[int] = []
     for cls in sorted(by_class):
         ids = by_class[cls]
@@ -325,6 +326,8 @@ def run_serve_bench(
     seed: int = 0,
     arrival_span: int = 8,
     arrival_dist: str = "uniform",
+    mesh_devices: int = 0,
+    sample_seed: int | None = None,
     bands: dict | None = None,
     macro_k: int = 8,
     batch_chars: int = 256,
@@ -387,12 +390,23 @@ def run_serve_bench(
     the shard partition invariant joins the verify gate.
     ``open_spec``, ``tenants_spec``, ``deadline``, ``deadline_budget`` and
     ``knee_block`` (the sweep's, attached to the report) as the module
-    says.  ``pool_hook(pool)``, if given, runs on the pool just before the
+    says.  ``mesh_devices`` (> 1) shards every bucket's rows over a
+    ``fleet_mesh`` of that many shards (the report's ``mesh_devices``; the
+    placement is logged), which refuses the warm tier, the recovery leg and
+    the open loop, as JAX does.  ``sample_seed`` draws the verify sample
+    (default ``seed + 1``; the construction block records it).
+    ``pool_hook(pool)``, if given, runs on the pool just before the
     drain (``chip_smoke.py`` arms the pool's CUDA-event spans or zeroes
     the kernels' counts there)."""
     warm_docs = 0
     if serve_tiers:
         slots, warm_docs = parse_tier_spec(serve_tiers, slots)
+        if mesh_devices > 1:
+            raise ValueError(
+                "--serve-tiers is single-host for now (the warm tier "
+                "composes through host boundary moves; the mesh form "
+                "is the silicon-campaign item, see ROADMAP)"
+            )
     longhaul = max(0, int(longhaul))
     if longhaul or crash_after:
         measure_recovery = True
@@ -401,6 +415,11 @@ def run_serve_bench(
             "the recovery leg (--serve-recover / --serve-longhaul / "
             "--serve-crash-round) measures journal recovery: "
             "--serve-journal is required"
+        )
+    if measure_recovery and mesh_devices > 1:
+        raise ValueError(
+            "--serve-mesh is not supported with the measured recovery "
+            "leg (the recovered fleet is rebuilt single-host)"
         )
     if warm_docs and longhaul:
         raise ValueError(
@@ -424,6 +443,11 @@ def run_serve_bench(
                 "--serve-open does not support the measured recovery "
                 "leg (--serve-recover / --serve-crash-round): the "
                 "open-loop drain has no resumable closed-loop replay"
+            )
+        if mesh_devices > 1:
+            raise ValueError(
+                "--serve-open is single-host for now (the ingest pump "
+                "feeds one scheduler's bounded queues)"
             )
         if queue_cap <= 0:
             # the pump delivers through the bounded-queue rule; unbounded
@@ -480,10 +504,11 @@ def run_serve_bench(
                 "--serve-reshard is its own bench family "
                 "(serve/reshard/*); --serve-longhaul / --serve-tiers / "
                 "--serve-open / --serve-stream do not compose with it")
-        if rplan.n_shards < 2:
+        if mesh_devices <= 1 and rplan.n_shards < 2:
             raise ValueError(
                 f"reshard spec {reshard_spec!r} does not determine a shard "
-                "count: use drain:S,of=N for logical shards")
+                "count: pass --serve-mesh, or drain:S,of=N for single-host "
+                "logical sharding")
     mix_name = mix if isinstance(mix, str) else "custom"
     mix_label = (f"reshard/{mix_name}" if rplan is not None
                  else f"longhaul/{mix_name}" if longhaul
@@ -506,6 +531,8 @@ def run_serve_bench(
     dev = resolve_device(device)
     if dev.type == "cuda":
         kernels()  # build and load the kernels before the clock starts
+    # the serve mesh: N shards placed by fleet_mesh (printed, never dropped)
+    mesh = fleet_mesh(mesh_devices, dev) if mesh_devices > 1 else None
     owns_journal = journal_dir == "auto"
     if owns_journal:
         journal_dir = tempfile.mkdtemp(prefix="crdt_journal_")
@@ -538,15 +565,25 @@ def run_serve_bench(
             spec = FleetSpec.build(n_docs, **fleet_kw)
         else:
             sessions = build_fleet(n_docs, **fleet_kw)
-        # a reshard runs on logical shards: the pool is built with the
-        # spec's count, and the coordinator changes the map
-        pool_shards = rplan.n_shards if rplan is not None else None
+        # a reshard without a mesh runs on logical shards: the pool is
+        # built with the spec's count; with a mesh the device count is the
+        # shard count and the coordinator checks the spec against it
+        pool_shards = (rplan.n_shards if rplan is not None and mesh is None
+                       else None)
         pool = DocPool(classes=classes, slots=slots,
                        serve_kernel=serve_kernel, device=dev,
-                       warm_docs=warm_docs, shards=pool_shards)
+                       warm_docs=warm_docs, shards=pool_shards, mesh=mesh)
+        if mesh is not None:
+            log(f"serve: mesh={mesh.size} ({mesh.describe()})")
         if stream:
             streams = LazyStreams(spec, pool, batch=batch,
                                   batch_chars=batch_chars)
+            if mesh is not None:
+                # the lazy fleet over a mesh: each shard's doc range is
+                # arithmetic on the spec, no other shard's sessions read
+                log("serve: streaming doc range over mesh — " + ", ".join(
+                    "{}:[{},{})".format(s, *spec.shard_range(s, pool.n_sh))
+                    for s in range(pool.n_sh)))
         else:
             streams = prepare_streams(sessions, pool, batch=batch,
                                       batch_chars=batch_chars)
@@ -612,7 +649,8 @@ def run_serve_bench(
                 + (f", horizon x{longhaul}" if longhaul else "")
                 + f"), {total_ops} range "
                 f"ops, classes {classes} slots {slots} batch {batch} chars "
-                f"{batch_chars} K {macro_k} kernel {serve_kernel} on {dev}; "
+                f"{batch_chars} K {macro_k} kernel {serve_kernel} on {dev}, "
+                f"mesh={mesh.size if mesh else 'off'}; "
                 f"set-up {setup_s:.1f} s (construction "
                 f"{setup_s * 1e3:.1f} ms, rss {rss_setup / 2**20:.1f} MiB)")
         if record_evict:
@@ -781,8 +819,9 @@ def run_serve_bench(
         lossy = sorted(d for d, st in streams.items() if st.lossy)
         cand = (sorted(pool.docs) if stream or record_evict
                 else [s.doc_id for s in sessions])
+        vseed = seed + 1 if sample_seed is None else int(sample_seed)
         ids = [] if crashed else _verify_ids(pool, cand, verify_sample,
-                                             seed, set(lossy))
+                                             vseed, set(lossy))
         failures = mismatches(pool, ids)
         verify_s = time.perf_counter() - t1
         docs_per_class: dict[int, int] = {}
@@ -790,6 +829,14 @@ def run_serve_bench(
             rec = pool.docs[d]
             cls = rec.cls or pool.class_for(max(rec.length, 1))
             docs_per_class[cls] = docs_per_class.get(cls, 0) + 1
+        # every verify candidate's final class (JAX's docs_per_class)
+        fleet_per_class: dict[int, int] = {}
+        lossy_set = set(lossy)
+        for d in cand:
+            if d not in lossy_set:
+                rec = pool.docs[d]
+                cls = rec.cls or pool.class_for(max(rec.length, 1))
+                fleet_per_class[cls] = fleet_per_class.get(cls, 0) + 1
         verify_ok = bool(ids) and not failures and not partition_errors
         log(f"serve: drained in {stats.wall_time:.3f} s over {stats.rounds} "
             f"macro-rounds ({stats.slices} device rounds, "
@@ -978,7 +1025,7 @@ def run_serve_bench(
             "released_docs": streams.released if stream else 0,
             "prefetch_built": streams.prefetch_built if stream else 0,
             "genesis_docs_end": pool.genesis_docs,
-            "verify_sample_seed": seed + 1,
+            "verify_sample_seed": vseed,
             "scaling": construction_scaling,
             # record eviction: what it reclaimed, and the docs the verify
             # covered (the reclaimed ones have no record to decode)
@@ -1030,6 +1077,7 @@ def run_serve_bench(
             "batch": batch, "batch_chars": batch_chars, "macro_k": macro_k,
             "serve_kernel": serve_kernel,
             "classes": list(classes), "slots": list(slots),
+            "mesh_devices": mesh.size if mesh else 0,
             "device": (torch.cuda.get_device_name(dev)
                        if dev.type == "cuda" else "cpu"),
             "patches": stats.patches,
@@ -1054,8 +1102,16 @@ def run_serve_bench(
             "fresh_admits": pool.fresh_admits,
             "phase_seconds": dict(stats.phase_seconds),
             "setup_seconds": setup_s,
+            "op_dtypes": [str(d) for d in pool.op_dtypes],
+            "steady_rounds": stats.steady_rounds,
+            "occupancy_mean": stats.occupancy.mean,
+            "queue_depth_mean": stats.queue_depth.mean,
+            "queue_depth_max": int(stats.queue_depth.vmax or 0),
+            "docs_per_class": {str(c): n for c, n in
+                               sorted(fleet_per_class.items())},
             "verify": "all" if verify_sample <= 0 else "sample",
             "verified_docs": len(ids),
+            "verified_ids": sorted(ids),
             "verified_per_class": {str(c): n for c, n in
                                    sorted(docs_per_class.items())},
             "verify_seconds": verify_s,

@@ -32,7 +32,12 @@ pool on the directory).
 
 With ``shards=N`` every bucket's rows are split over N logical shards
 (row ``r`` on shard ``r // (R / N)``), each live, draining or retired: the
-shard map ``serve/reshard.py`` changes while the fleet serves.
+shard map ``serve/reshard.py`` changes while the fleet serves.  With
+``mesh`` (``parallel/mesh.py fleet_mesh``) the shards are the mesh's: every
+bucket keeps one ``(R / N, C)`` state a shard, on that shard's device
+(JAX's ``fleet_sharding``), a macro step launches the kernels once a shard
+on its rows in place, and the boundary moves concatenate and split the
+shards in row order.
 
 The hot path is :meth:`DocPool.macro_step`: K staged rounds of per-row
 range ops for a row tier of one class (:meth:`DocPool.tiers`: the first
@@ -50,6 +55,7 @@ callers fence with :meth:`DocPool.block` or a bucket pull.
 
 from __future__ import annotations
 
+import contextlib
 import heapq
 import json
 import os
@@ -111,6 +117,22 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().copy()
 
 
+def _on(dev: torch.device):
+    """Make ``dev`` the current CUDA device for what runs under it (a no-op
+    on the CPU): the macro step's span events record on the first shard's
+    device."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _zero_state(R: int, C: int, device: torch.device) -> PackedState:
+    return PackedState(
+        doc=torch.full((R, C), 2, dtype=I32, device=device),
+        length=torch.zeros(R, dtype=I32, device=device),
+        nvis=torch.zeros(R, dtype=I32, device=device),
+    )
+
+
 @dataclass
 class DocRecord:
     """Host bookkeeping for one document: its length and capacity evolve
@@ -139,18 +161,23 @@ class Bucket:
     which balances the shards and keeps each one's occupied set packed
     toward its front (what makes tier slicing effective).  The ``live``
     mask is the elastic shard map (``serve/reshard.py``): a draining or
-    retired shard keeps its rows but never receives another doc."""
+    retired shard keeps its rows but never receives another doc.
 
-    def __init__(self, C: int, R: int, device: torch.device, n_sh: int = 1):
+    Without ``devices`` the rows are one (R, C) ``state``; with ``devices``
+    (a mesh's, one a shard) they are ``parts``, shard s's (Rg, C) state on
+    ``devices[s]``, and ``state`` is None."""
+
+    def __init__(self, C: int, R: int, device: torch.device, n_sh: int = 1,
+                 devices=None):
         self.C = C
         self.R = R
         self.n_sh = n_sh
         self.Rg = R // n_sh  # rows per shard
-        self.state = PackedState(
-            doc=torch.full((R, C), 2, dtype=I32, device=device),
-            length=torch.zeros(R, dtype=I32, device=device),
-            nvis=torch.zeros(R, dtype=I32, device=device),
-        )
+        self.state = self.parts = None
+        if devices is None:
+            self.state = _zero_state(R, C, device)
+        else:
+            self.parts = [_zero_state(self.Rg, C, d) for d in devices]
         self.rows: list[int | None] = [None] * R  # row -> doc_id
         self._heaps = [list(range(self.Rg)) for _ in range(n_sh)]
         self._free = [set(range(self.Rg)) for _ in range(n_sh)]
@@ -189,6 +216,13 @@ class Bucket:
 
     def set_live(self, shard: int, flag: bool) -> None:
         self.live[shard] = bool(flag)
+
+    def locate(self, row: int) -> tuple[PackedState, int]:
+        """The state holding global ``row`` and the row's index in it."""
+        if self.parts is None:
+            return self.state, row
+        s, r = divmod(row, self.Rg)
+        return self.parts[s], r
 
     def alloc_row(self) -> int:
         """The lowest local row on the emptiest live shard (ties: the
@@ -287,7 +321,9 @@ class DocPool:
     by default; the CPU only when asked).  ``serve_kernel`` names the
     serve step, one of :data:`SERVE_KERNELS`.  ``warm_docs`` bounds the
     warm tier (0: two tiers); with a warm tier, ``prefetch`` starts the
-    prefetch thread."""
+    prefetch thread.  ``mesh`` (``parallel/mesh.py FleetMesh``) shards every
+    bucket's rows over the mesh's devices (slots must divide by its size;
+    ``shards``, if given, must equal it)."""
 
     def __init__(
         self,
@@ -299,6 +335,7 @@ class DocPool:
         warm_docs: int = 0,
         prefetch: bool = True,
         shards: int | None = None,
+        mesh=None,
     ):
         if serve_kernel not in SERVE_KERNELS:
             raise ValueError(f"unknown serve kernel {serve_kernel!r}")
@@ -309,10 +346,24 @@ class DocPool:
         for c in classes:
             if c % LANE:
                 raise ValueError(f"capacity class {c} not a multiple of {LANE}")
-        #: logical shards of every bucket's rows (``shards``; 1 without):
-        #: the elastic shard map ``serve/reshard.py`` changes live
+        #: logical shards of every bucket's rows (``shards``, or the mesh's
+        #: size; 1 without): the elastic shard map ``serve/reshard.py``
+        #: changes live
         self.n_sh = 1
+        #: the mesh's device of each shard (None without a mesh)
+        self.shard_devices = None
+        if mesh is not None:
+            n_dev = mesh.size
+            for r in slots:
+                if r % n_dev:
+                    raise ValueError(
+                        f"bucket slots {r} not divisible by mesh size {n_dev}")
+            self.shard_devices = tuple(mesh.devices)
+            self.n_sh = n_dev
         if shards is not None:
+            if mesh is not None and shards != self.n_sh:
+                raise ValueError(
+                    f"shards={shards} conflicts with mesh size {self.n_sh}")
             for r in slots:
                 if r % shards:
                     raise ValueError(
@@ -322,10 +373,15 @@ class DocPool:
         #: residents still serve) -> retired (empty, closed); a grow revives
         self.shard_state: list[str] = ["live"] * self.n_sh
         self.device = resolve_device(device)
+        if mesh is not None:
+            if self.device.type != mesh.devices[0].type:
+                raise ValueError(f"mesh on {mesh.devices[0].type}, pool "
+                                 f"device {self.device}")
+            self.device = mesh.devices[0]
         self.serve_kernel = serve_kernel
         self.classes = tuple(classes)
         self.buckets = {
-            c: Bucket(c, r, self.device, self.n_sh)
+            c: Bucket(c, r, self.device, self.n_sh, self.shard_devices)
             for c, r in zip(classes, slots)
         }
         self.docs: dict[int, DocRecord] = {}
@@ -489,8 +545,13 @@ class DocPool:
         """The tier's rows of class ``cls`` as one (Rt, C) state: a view of
         the bucket's first ``Rt`` rows on one shard or at the full tier, a
         gathered copy of every shard's first ``Rt / n_sh`` rows
-        otherwise."""
+        otherwise (on the first shard's device under a mesh)."""
         b = self.buckets[cls]
+        if b.parts is not None:
+            rt = Rt // b.n_sh
+            return PackedState(*(
+                torch.cat([x[:rt].to(self.device) for x in xs])
+                for xs in zip(*b.parts)))
         st = b.state
         if b.n_sh == 1 or Rt == b.R:
             return PackedState(st.doc[:Rt], st.length[:Rt], st.nvis[:Rt])
@@ -510,9 +571,8 @@ class DocPool:
     # ---- row movement (host round trips, off the macro step) ----
 
     def _pull_row(self, rec: DocRecord) -> tuple[np.ndarray, int, int]:
-        st = self.buckets[rec.cls].state
-        return (_host(st.doc[rec.row]), int(st.length[rec.row]),
-                int(st.nvis[rec.row]))
+        st, r = self.buckets[rec.cls].locate(rec.row)
+        return _host(st.doc[r]), int(st.length[r]), int(st.nvis[r])
 
     def _free_row(self, rec: DocRecord) -> None:
         b = self.buckets[rec.cls]
@@ -526,9 +586,10 @@ class DocPool:
         row = b.alloc_row()
         full = np.full(b.C, 2, np.int32)  # promotion / trimmed-spool pad
         full[:len(doc_row)] = doc_row
-        b.state.doc[row] = torch.from_numpy(full).to(self.device)
-        b.state.length[row] = length
-        b.state.nvis[row] = nvis
+        st, r = b.locate(row)
+        st.doc[r] = torch.from_numpy(full).to(st.doc.device)
+        st.length[r] = length
+        st.nvis[r] = nvis
         b.rows[row] = rec.doc_id
         rec.cls, rec.row = cls, row
         self._dirty[cls].add(row)
@@ -859,9 +920,14 @@ class DocPool:
     # ---- boundary bulk movement (one sync, one upload per class) ----
 
     def pull_bucket(self, cls: int):
-        """Host copies of a whole bucket (doc, length, nvis); waits for
-        any macro step in flight."""
-        st = self.buckets[cls].state
+        """Host copies of a whole bucket (doc, length, nvis), the shards
+        concatenated in row order under a mesh; waits for any macro step
+        in flight."""
+        b = self.buckets[cls]
+        if b.parts is not None:
+            return tuple(np.concatenate([_host(x) for x in xs])
+                         for xs in zip(*b.parts))
+        st = b.state
         return _host(st.doc), _host(st.length), _host(st.nvis)
 
     def upload_bucket(self, cls: int, doc: np.ndarray, length: np.ndarray,
@@ -881,9 +947,16 @@ class DocPool:
         elif any(not 0 <= int(r) < b.R for r in dirty_rows):
             raise ValueError(f"bucket c{cls}: dirty rows outside [0, {b.R})")
         self._dirty[cls].update(int(r) for r in dirty_rows)
-        up = lambda a: torch.from_numpy(
-            np.ascontiguousarray(a, np.int32)).to(self.device)
-        b.state = PackedState(up(doc), up(length), up(nvis))
+        up = lambda a, dev: torch.from_numpy(
+            np.ascontiguousarray(a, np.int32)).to(dev)
+        if b.parts is not None:  # each shard's rows to its device
+            g = b.Rg
+            b.parts = [PackedState(*(up(a[s * g:(s + 1) * g], dev)
+                                     for a in (doc, length, nvis)))
+                       for s, dev in enumerate(self.shard_devices)]
+            return
+        b.state = PackedState(up(doc, self.device), up(length, self.device),
+                              up(nvis, self.device))
 
     # ---- the hot path ----
 
@@ -896,7 +969,9 @@ class DocPool:
         :attr:`serve_kernel`.  ``nbits``
         (the scheduler's ``bit_length(batch_chars)``, which JAX's kernels
         need for their roll cascade) is unused: the port expands with one
-        gather.  Nothing syncs."""
+        gather.  Under a mesh the tier splits into its shards' first
+        ``Rt / N`` rows, and each phase launches once a shard on its device
+        in place (no gather, no write-back).  Nothing syncs."""
         del nbits
         b = self.buckets[cls]
         K, Rt, B = kind.shape
@@ -907,43 +982,72 @@ class DocPool:
         spans = self.spans if self.device.type == "cuda" else None
         marks = []
 
-        def mark(name):
+        def mark(name):  # on the first shard's device under a mesh
             if spans is not None:
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
+                with _on(self.device):
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
                 marks.append((name, ev))
 
         mark("")
-        ops = torch.from_numpy(np.stack(widen_ops(kind, pos, rlen, slot0)))
-        kd, pd, ld, sd = ops.to(self.device).unbind(0)
+        ops = np.stack(widen_ops(kind, pos, rlen, slot0))  # (4, K, Rt, B)
+        if b.parts is None:  # one piece: the tier's rows
+            piece_ops = [torch.from_numpy(ops).to(self.device).unbind(0)]
+        else:
+            # a piece a shard (JAX's P(None, AXIS, None)): the shards'
+            # (K, Rt / N, B) ops, each device given its own shards' only
+            n, rt = b.n_sh, Rt // b.n_sh
+            host = torch.from_numpy(np.ascontiguousarray(
+                ops.reshape(4, K, n, rt, B).transpose(2, 0, 1, 3, 4)))
+            piece_ops = [None] * n
+            for d in dict.fromkeys(self.shard_devices):
+                mine = [s for s, e in enumerate(self.shard_devices) if e == d]
+                up = (host if len(mine) == n else host[mine]).to(d)
+                for s, o in zip(mine, up):
+                    piece_ops[s] = o.unbind(0)
         mark("upload")
-        sub = self.tier_rows(cls, Rt)
+        if b.parts is None:
+            subs = [self.tier_rows(cls, Rt)]
+        else:  # each shard's first Rt / N rows, in place
+            subs = [PackedState(p.doc[:rt], p.length[:rt], p.nvis[:rt])
+                    for p in b.parts]
+        # every piece launches before anything syncs; the ops launch on
+        # their operands' device
         if self.serve_kernel == "fused":
-            tokens, dints, _ = resolve_range_rows(kd, pd, ld, sd, sub.nvis)
+            res = [resolve_range_rows(kd, pd, ld, sd, sub.nvis)
+                   for sub, (kd, pd, ld, sd) in zip(subs, piece_ops)]
             mark("resolve")
-            inputs = serve_round_inputs(tokens, dints, sub.length, sub.nvis)
+            inputs = [serve_round_inputs(tokens, dints, sub.length, sub.nvis)
+                      for sub, (tokens, dints, _) in zip(subs, res)]
             mark("inputs")
-            new = serve_macro_fused(sub, tokens, dints, inputs=inputs,
-                                    out=sub.doc)
+            news = [serve_macro_fused(sub, tokens, dints, inputs=inp,
+                                      out=sub.doc)
+                    for sub, (tokens, dints, _), inp in zip(subs, res,
+                                                            inputs)]
             mark("k4")
         else:
-            new = sub
+            news = list(subs)
             for k in range(K):
-                new = merge_rows_body(new, kd[k], pd[k], ld[k], sd[k])
+                news = [merge_rows_body(new, kd[k], pd[k], ld[k], sd[k])
+                        for new, (kd, pd, ld, sd) in zip(news, piece_ops)]
                 mark("round")
-            sub.doc.copy_(new.doc)  # the tier's rows back into the bucket
-        sub.length.copy_(new.length)
-        sub.nvis.copy_(new.nvis)
-        if b.n_sh > 1 and Rt < b.R:
-            self._put_tier(cls, Rt, sub)  # the gathered tier back
+            for sub, new in zip(subs, news):
+                sub.doc.copy_(new.doc)  # the tier's rows back into the bucket
+        for sub, new in zip(subs, news):
+            sub.length.copy_(new.length)
+            sub.nvis.copy_(new.nvis)
+        if b.parts is None and b.n_sh > 1 and Rt < b.R:
+            self._put_tier(cls, Rt, subs[0])  # the gathered tier back
         if spans is not None:
             spans.extend((name, marks[i][1], ev)
                          for i, (name, ev) in enumerate(marks[1:]))
 
     def block(self) -> None:
-        """Wait for every outstanding macro step."""
+        """Wait for every outstanding macro step (on every shard's device
+        under a mesh)."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            for d in dict.fromkeys(self.shard_devices or (self.device,)):
+                torch.cuda.synchronize(d)
 
     # ---- decode / verify (off the hot path) ----
 

@@ -183,6 +183,9 @@ def run_serve_repl_bench(
             "patches_per_sec": rate,
             "merge_unit_ops_per_sec": merge_rate,
             "batch_latency": stats.latency_quantiles(),
+            "compile_time": stats.compile_time,
+            "compile_rounds": stats.compile_rounds,
+            "steady_rounds": stats.steady_rounds,
             "occupancy_mean": stats.occupancy.mean,
             "evictions": stats.evictions,
             "restores": stats.restores,

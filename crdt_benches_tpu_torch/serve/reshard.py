@@ -72,8 +72,9 @@ class ReshardPlan:
     occupancy imbalance as another (the reshard begins at the first round
     where either holds); with neither it begins at round 2.  ``batch``
     bounds the doc moves a macro-round (default 8): migration length
-    against mid-reshard tail latency.  ``drain`` on logical shards needs
-    ``of=N`` (drain shard S of N)."""
+    against mid-reshard tail latency.  ``drain`` takes its physical shard
+    count from the mesh when the pool has one; logical shards need ``of=N``
+    (drain shard S of N)."""
 
     kind: str  # "shrink" | "grow" | "drain"
     from_sh: int  # live shards before the change
@@ -364,7 +365,7 @@ class ReshardCoordinator:
         if p.n_shards != n:
             raise ValueError(
                 f"reshard {p.spec!r}: pool has {n} physical shards, "
-                f"spec needs {p.n_shards} (build the pool with shards=)")
+                f"spec needs {p.n_shards} (pass --serve-mesh or shards=)")
         return p.shards
 
     def bind_metrics(self, registry) -> None:

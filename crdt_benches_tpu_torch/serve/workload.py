@@ -278,6 +278,22 @@ class FleetSpec:
         return Session(doc_id=doc_id, band=band, source=src, trace=trace,
                        arrival=int(self.arrivals[doc_id]), burst=burst)
 
+    def shard_range(self, shard: int, n_shards: int) -> tuple[int, int]:
+        """The ``[lo, hi)`` doc-id range shard ``shard`` of ``n_shards``
+        owns: the balanced contiguous split (sizes differ by at most one).
+        The spec is per-doc arithmetic, so a shard materializes its range
+        without touching another shard's docs (the mesh split of the
+        streaming path)."""
+        if not 0 <= shard < n_shards:
+            raise ValueError(f"shard {shard} outside [0, {n_shards})")
+        return (shard * self.n_docs // n_shards,
+                (shard + 1) * self.n_docs // n_shards)
+
+    def shard_doc_ids(self, shard: int, n_shards: int) -> range:
+        """:meth:`shard_range` as a range of doc ids."""
+        lo, hi = self.shard_range(shard, n_shards)
+        return range(lo, hi)
+
 
 def build_fleet(n_docs: int, mix: str | dict[str, float] = "mixed",
                 seed: int = 0, arrival_span: int = 8,

@@ -128,7 +128,7 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "serve.replicate.scheduler", "serve.replicate.bench",
                 "serve.ingest.__init__", "serve.ingest.admission",
                 "serve.ingest.front", "serve.ingest.deadline",
-                "serve.ingest.loadgen"):
+                "serve.ingest.loadgen", "bench.serve_flags"):
         assert os.path.exists(os.path.join(
             REPO, "crdt_benches_tpu_torch", *mod.split(".")) + ".py"), mod
 

@@ -180,13 +180,6 @@ def test_profile_writes_a_torch_profiler_trace(trace_path, results_dir,
         assert "traceEvents" in json.load(fh)
 
 
-def test_serve_family_exits_2(capsys):
-    assert runner.main(["--family", "serve"]) == 2
-    err = capsys.readouterr().err
-    assert "python -m crdt_benches_tpu_torch.bench --group serve" in err
-    assert "Queue 1 item 6" in err
-
-
 def test_without_cuda_the_runner_exits_with_an_error():
     if torch.cuda.is_available():
         pytest.skip("checks the CUDA-less behaviour")
