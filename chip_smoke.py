@@ -12,6 +12,8 @@ their plain PyTorch versions.
 ``--open-only`` the device, build and open-loop phases alone,
 ``--mesh-only`` the device, build and serve mesh phases alone (after a
 plain drain of serve/mixed/4096 for the reference rate),
+``--tooling-only`` the device, build and runtime tooling phases alone
+(after the same reference drain),
 ``--tier-full`` drains the README's 65,536-document tier cell in ``[serve
 tier]`` in place of its cut, ``--stream-full`` the README's
 262,144-document streamed cell in ``[serve stream]`` (and adds eager rows
@@ -23,7 +25,7 @@ Phases (one line each; any failure exits non-zero):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile ``crdt_benches_tpu_torch/csrc/*.cu`` (nvcc, sm_90a);
-3. K1 (range resolver) against ``resolve_range_plain``: every eighth batch
+3. K1 (range resolver) against ``resolve_range_plain``: every sixteenth batch
    of sveltecomponent and automerge-paper at 8 replicas, one sveltecomponent
    batch with the token list capped below its demand, one
    automerge-paper batch at 1024 replicas, and the worst cases (inserts
@@ -66,7 +68,7 @@ Phases (one line each; any failure exits non-zero):
    reference's own configuration (one replica, ``layout="range"``), under
    the same checks with K1 and K3 once per batch and K2 never;
 6. K5 (unit resolver) against ``resolve_batch_plain``, with
-   ``emit_origin`` off and on, on every sixteenth batch of sveltecomponent at
+   ``emit_origin`` off and on, on every thirty-second batch of sveltecomponent at
    8 replicas (the plain versions run on the CPU, in worker processes), and
    on the worst-case batches (inserts at 0, deletes at 0, inserts at
    alternating ends, a late automerge-paper batch) at 1, 5 and 1024
@@ -99,7 +101,7 @@ Phases (one line each; any failure exits non-zero):
     and 63 byte-identical, K7 once per batch, no K6 and no plain version;
     one more replay times each stage (query, producer, apply, snapshot
     rebuild), and the profiler gives the device's idle share over batches
-    128-383 of a ``replay_once``; K7, K6 without cv, K7's plain version and
+    128-255 of a ``replay_once``; K7, K6 without cv, K7's plain version and
     ``torch.gather`` are timed at batch 1013;
 12. ``flagship.downstream`` at its defaults (1024 replicas, batch 1536),
     one replay: byte-identical at replicas 0 and 1023, K7 once per batch
@@ -138,9 +140,9 @@ Phases (one line each; any failure exits non-zero):
     device's idle share over a profiled drain, each line with the
     placement and the card's name and power limit; then three-tier
     residency:
-    ``[serve tier]``, the README's tiered cell cut to 2,048 documents
+    ``[serve tier]``, the README's tiered cell cut to 1,024 documents
     (``TIER_CELL``: zipf arrivals over 32 rounds, ``--serve-tiers
-    hot=32,warm=512``, 64 times over-subscribed) through
+    hot=16,warm=256``, 64 times over-subscribed) through
     ``run_serve_bench``: both kernels once per dispatch, no plain version,
     every document byte-identical to the oracle, its rate, latency, host
     phases (``prefetch`` included), ``residency`` block, limbo pulls and
@@ -149,7 +151,7 @@ Phases (one line each; any failure exits non-zero):
     drain's wall time there and keeps each (class, rows) pair's first
     operands; ``[serve tier kernels]``: those operands through one K1
     per-row launch and one K4 launch, equal to their plain versions,
-    timed; ``[serve tier ab]``: serve/mixed/4096 cut to 2,048 docs at
+    timed; ``[serve tier ab]``: serve/mixed/4096 cut to 1,024 docs at
     slots (96, 24, 6, 2, 2), pairs of drains with a warm tier of 512 and
     the prefetcher and
     with the same tiers and no prefetcher, in turns, then one through the
@@ -158,13 +160,13 @@ Phases (one line each; any failure exits non-zero):
     rate; every tiered drain equal to the first in every fact no thread
     timing moves, the first pair and the two-tier drain byte-identical to
     the oracle (one pair by default); then the journal
-    (``journal_phases``): ``[serve journal]``, the cell journaled (a
-    barrier every 4 rounds, every 4th full) with the measured recovery
-    leg, both kernels once per dispatch of the drain and the resumed
-    drain, the barrier counts and times, the WAL, the rate against
-    ``[serve]``'s, ``recover_ms``, ``redo_ms``, a seeded sample of 512
-    docs verified after each; ``[serve crash]``, the drain stopped after
-    round 10 and recovered from a delta at chain depth 2 with a redo tail;
+    (``journal_phases``): ``[serve journal]``, the cell cut to 2,048 docs
+    and journaled (a barrier every 4 rounds, every 4th full) with the
+    measured recovery leg, both kernels once per dispatch of the drain
+    and the resumed drain, the barrier counts and times, the WAL, the
+    rate, ``recover_ms``, ``redo_ms``, a seeded sample of 512 docs
+    verified after each; ``[serve crash]``, the whole cell's drain stopped
+    after round 10 and recovered from a delta at chain depth 2 with a redo tail;
     ``[serve tier crash]``, 1,024 docs at the ``[serve tier ab]`` tiers
     crashed the same way, warm members restored; each crash-recovered
     fleet byte-identical to the oracle in every document; ``[journal
@@ -187,7 +189,7 @@ Phases (one line each; any failure exits non-zero):
     dropped prefetch batch on a tiered fleet; then streaming construction
     (``stream_phases``): ``[serve stream]``, the README's streamed cell
     (serve/tier/mixed/262144, zipf arrivals over 32 rounds, a fleet 256
-    times its device rows, a warm tier 16 times them) cut to 2,048 docs at
+    times its device rows, a warm tier 16 times them) cut to 1,024 docs at
     ``hot=16,warm=256``, built lazily through ``run_serve_bench(stream=
     True)`` with the prefetcher: K1's per-row form and K4 once per
     dispatch, every doc materialized, some by the prefetch thread, none
@@ -243,18 +245,31 @@ Phases (one line each; any failure exits non-zero):
     planned op delivered, no client error, every document scored against
     its deadline, the device's idle share over the drain; ``[serve open
     kernels]`` its kept operands against the plain versions; ``[serve open
-    sweep]``, the offered-load sweep on 512 docs with burst arrivals at
-    1,024, 2,048 and 4,096 ops a round (the README cell's rate scaled to
+    sweep]``, the offered-load sweep on 256 docs with burst arrivals at
+    512, 1,024 and 2,048 ops a round (the README cell's rate scaled to
     that fleet, half and twice it), every probe verified, the knee;
     ``[serve open chaos]``, the JAX smoke's open chaos leg (``conn_churn``
     and ``tenant_flood`` fired and recovered, connections dropped and
     resumed), then its journal recovered by ``recover_fleet`` to the
-    drained fleet, doc for doc;
+    drained fleet, doc for doc; and the runtime tooling
+    (``tooling_phases``, run right after ``[serve mesh]``): ``[serve
+    profile]``, the README's serve command through the runner with
+    ``--serve-profile 4``, K1's per-row kernel and K4 named in the
+    profile's top ops with their calls equal to their launches in the
+    captured rounds; ``[serve sanitized]``, serve/mixed/4096 with every
+    sanitizer armed and the native sync tripwire on (no undeclared sync),
+    every document verified, the blocks and the syncs fence by fence;
+    ``[edgecheck]``, the full dtype-edge harness (the 65,408- and
+    65,664-column ladders that bracket the uint16 ids, both serve kernels,
+    byte-exact), K1's per-row form and K4 held against their plain
+    versions on the big ladders' kept operands and timed (``[edgecheck
+    kernels]``); ``[lifecheck]`` and ``[fscrash]`` at ``small``: zero
+    leaks, every crash point recovered;
 15. the concurrent merges (``bench/merge.py``, ``--group merge``):
     merge/traces (rustcode and seph-blog1, 1,348,053 delivered ops)
     through the unit, run and flat engines at 64 replicas and through the
     run and flat engines at 1024, merge/adversarial (cut to about
-    1,250,000 delivered ops, each unique op ~16 times, shuffled) through
+    625,000 delivered ops, each unique op ~16 times, shuffled) through
     the unit and flat
     engines at 64: the generation counted (K5 once a batch of every
     agent's stream, held against its plain version on one batch), then per
@@ -1177,16 +1192,18 @@ TIER_FULL = dict(SERVE_CELL, n_docs=65536, arrival_span=32,
                  arrival_dist="zipf", serve_tiers="hot=1024,warm=16384",
                  verify_sample=0)
 #: ``[serve tier]``'s cell in the default run: TIER_FULL cut to a
-#: thirty-second to fit the script's time (an eighth until the streaming
-#: phases came, a quarter until the journal phases).  2,048 documents at
-#: ``hot=32,warm=512`` (slots (24, 6, 2, 2, 2)) keep the 64x
-#: over-subscription and the 16:1 warm to hot ratio.
-TIER_CELL = dict(TIER_FULL, n_docs=2048, serve_tiers="hot=32,warm=512")
+#: sixty-fourth to fit the script's time (a thirty-second until the runtime
+#: tooling phases came, an eighth until the streaming phases, a quarter
+#: until the journal phases).  1,024 documents at ``hot=16,warm=256``
+#: (slots (12, 3, 2, 2, 2)) keep the 64x over-subscription and the 16:1
+#: warm to hot ratio.
+TIER_CELL = dict(TIER_FULL, n_docs=1024, serve_tiers="hot=16,warm=256")
 #: ``[serve tier ab]``'s fleet, and its tiers for ``[serve tier crash]`` too:
-#: SERVE_CELL's fleet cut to 2,048 docs (4,096 at ``hot=256,warm=1024``
-#: until the streaming phases came) at slots (96, 24, 6, 2, 2), 16 times
-#: over-subscribed, with a warm tier of 512.
-TIER_AB_DOCS = 2048
+#: SERVE_CELL's fleet cut to 1,024 docs (2,048 until the runtime tooling
+#: phases came, 4,096 at ``hot=256,warm=1024`` until the streaming phases)
+#: at slots (96, 24, 6, 2, 2), 8 times over-subscribed, with a warm tier of
+#: 512.
+TIER_AB_DOCS = 1024
 #: ``[serve tier crash]``'s fleet: the A/B fleet cut to 1,024 docs (2,048
 #: until the replication and reshard phases came), 8 times over-subscribed.
 TIER_CRASH_DOCS = 1024
@@ -1197,10 +1214,247 @@ TIER_AB = "hot=128,warm=512"
 #: phases share); ``--ab-pairs 10`` is the measurement.
 TIER_AB_PAIRS = 1
 #: Dispatches of the second, instrumented tier drain traced by the
-#: profiler for the device's idle share.  That drain stops at the window's
-#: end once it has kept the operands of every (class, rows) pair the timed
-#: drain used.
-TIER_PROFILED = (128, 512)
+#: profiler for the device's idle share ((128, 512) until the tier cell was
+#: cut to 1,024 docs, which drains in about 420 dispatches).  That drain
+#: stops at the window's end once it has kept the operands of every (class,
+#: rows) pair the timed drain used.
+TIER_PROFILED = (64, 320)
+
+
+#: ``[serve profile]``: the README's serve command (serve/mixed/4096, B =
+#: 64, K = 8, the two-tier pool) through the port's runner with four steady
+#: rounds under the device profiler (``--serve-profile 4``) and the sync
+#: sanitizer armed with its native tripwire (``--serve-sanitize syncs``):
+#: stopping the capture synchronizes the device, outside the hot path.
+PROFILE_ARGV = ("--family", "serve", "--serve-docs", "4096", "--serve-mix",
+                "mixed", "--serve-batch", "64", "--serve-macro", "8",
+                "--serve-profile", "4", "--serve-sanitize", "syncs",
+                "--serve-save-name", "chip_profile")
+#: The kernels of the serve path by wrapper, and the substring of their
+#: device names in a ``torch.profiler`` trace (K4 has one template instance
+#: a block width).
+PROFILE_KERNELS = {"resolve_range_rows": "resolve_rows_kernel",
+                   "serve_macro_fused": "serve_macro_kernel"}
+#: The edge harness's uint16 bracket: the narrow ladder's largest class and
+#: the wide ladder's smallest (``serve/edgecheck.py``).
+EDGE_CLASSES = (65408, 65664)
+
+
+def tooling_phases(dev, bound, serve_rate, smi_line) -> list[dict]:
+    """Item 7's runtime tooling on the card, each line with the card's name
+    and power limit.
+
+    ``[serve profile]``: :data:`PROFILE_ARGV` in-process through the
+    runner, the sync sanitizer armed (no undeclared sync, the capture's
+    stop included); the artifact's ``profile`` block lists K1's per-row
+    kernel and K4's by name, their calls equal to the launches made between the
+    capture's start and stop (the device is waited for before the stop, so
+    every launch of the window has finished).  ``[serve sanitized]``:
+    ``SERVE_CELL`` through ``run_serve_bench`` with every sanitizer armed
+    and the native sync tripwire on (``torch.cuda.set_sync_debug_mode
+    ("error")`` on the hot path): a sync outside a declared fence raises
+    and fails the script; every document verified; the blocks, the syncs
+    fence by fence and the rate as a share of ``[serve]``'s printed.
+    ``[edgecheck]``: the full dtype-edge harness (the small ladder and the
+    65,408- and 65,664-column ladders, both serve kernels, the range
+    sanitizer armed, the boundary fuzz); the fused drains' first operands
+    at the two big classes kept and held, through one K1 per-row launch
+    and one K4 launch, against the plain versions (max abs error 0) and
+    timed (:func:`kept_kernel_check`).  ``[lifecheck]`` and ``[fscrash]``:
+    the two harnesses at ``small``: zero leaks, every crash point
+    recovered.  Every count is set to 0 before each phase and read after
+    it: K1's per-row form and K4 launched, no plain version.  Returns the
+    edge ladders' two kernel rows."""
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from crdt_benches_tpu_torch.bench import harness, runner
+    from crdt_benches_tpu_torch.lint import SANITIZERS, fs_sanitizer
+    from crdt_benches_tpu_torch.obs import profiler as prof_mod
+    from crdt_benches_tpu_torch.ops import resolve_range as rr
+    from crdt_benches_tpu_torch.ops import serve_fused as sf
+    from crdt_benches_tpu_torch.ops.apply2 import PackedState
+    from crdt_benches_tpu_torch.serve import pool as pool_mod
+    from crdt_benches_tpu_torch.serve.bench import run_serve_bench
+    from crdt_benches_tpu_torch.serve.edgecheck import run_edgecheck
+    from crdt_benches_tpu_torch.serve.fscrash import enumerate_crash_points
+    from crdt_benches_tpu_torch.serve.lifecheck import run_lifecheck
+
+    def launched(tag, launches):
+        if not all(launches.get(k) for k in PROFILE_KERNELS):
+            fail(f"{tag}: launches {launches}")
+
+    # ---- [serve profile]: the runner with --serve-profile 4 ----
+    window = {}
+    begin, stop = prof_mod.DeviceProfiler.round_begin, \
+        prof_mod.DeviceProfiler._stop
+
+    def counted_begin(self):
+        if self.state == "ready":
+            window["start"] = (rr.resolve_range_rows.launches,
+                               sf.serve_macro_fused.launches)
+        begin(self)
+
+    def counted_stop(self):
+        torch.cuda.synchronize()  # the window's launches have finished
+        window["stop"] = (rr.resolve_range_rows.launches,
+                          sf.serve_macro_fused.launches)
+        stop(self)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    saved_dir = harness.RESULTS_DIR
+    harness.RESULTS_DIR = tmp
+    prof_mod.DeviceProfiler.round_begin = counted_begin
+    prof_mod.DeviceProfiler._stop = counted_stop
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.synchronize()
+        zero_all_counts()
+        with contextlib.redirect_stdout(out):
+            rc = runner.main(list(PROFILE_ARGV))
+        launches = read_all_counts("serve profile")
+        with open(os.path.join(tmp, "torch_chip_profile.json")) as fh:
+            (rec,) = json.load(fh)
+    finally:
+        prof_mod.DeviceProfiler.round_begin = begin
+        prof_mod.DeviceProfiler._stop = stop
+        harness.RESULTS_DIR = saved_dir
+        shutil.rmtree(tmp, ignore_errors=True)
+    x = rec["extra"]
+    if rc != 0 or not x["verify_ok"] or not x["boundary_syncs"]["sanitized"]:
+        fail(f"serve profile: the runner exited {rc}, verify_ok "
+             f"{x['verify_ok']}, sanitized "
+             f"{x['boundary_syncs']['sanitized']}")
+    launched("serve profile", launches)
+    block = x["profile"]
+    if block is None or block["rounds"] != 4 or "start" not in window \
+            or "stop" not in window:
+        fail(f"serve profile: block {block}, window {window}")
+    want = {k: window["stop"][i] - window["start"][i]
+            for i, k in enumerate(PROFILE_KERNELS)}
+    got = {k: sum(o["calls"] for o in block["top_ops"] if sub in o["name"])
+           for k, sub in PROFILE_KERNELS.items()}
+    if got != want or not all(want.values()):
+        fail(f"serve profile: calls in top_ops {got}, launches in the "
+             f"window {want}")
+    print(f"[serve profile] serve/mixed/4096 through the runner with "
+          f"--serve-profile 4 --serve-sanitize syncs (0 undeclared syncs), "
+          f"{smi_line}: {block['rounds']} steady rounds "
+          f"captured ({block['dirty_rounds']} dirty), K1 per-row and K4 "
+          f"calls in the trace {got} equal their launches in the window; "
+          f"drain {x['patches_per_sec']:.1f} patches/s under the profiler; "
+          f"runner call {time.perf_counter() - t0:.1f} s", flush=True)
+    for o in block["top_ops"]:
+        print(f"[serve profile] top op, {smi_line}: {o['total_ms']:.3f} ms "
+              f"in {o['calls']} calls: {o['name'][:120]}", flush=True)
+
+    # ---- [serve sanitized]: every sanitizer armed, the native tripwire ----
+    logs = []
+    t0 = time.perf_counter()
+    rep = run_serve_bench(**SERVE_CELL, verify_sample=0, sanitize=SANITIZERS,
+                          device=dev, pool_hook=zero_counts,
+                          log=logs.append)
+    launches = read_all_counts("serve sanitized")
+    launched("serve sanitized", launches)
+    run_s = time.perf_counter() - t0
+    if not any("native sync tripwire on" in m for m in logs):
+        fail("serve sanitized: the native sync tripwire was not armed")
+    bs = rep["boundary_syncs"]
+    if not (rep["verify_ok"] and rep["verified_docs"] == SERVE_CELL["n_docs"]
+            and bs["sanitized"] and bs["syncs"] is not None):
+        fail(f"serve sanitized: verify_ok {rep['verify_ok']} on "
+             f"{rep['verified_docs']} docs, {bs}")
+    rate = rep["patches_per_sec"]
+    print(f"[serve sanitized] serve/mixed/4096, every sanitizer armed "
+          f"({','.join(SANITIZERS)}) and the native sync tripwire on, "
+          f"{smi_line}: 0 undeclared syncs, all {rep['verified_docs']} docs "
+          f"byte-identical to the oracle; {rate:.1f} patches/s, "
+          f"{rate / serve_rate:.4f} of [serve]'s {serve_rate:.1f} in this "
+          f"run; launches {launches}; call {run_s:.1f} s", flush=True)
+    print(f"[serve sanitized] fences, {smi_line}: "
+          + ", ".join(f"{k} {n} entries {bs['syncs'].get(k, 0)} syncs"
+                      for k, n in bs["entries"].items()), flush=True)
+    for key in ("thread_crossings", "fs_ops", "lifecycle", "ranges"):
+        b = rep[key]
+        body = {k: v for k, v in b.items()
+                if isinstance(v, dict) and v}
+        print(f"[serve sanitized] {key}, {smi_line}: "
+              f"{json.dumps(body, sort_keys=True)}", flush=True)
+
+    # ---- [edgecheck]: the full harness, the uint16 bracket kept ----
+    keep: dict = {}
+    step = pool_mod.DocPool.macro_step
+
+    def kept_step(pool, cls, kind, pos, rlen, slot0, nbits):
+        Rt = kind.shape[1]
+        if (cls in EDGE_CLASSES and pool.serve_kernel == "fused"
+                and (cls, Rt) not in keep):
+            t = pool.tier_rows(cls, Rt)
+            keep[cls, Rt] = ((kind.copy(), pos.copy(), rlen.copy(),
+                              slot0.copy()),
+                             PackedState(t.doc.clone(), t.length.clone(),
+                                         t.nvis.clone()))
+        return step(pool, cls, kind, pos, rlen, slot0, nbits)
+
+    pool_mod.DocPool.macro_step = kept_step
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.synchronize()
+        zero_all_counts()
+        report = run_edgecheck(
+            device=dev, log=lambda m: print(f"[edgecheck] {m}, {smi_line}",
+                                            flush=True))
+        launches = read_all_counts("edgecheck")
+    finally:
+        pool_mod.DocPool.macro_step = step
+    launched("edgecheck", launches)
+    if set(report["ladders"]) != {"small-ladder", "narrow-max", "wide-min"}:
+        fail(f"edgecheck: ladders {sorted(report['ladders'])}")
+    fz = report["boundary_fuzz"]
+    print(f"[edgecheck] {sum(t['docs'] for t in report['ladders'].values())} "
+          f"docs x 2 kernels across 3 ladders byte-identical to the oracle "
+          f"and across the kernels, {smi_line}: range checks "
+          f"{report['checks']}, masks {report['masks']}; {fz['contracts']} "
+          f"contracts, {fz['rejected']} edge perturbations refused; "
+          f"launches {launches}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    kk = kept_kernel_check("edgecheck kernels",
+                           f"the 65,408- and 65,664-column ladders, "
+                           f"{smi_line}", keep, EDGE_CLASSES, dev, bound)
+    rows = kept_kernel_rows("edgecheck, the uint16 bracket", kk, launches)
+
+    # ---- [lifecheck] and [fscrash] at small ----
+    t0 = time.perf_counter()
+    zero_all_counts()
+    lc = run_lifecheck(small=True, device=dev)
+    launches = read_all_counts("lifecheck")
+    launched("lifecheck", launches)
+    if lc["leaked"] or lc["unattributed"] or not all(
+            lc["machines"].get(m) for m in ("doc", "row", "session",
+                                            "stream")):
+        fail(f"lifecheck: {lc}")
+    print(f"[lifecheck] small, {smi_line}: 0 leaks, 0 unattributed; "
+          f"machines {lc['machines']}, resources {lc['resources']}; "
+          f"launches {launches}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    zero_all_counts()
+    fc = enumerate_crash_points(small=True, device=dev)
+    launches = read_all_counts("fscrash")
+    launched("fscrash", launches)
+    if not (fc["verified"] == fc["mutations"] > 0 and all(
+            fc["per_protocol"].get(t) for t in
+            fs_sanitizer.KNOWN_PROTOCOLS)):
+        fail(f"fscrash: {fc}")
+    print(f"[fscrash] small, {smi_line}: {fc['verified']} of "
+          f"{fc['mutations']} crash points recovered byte-identical to the "
+          f"oracle, per protocol {fc['per_protocol']}; launches "
+          f"{launches}; {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
 
 
 def kept_kernel_check(tag, label, keep, classes, dev, bound) -> dict:
@@ -1708,10 +1962,14 @@ def serve_tier_phases(dev, bound, cell=TIER_CELL,
 #: The journal's cadence on SERVE_CELL (the README's journal row): a
 #: snapshot barrier every 4 macro-rounds, every 4th of them full.
 JOURNAL = dict(snapshot_every=4, snapshot_full_every=4)
+#: ``[serve journal]``'s fleet: SERVE_CELL cut to half its documents to
+#: fit the script's time (the whole cell until the runtime tooling phases
+#: came); it drains in 9 macro-rounds, a full barrier and a delta.
+JOURNAL_DOCS = 2048
 #: ``[serve crash]``'s crash: SERVE_CELL drains in 14 macro-rounds, with
 #: barriers after rounds 4 (full), 8 (delta) and 12 (delta); stopped after
 #: round 10 it recovers from the delta at chain depth 2 and redoes rounds 9
-#: and 10 from the WAL.
+#: and 10 from the WAL (at JOURNAL_DOCS the drain ends after round 9).
 CRASH_ROUND = 10
 #: ``[journal rebuild]``'s seeded sample: documents of each final class.
 REBUILD_PER_CLASS = 8
@@ -1785,19 +2043,20 @@ def rebuild_slice_check(dev, bound, st, C, base, n_init, B, chars, tag):
     return err1, err4, (k1_q, k1_plain, k1_b), (k4_q, k4_plain, k4_b)
 
 
-def journal_phases(dev, bound, serve_rate) -> list[dict]:
+def journal_phases(dev, bound) -> list[dict]:
     """The write-ahead journal and crash recovery on the card.
 
-    ``[serve journal]``: SERVE_CELL through ``run_serve_bench`` with the
+    ``[serve journal]``: SERVE_CELL at ``JOURNAL_DOCS`` documents through
+    ``run_serve_bench`` with the
     journal (``JOURNAL``) and the measured recovery leg, every count set to
     0 just before the drain and read after the run: K1's per-row form and
     K4 once per dispatch of the drain and of the resumed drain, no plain
     version; the barrier counts and times, the WAL's records and bytes,
-    the drain's rate beside ``[serve]``'s unjournaled ``serve_rate``, and
+    the drain's rate, and
     the recovery's ``recover_ms``, ``redo_ms``, ``redo_ops`` and chain
     depth; a seeded sample (``JOURNAL_VERIFY_SAMPLE``, every class)
     byte-identical to the oracle after the drain and after the recovery.
-    ``[serve crash]``: the same with the crash after
+    ``[serve crash]``: the same on the whole SERVE_CELL with the crash after
     ``CRASH_ROUND`` macro-rounds (a delta at chain depth 2 and a redo
     tail); every recovered document byte-identical to the oracle (the
     uninterrupted drain of ``[serve]`` verified every document too, so
@@ -1876,17 +2135,16 @@ def journal_phases(dev, bound, serve_rate) -> list[dict]:
 
     # ---- [serve journal]: the journaled drain and its recovery ----
     rep, rec, redo, launches, secs = bench(
-        "serve journal", journal_dir="auto", measure_recovery=True,
-        verify_sample=JOURNAL_VERIFY_SAMPLE)
+        "serve journal", n_docs=JOURNAL_DOCS, journal_dir="auto",
+        measure_recovery=True, verify_sample=JOURNAL_VERIFY_SAMPLE)
     j = rep["journal"]
     if not (j["snapshots_full"] and j["snapshots_delta"]):
         fail(f"serve journal: barriers {j}")
     lat, ph = rep["batch_latency"], rep["phase_seconds"]
-    print(f"[serve journal] serve/{cell['mix']}/{n_docs} journaled (a barrier"
+    print(f"[serve journal] serve/{cell['mix']}/{JOURNAL_DOCS} journaled (a barrier"
           f" every {JOURNAL['snapshot_every']} rounds, full every "
           f"{JOURNAL['snapshot_full_every']}): {rep['patches_per_sec']:.1f} "
-          f"patches/s ({rep['wall_time']:.4f} s), {rep['patches_per_sec'] / serve_rate:.4f}"
-          f" of [serve]'s unjournaled {serve_rate:.1f} in this run; "
+          f"patches/s ({rep['wall_time']:.4f} s); "
           f"{rep['rounds']} rounds, {rep['dispatches']} dispatches; "
           f"barriers {j['snapshots']} ({j['snapshots_full']} full, "
           f"{j['snapshots_delta']} delta), snapshot_time "
@@ -2285,11 +2543,12 @@ def chaos_phases(dev, bound) -> list[dict]:
 STREAM_FULL = dict(SERVE_CELL, n_docs=262144, arrival_span=32,
                    arrival_dist="zipf", serve_tiers="hot=1024,warm=16384",
                    verify_sample=4096)
-#: ``[serve stream]``'s cell in the default run: STREAM_FULL cut to 2,048
-#: docs at ``hot=16,warm=256`` (slots (12, 3, 2, 2, 2)), a fleet 128 times
-#: its device rows (4,096 docs, 256 times, until the telemetry phases came;
-#: the warm tier keeps its 16:1); every doc verified.
-STREAM_CELL = dict(STREAM_FULL, n_docs=2048, serve_tiers="hot=16,warm=256",
+#: ``[serve stream]``'s cell in the default run: STREAM_FULL cut to 1,024
+#: docs at ``hot=16,warm=256`` (slots (12, 3, 2, 2, 2)), a fleet 64 times
+#: its device rows (2,048 docs, 128 times, until the runtime tooling phases
+#: came; 4,096, 256 times, until the telemetry phases; the warm tier keeps
+#: its 16:1); every doc verified.
+STREAM_CELL = dict(STREAM_FULL, n_docs=1024, serve_tiers="hot=16,warm=256",
                    verify_sample=0)
 #: ``[serve stream trickle]``: STREAM_CELL's tiers with 512 docs arriving
 #: uniformly over 4,096 rounds (about one a macro-round of depth 8), so the
@@ -2558,6 +2817,9 @@ def stream_phases(dev, bound, full=False, tier_rate=None,
 #: of zero-length tokens at the head and run past the end of a short
 #: document; alternating ends land on the FREE sentinel every other op.
 K5_WORST = ("ins_at_0", "del_at_0", "alternate")
+#: ``[k5 R=8]`` holds one sveltecomponent batch in this many against the
+#: plain version, which runs on the CPU and sets the phase's time
+K5_STRIDE = 32
 
 
 #: ``[serve telemetry chaos]``: the JAX bench smoke's chaos recipe under the
@@ -3287,12 +3549,13 @@ OPEN_FULL = dict(SERVE_CELL, open_spec="16384", deadline=True,
 #: the drain 48.1 s, the phase 73.6 s, on an NVIDIA H100 80GB HBM3 at
 #: 700.00 W; PERF.md section 4).
 OPEN_DOCS = 1024
-#: ``[serve open sweep]``: the cut fleet, and the probes' offered rates in
-#: ops a round, fixed so that every run drives the same traffic: the README
-#: cell's 16,384 scaled to the fleet (2,048, the configured rate, run again
-#: with the knee attached), half and twice it.
-OPEN_SWEEP_DOCS = 512
-OPEN_SWEEP_RATES = (1024, 2048, 4096)
+#: ``[serve open sweep]``: the cut fleet (512 docs until the runtime tooling
+#: phases came), and the probes' offered rates in ops a round, fixed so
+#: that every run drives the same traffic: the README cell's 16,384 scaled
+#: to the fleet (1,024, the configured rate, run again with the knee
+#: attached), half and twice it.
+OPEN_SWEEP_DOCS = 256
+OPEN_SWEEP_RATES = (512, 1024, 2048)
 #: ``[serve open chaos]``: the JAX bench smoke's open chaos leg
 #: (``tools/bench_smoke.sh --family serve-open``, its second leg) uncut.
 OPEN_CHAOS = dict(mix="mixed", n_docs=24, batch=16, macro_k=4,
@@ -4115,10 +4378,11 @@ MERGE_PATHS = {
                ("flat", 1024)),
     "adversarial": (("unit", 64), ("flat", 64)),
 }
-#: merge/adversarial's delivered ops (``--merge-ops``): 1,250,000, an eighth
+#: merge/adversarial's delivered ops (``--merge-ops``): 625,000, a sixteenth
 #: of the config's 10,000,000 (half since the replication and reshard
-#: phases came, an eighth since the open-loop phases did)
-MERGE_ADVERSARIAL_OPS = 1_250_000
+#: phases came, an eighth since the open-loop phases did, a sixteenth since
+#: the runtime tooling phases)
+MERGE_ADVERSARIAL_OPS = 625_000
 
 
 def merge_phases(dev, bound) -> tuple[list[dict], dict]:
@@ -4328,8 +4592,9 @@ def merge_phases(dev, bound) -> tuple[list[dict], dict]:
 
 #: Batches [lo, hi) of a v5 ``replay_once`` at 64 replicas over which
 #: ``[down stages]`` takes the device's idle share (the whole replay until
-#: its profiled run took ~37 s on an H100 host).
-DOWN_IDLE_WINDOW = (128, 384)
+#: its profiled run took ~37 s on an H100 host; batches 128-383 until the
+#: runtime tooling phases came).
+DOWN_IDLE_WINDOW = (128, 256)
 
 
 #: The run-granular downstream columns: (label, engine, schedule).
@@ -4993,6 +5258,11 @@ def main(argv=None) -> int:
                     help="run only the device, build and serve mesh phases "
                     "(a plain drain of serve/mixed/4096 for the reference "
                     "rate, then [serve mesh])")
+    ap.add_argument("--tooling-only", action="store_true",
+                    help="run only the device, build and runtime tooling "
+                    "phases (a plain drain of serve/mixed/4096 for the "
+                    "reference rate, then [serve profile], [serve "
+                    "sanitized], [edgecheck], [lifecheck], [fscrash])")
     ap.add_argument("--open-full", action="store_true",
                     help="[serve open] on the uncut OPEN_FULL cell (4,096 "
                     "docs at 16,384 ops/round)")
@@ -5076,13 +5346,14 @@ def main(argv=None) -> int:
         if "registers" in ln or "bytes stack" in ln:
             print(f"[build] {ln.strip()}", flush=True)
     fleet = share_serve_fleet()
-    if opts.mesh_only:
+    if opts.mesh_only or opts.tooling_only:
         from crdt_benches_tpu_torch.serve.bench import run_serve_bench
 
         ref = run_serve_bench(**SERVE_CELL, device=dev, log=lambda m: None)
         print(f"[serve] serve/mixed/4096 (the reference): "
               f"{ref['patches_per_sec']:.1f} patches/s", flush=True)
-        rows = serve_mesh_phase(dev, bound, ref["patches_per_sec"], smi_line)
+        rows = (serve_mesh_phase if opts.mesh_only else tooling_phases)(
+            dev, bound, ref["patches_per_sec"], smi_line)
         print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
         print(json.dumps({"kernels": rows}))
         print(smi_line)
@@ -5203,15 +5474,18 @@ def main(argv=None) -> int:
     # every other batch: where a plain version on every batch would set a
     # phase's time (each main path runs its kernels on every batch)
     half = lambda i: i % 2 == 0
-    # every eighth batch (every other until the streaming phases came,
-    # every fourth until the telemetry phases)
-    eighth = lambda i: i % 8 == 0
+    # every sixteenth batch (every other until the streaming phases came,
+    # every fourth until the telemetry phases, every eighth until the
+    # runtime tooling phases)
+    sixteenth = lambda i: i % 16 == 0
     cap_am = 183_296
     t0 = time.perf_counter()
     k3_also = ((arf.range_apply_blocked, "k3"),)
-    walk("sveltecomponent", 8, 94_208, eighth, eighth, also=k3_also)
-    walk("automerge-paper", 8, cap_am, eighth, eighth, also=k3_also)
-    print(f"[k1+k2 R=8] sveltecomponent and automerge-paper, every eighth "
+    walk("sveltecomponent", 8, 94_208, sixteenth, sixteenth, also=k3_also)
+    walk("automerge-paper", 8, cap_am, sixteenth, sixteenth,
+         also=k3_also)
+    print(f"[k1+k2 R=8] sveltecomponent and automerge-paper, every "
+          f"sixteenth "
           f"batch equal (K3 too) ({time.perf_counter() - t0:.1f} s)",
           flush=True)
 
@@ -5625,11 +5899,12 @@ def main(argv=None) -> int:
     unit_walk("v4", sv.init_state(), engine_chunks(sv), k5_log=k5_log)
     if len(k5_log) != sv.tt.n_batches:
         fail(f"K5 logged {len(k5_log)} batches, want {sv.tt.n_batches}")
-    # every sixteenth batch (every fourth until the streaming phases came,
-    # every eighth until the open-loop phases did: the plain version on
-    # the CPU sets this phase's time; every batch of the main paths runs K5
-    # at full width)
-    k5_log = k5_log[::16]
+    # every thirty-second batch (every fourth until the streaming phases
+    # came, every eighth until the open-loop phases did, every sixteenth
+    # until the runtime tooling phases: the plain version on the CPU sets
+    # this phase's time; every batch of the main paths runs K5 at full
+    # width)
+    k5_log = k5_log[::K5_STRIDE]
     tasks, got = [], []
     for args, out in k5_log:
         for eo, res in ((False, out),
@@ -5644,10 +5919,12 @@ def main(argv=None) -> int:
     for i, (g, w) in enumerate(zip(got, wants)):
         e = max_err(tuple(g), tuple(torch.from_numpy(x).to(dev) for x in w))
         if e:
-            fail(f"K5 != plain on sveltecomponent batch {16 * (i // 2)}, "
+            fail(f"K5 != plain on sveltecomponent batch "
+                 f"{K5_STRIDE * (i // 2)}, "
                  f"emit_origin {tasks[i][3]}: {e}")
         uerr["k5"] = max(uerr["k5"], e)
-    print(f"[k5 R=8] sveltecomponent: every sixteenth batch ({len(k5_log)} "
+    print(f"[k5 R=8] sveltecomponent: one batch in {K5_STRIDE} "
+          f"({len(k5_log)} "
           f"of {sv.tt.n_batches}) equal with "
           f"emit_origin off and on (plain on {workers} CPU workers; "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
@@ -6106,6 +6383,11 @@ def main(argv=None) -> int:
     rows += serve_mesh_phase(dev, bound, serve_rate, smi_line)
     print(f"[serve mesh] all mesh phases {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # ---- the runtime tooling: profiler, sanitizers, the harnesses ----
+    t0 = time.perf_counter()
+    rows += tooling_phases(dev, bound, serve_rate, smi_line)
+    print(f"[tooling] all tooling phases {time.perf_counter() - t0:.1f} s",
+          flush=True)
     # ---- the telemetry (obs/) against [serve]'s drain ----
     t0 = time.perf_counter()
     rows += telemetry_phases(dev, bound, serve_ref)
@@ -6132,7 +6414,7 @@ def main(argv=None) -> int:
           flush=True)
     # ---- the journal, crash recovery and rebuild_doc ----
     t0 = time.perf_counter()
-    rows += journal_phases(dev, bound, serve_rate)
+    rows += journal_phases(dev, bound)
     print(f"[serve journal] all journal phases "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     # ---- fault injection and in-run repair ----

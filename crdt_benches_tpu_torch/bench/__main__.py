@@ -281,7 +281,8 @@ def _serve_repl(args) -> int:
             journal_dir=args.serve_journal,
             snapshot_every=args.serve_snapshot_every,
             faults=args.serve_faults, reqtrace_samples=args.serve_reqtrace,
-            slo_spec=args.serve_slo, device=args.device,
+            slo_spec=args.serve_slo, sanitize=args.serve_sanitize or (),
+            device=args.device,
             log=lambda m: print(m, file=sys.stderr))
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
@@ -388,7 +389,9 @@ def _serve(args) -> int:
             flight_path=args.serve_flight, reshard_spec=args.serve_reshard,
             open_spec=args.serve_open, tenants_spec=args.serve_tenants,
             deadline=bool(args.serve_deadline),
-            deadline_budget=args.serve_deadline_budget, device=args.device,
+            deadline_budget=args.serve_deadline_budget,
+            profile_rounds=args.serve_profile,
+            sanitize=args.serve_sanitize or (), device=args.device,
             log=lambda m: print(m, file=sys.stderr), **extra,
         )
     except (RuntimeError, ValueError) as e:

@@ -51,9 +51,15 @@ artifact through :func:`save_results` as ``torch_serve_<mix>_<docs>.json``
 shards every bucket's rows over N shards (``parallel/mesh.py fleet_mesh``:
 on CUDA shard s on ``cuda:(s mod GPUs)``).  It exits 1 on a verification
 miss, an unfired or unrecovered fault or an anomaly still active, and 2 on
-a refused flag combination (JAX's refusals, word for word);
-``--serve-profile`` and ``--serve-edgecheck`` exit 2: the device profiler
-and the edge harness are ROADMAP Queue 1 item 7.
+a refused flag combination (JAX's refusals, word for word).
+``--serve-profile N`` captures N steady rounds under ``torch.profiler``
+(``obs/profiler.py``: the artifact's ``profile`` block), and
+``--serve-sanitize LIST`` arms the runtime sanitizers (``lint/``); their
+counters fill the artifact's ``boundary_syncs``, ``thread_crossings``,
+``fs_ops``, ``lifecycle`` and ``ranges`` blocks, armed or not.
+``--serve-edgecheck small|full`` runs the dtype-edge harness
+(``serve/edgecheck.py``) in place of a drain, refusing every flag that
+shapes one.
 """
 
 from __future__ import annotations
@@ -74,7 +80,7 @@ from .harness import (
     measure,
     save_results,
 )
-from .serve_flags import add_serve_flags, serve_refusal
+from .serve_flags import add_serve_flags, edgecheck_refusal, serve_refusal
 
 UPSTREAM_TORCH = ("torch", "torch-unit")
 DOWNSTREAM_TORCH = ("torch", "torch-pos", "torch-range", "torch-runs",
@@ -468,10 +474,10 @@ def _verify(args, device) -> list[tuple[str, str, str]]:
     return failures
 
 
-#: The JAX artifact's blocks that ROADMAP Queue 1 item 7 ports (the lint
-#: sanitizers' ground truth and the device profile): recorded as None.
-ITEM7_BLOCKS = ("boundary_syncs", "thread_crossings", "fs_ops", "lifecycle",
-                "ranges", "profile")
+#: The artifact's blocks of the sanitizers' counters and the device
+#: profile (``lint/``, ``obs/profiler.py``).
+LINT_BLOCKS = ("boundary_syncs", "thread_crossings", "fs_ops", "lifecycle",
+               "ranges", "profile")
 
 #: Keys of a serve report the JAX artifact carries under the same name.
 _SERVE_KEYS = (
@@ -488,7 +494,7 @@ _SERVE_KEYS = (
     "journal", "longhaul", "construction", "recovery", "reshard", "ingest",
     "knee", "faults", "metrics", "doc_drain_latency", "timeseries",
     "anomalies", "reqtrace", "slo", "flight", "status_port", "trace",
-    "docs_per_class", "verify_ok")
+    "docs_per_class", "verify_ok", *LINT_BLOCKS)
 _REPL_KEYS = (
     "fleet_docs", "writers", "replica_rows", "batch", "batch_chars",
     "macro_k", "classes", "slots", "rounds", "range_ops", "unit_ops",
@@ -502,12 +508,13 @@ _REPL_KEYS = (
 def serve_artifact(rep: dict) -> tuple[BenchResult, str]:
     """JAX's artifact of one serve report (``serve/bench.py`` or the
     replicated family's) and its default name, JAX's: the same bench id and
-    ``extra`` keys, the item-7 blocks None."""
+    ``extra`` keys."""
     if rep.get("family") == "serve-repl":
         n, w = rep["fleet_docs"], rep["writers"]
         extra = {"family": "serve-repl",
                  **{k: rep[k] for k in _REPL_KEYS},
-                 "kernel": rep["serve_kernel"], "thread_crossings": None}
+                 "kernel": rep["serve_kernel"],
+                 "thread_crossings": rep["thread_crossings"]}
         return (BenchResult("serve/repl", rep["mix"], f"{n}x{w}",
                             rep["patches"], [rep["wall_time"]], replicas=w,
                             extra=extra),
@@ -516,8 +523,7 @@ def serve_artifact(rep: dict) -> tuple[BenchResult, str]:
     extra = {"family": "serve", **{k: rep.get(k) for k in _SERVE_KEYS},
              "kernel": rep["serve_kernel"],
              "residency": rep.get("residency"),
-             "verified_docs": rep["verified_ids"],
-             **{k: None for k in ITEM7_BLOCKS}}
+             "verified_docs": rep["verified_ids"]}
     n = rep["fleet_docs"]
     return (BenchResult("serve", label, str(n), rep["patches"],
                         [rep["wall_time"]], replicas=1, extra=extra),
@@ -607,16 +613,24 @@ def run_serve(args) -> int:
     refusals) exits 2; any other failure keeps its traceback."""
     log = lambda m: print(m, file=sys.stderr)
     if args.serve_edgecheck is not None:
-        log("--serve-edgecheck is not ported: the dtype-edge harness "
-            "(serve/edgecheck.py) is ROADMAP Queue 1 item 7")
-        return 2
+        # the dtype-edge harness owns its fleets, both kernels and the
+        # armed range sanitizer: a flag that shapes a drain is refused
+        why = edgecheck_refusal(args)
+        if why:
+            log(why)
+            return 2
+        try:
+            resolve_device(args.device)
+        except RuntimeError as e:
+            print(f"runner: {e}", file=sys.stderr)
+            return 1
+        from ..serve.edgecheck import main as edge_main
+
+        return edge_main((["--small"] if args.serve_edgecheck == "small"
+                          else []) + ["--device", args.device])
     why = serve_refusal(args)
     if why:
         log(why)
-        return 2
-    if args.serve_profile > 0:
-        log("--serve-profile is not ported: the device profiler is ROADMAP "
-            "Queue 1 item 7")
         return 2
     try:
         resolve_device(args.device)
@@ -646,7 +660,8 @@ def run_serve(args) -> int:
                 snapshot_every=args.serve_snapshot_every,
                 faults=args.serve_faults,
                 reqtrace_samples=args.serve_reqtrace,
-                slo_spec=args.serve_slo, device=args.device, log=log)
+                slo_spec=args.serve_slo, sanitize=args.serve_sanitize or (),
+                device=args.device, log=log)
             r, name = serve_artifact(rep)
             log(f"serve/repl: wrote {save_results([r], args.serve_save_name or name)}")
             rb, conv = r.extra["replication"], r.extra["convergence"]
@@ -687,7 +702,9 @@ def run_serve(args) -> int:
             deadline_budget=args.serve_deadline_budget,
             trace_path=args.serve_trace,
             reqtrace_samples=args.serve_reqtrace, slo_spec=args.serve_slo,
-            flight_path=args.serve_flight, device=args.device, log=log)
+            flight_path=args.serve_flight,
+            profile_rounds=args.serve_profile,
+            sanitize=args.serve_sanitize or (), device=args.device, log=log)
         telemetry = dict(status_port=args.serve_status,
                          timeseries_path=args.serve_timeseries,
                          timeseries_window=args.serve_timeseries_window)
@@ -769,11 +786,14 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-save-name", default=None,
                     help="artifact basename (default serve_<mix>_<docs>; "
                          "written as torch_<name>.json)")
-    ap.add_argument("--serve-profile", type=int, default=0, metavar="N",
-                    help="not ported (ROADMAP Queue 1 item 7): exits 2")
     ap.add_argument("--serve-edgecheck", default=None,
                     choices=("small", "full"), metavar="MODE",
-                    help="not ported (ROADMAP Queue 1 item 7): exits 2")
+                    help="run the dtype-edge harness (serve/edgecheck.py) "
+                         "instead of a bench drain: adversarial fleets "
+                         "through both serve kernels with the range "
+                         "sanitizer armed, then the boundary-contract fuzz "
+                         "('full' adds the 65,408- and 65,664-column "
+                         "ladders that bracket the uint16 ids)")
     ap.add_argument("--traces", default=",".join(TRACES))
     ap.add_argument("--backends", default="cpp-rope,cpp-crdt,cpp-cola,torch")
     ap.add_argument("--filter", default="", help="substring filter on group")

@@ -111,6 +111,19 @@ SERVE_FLAGS = (
      "construction probe table: one fresh process per (fleet size, mode) "
      "cell (serve/construction.py), run before the drain and carried in "
      "its construction block"),
+    ("--serve-profile", int, 0, "N", None,
+     "capture a torch.profiler trace of N steady macro-rounds (CUDA "
+     "activity on the card, CPU activity with --device cpu; barrier rounds "
+     "excluded) and embed its top-ops table in the report's 'profile' "
+     "block"),
+    ("--serve-sanitize", str, None, "LIST", None,
+     "arm the runtime sanitizers (lint/) for the drain, a comma-separated "
+     "subset of syncs,races,fs,lifecycle,ranges,boundaries: 'syncs' raises "
+     "at an undeclared host sync on the hot path (with the CUDA sync debug "
+     "tripwire on the card), the others check publish points, durable "
+     "protocols, state machines, staged index bounds and boundary "
+     "contracts; the report carries every sanitizer's counters armed or "
+     "not"),
     ("--serve-trace", str, None, "PATH", None,
      "arm the obs/trace.py span tracer for the drain and write "
      "Perfetto-loadable Chrome trace JSON to PATH (validated after)"),
@@ -190,6 +203,36 @@ def serve_defaults(overrides: dict) -> dict[str, object]:
     flag of ``overrides`` taking its value there."""
     return {flag[2:].replace("-", "_"): overrides.get(flag, default)
             for flag, _typ, default, *_ in SERVE_FLAGS}
+
+
+#: The flags that shape a bench drain, which the edge harness refuses: it
+#: builds its own fleets (JAX's runner's list, in its order).
+_EDGECHECK_REFUSED = (
+    ("--serve-writers", lambda a: a.serve_writers > 1),
+    ("--serve-open", lambda a: a.serve_open is not None),
+    ("--serve-soak", lambda a: a.serve_soak is not None),
+    ("--serve-longhaul", lambda a: a.serve_longhaul > 0),
+    ("--serve-recover", lambda a: a.serve_recover),
+    ("--serve-crash-round", lambda a: a.serve_crash_round > 0),
+    ("--serve-reshard", lambda a: a.serve_reshard is not None),
+    ("--serve-record-evict", lambda a: a.serve_record_evict),
+    ("--serve-mesh", lambda a: getattr(a, "serve_mesh", 0) > 1),
+    ("--serve-tiers", lambda a: a.serve_tiers is not None),
+    ("--serve-stream", lambda a: a.serve_stream),
+    ("--serve-journal", lambda a: a.serve_journal is not None),
+    ("--serve-faults", lambda a: a.serve_faults is not None),
+)
+
+
+def edgecheck_refusal(args) -> str | None:
+    """The JAX runner's refusal of ``--serve-edgecheck`` with a flag that
+    shapes a bench drain (exit 2), or None."""
+    bad = [flag for flag, hit in _EDGECHECK_REFUSED if hit(args)]
+    if not bad:
+        return None
+    return (f"{', '.join(bad)} not supported with --serve-edgecheck (the "
+            "harness builds its own adversarial fleets and drains them "
+            "through BOTH kernels, sanitizer armed)")
 
 
 def serve_refusal(args) -> str | None:

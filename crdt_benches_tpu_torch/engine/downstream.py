@@ -37,6 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..lint.boundary import boundary
 from ..device import resolve_device
 from ..ops.apply import decode_state, init_state, set_rows, take_rows
 from ..ops.apply2 import (
@@ -407,6 +408,11 @@ def _apply_update_batch5(doc, length, nvis, snap, levels, ins, anchor, rank,
     return apply_fused_blocked(*ops), ops[3], nvis2, level
 
 
+@boundary(
+    dtypes=(None, "int32", "int32", "int32", "int32"),
+    shapes=(None, "N B", "N B", "N B", "N B"),
+    donates=(0,),
+)
 def apply_updates5(state: DownPacked, ins_b, anchor_b, rank_b, dslot_b,
                    epoch: int = 32) -> DownPacked:
     """Every anchor/rank update batch (int32[N, B] each) into the packed

@@ -36,6 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..lint.boundary import boundary
 from ..device import resolve_device
 from ..ops.apply2 import (
     LANE,
@@ -334,6 +335,12 @@ def _apply_range_update_batch5(doc, length, nvis, snap, levels, anchor, rank,
     return doc2, length2, nvis + n_live - n_del_eff, level
 
 
+@boundary(
+    dtypes=(None, "int32", "int32", "int32", "int32", None, "int32",
+            "int32"),
+    shapes=(None, "N B", "N B", "N B", "N B", "N B", "N B", "N B"),
+    donates=(0,),
+)
 def apply_range_updates5(state: DownPacked, anchor_b, rank_b, slot0_b,
                          rlen_b, alive_b, dfirst_b, dlast_b,
                          epoch: int = 32) -> DownPacked:

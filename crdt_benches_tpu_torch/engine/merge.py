@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..lint.boundary import boundary
 from ..device import resolve_device
 from ..ops.apply import init_state
 from ..ops.apply2 import MAX_COMBO_CAPACITY
@@ -336,6 +337,11 @@ def _chain_structure(kind, elem, origin):
     return ins, anchor, torch.where(is_ins, rank, 0), dslot
 
 
+@boundary(
+    dtypes=(None, "int32", "int32", "int32", "int32", "int32", "int32"),
+    shapes=(None, "N", "N", "N", "N", "N", "N"),
+    donates=(0,),
+)
 def merge_oplogs_packed(state: DownPacked, lamport, agent, kind, elem,
                         origin, ch, *, batch: int = 512, epoch: int = 32,
                         max_unique: int | None = None,

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.apply2 import PackedState
+from ..lint.boundary import boundary
 from ..ops.apply_range import apply_range_batch
 from ..ops.resolve_range import resolve_range_rows
 
@@ -68,6 +69,11 @@ def _check_operands(state: PackedState, ops, rank: int) -> None:
             raise ValueError(f"{name} is not contiguous")
 
 
+@boundary(
+    dtypes=(None, "int32", "int32", "int32", "int32"),
+    shapes=(None, "R B", "R B", "R B", "R B"),
+    donates=(0,),
+)
 def merge_rows_round(state: PackedState, kind, pos, rlen, slot0
                      ) -> PackedState:
     """Integrate one (R, B) broadcast batch into R replica rows."""
@@ -75,6 +81,11 @@ def merge_rows_round(state: PackedState, kind, pos, rlen, slot0
     return merge_rows_body(state, kind, pos, rlen, slot0)
 
 
+@boundary(
+    dtypes=(None, "int32", "int32", "int32", "int32"),
+    shapes=(None, "K R B", "K R B", "K R B", "K R B"),
+    donates=(0,),
+)
 def merge_rows_macro(state: PackedState, kind, pos, rlen, slot0
                      ) -> PackedState:
     """K rounds (K, R, B) of :func:`merge_rows_round`, one after another:

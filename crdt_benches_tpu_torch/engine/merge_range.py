@@ -32,6 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..lint.boundary import boundary
 from ..device import resolve_device
 from ..ops.apply2 import MAX_COMBO_CAPACITY
 from ..ops.idpos import snap_rebuild
@@ -256,6 +257,11 @@ def _arrange_runs(lamport, agent, slot0, rlen, origin):
     return key[perm], slot0[perm], rlen[perm], origin[perm]
 
 
+@boundary(
+    dtypes=(None, "int32", "int32", "int32", "int32", "int32"),
+    shapes=(None, "N", "N", "N", "N", "N"),
+    donates=(0,),
+)
 def merge_runlogs(state: DownPacked, lamport, agent, slot0, rlen, origin,
                   *, batch: int = 256, epoch: int = 8) -> DownPacked:
     """Integrate a union of insert-run logs (int32[N] tensors; delete

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..lint.boundary import boundary
 from ..device import resolve_device
 from ..ops.apply import (
     DocState,
@@ -114,6 +115,11 @@ def decode_to_str(state, chars: torch.Tensor, replica: int = 0) -> str:
     return "".join(map(chr, codes.cpu().tolist()))
 
 
+@boundary(
+    dtypes=(None, "int32", "int32", "int32"),
+    shapes=(None, "N B", "N B", "N B"),
+    donates=(0,),
+)
 def replay_units(state, kind_b, pos_b, slot_b, engine: str = "v4"):
     """Replay the unit batches kind_b/pos_b/slot_b int32[N, B] into
     ``state`` (the engine's state type); returns the new state.  Only v1

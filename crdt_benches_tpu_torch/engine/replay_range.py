@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..lint.boundary import boundary
 from ..device import resolve_device
 from ..ops.apply2 import (
     PackedState,
@@ -55,6 +56,11 @@ def _grow_state3(state: PackedState, new_cap: int) -> PackedState:
     )
 
 
+@boundary(
+    dtypes=(None, "int32", "int32", "int32", "int32"),
+    shapes=(None, "N B", "N B", "N B", "N B"),
+    donates=(0,),
+)
 def replay_ranges(state, kind_b, pos_b, rlen_b, slot0_b):
     """Replay the range batches kind_b/pos_b/rlen_b/slot0_b int32[N, B]
     into ``state``: a ``PackedState4`` goes through the fused apply (v4), a

@@ -23,7 +23,11 @@ zero-cost when disarmed:
   with per-phase segments and histogram exemplars);
 - :mod:`.slo` — per-class latency objectives, burn rates and compliance;
 - :mod:`.flight` — a bounded flight recorder dumped atomically on an
-  anomaly, an unrecovered fault or a crash, and its validator CLI.
+  anomaly, an unrecovered fault or a crash, and its validator CLI;
+- :mod:`.profiler` — ``--serve-profile N``: a ``torch.profiler`` capture
+  of N steady macro-rounds and its top-ops table (the ``profile`` block).
 
-Nothing here imports torch: the modules are host bookkeeping.
+Nothing here imports torch at import time: the modules are host
+bookkeeping, and the profiler imports ``torch.profiler`` when a capture
+starts.
 """

@@ -43,6 +43,8 @@ import sys
 import time
 from collections import deque
 
+from ..lint.fs_sanitizer import fs_protocol
+from ..lint.sanitizer import fenced
 from ..utils.fsdur import fsync_dir as _fsync_dir
 
 #: Bump when the dump document changes shape.
@@ -83,6 +85,7 @@ class FlightRecorder:
 
     # ---- triggers (anomaly fire / unrecovered fault / crash) ----
 
+    @fenced
     def trigger(self, reason: str, *, registry=None, status=None,
                 requests=None, anomalies=None) -> str:
         """Dump the recorder's state atomically and return the path.
@@ -91,9 +94,10 @@ class FlightRecorder:
 
         The dump is host JSON + file I/O that runs exactly when the
         drain is already sick (anomaly fire / unrecovered fault /
-        crash) — the one place a post-mortem beats hot-path purity.
-        (The JAX package declares it a sync fence and an fs protocol
-        of its sanitizers; the port has neither sanitizer yet.)
+        crash) — the one place a post-mortem beats hot-path purity.  It
+        is a fence of the sync sanitizer (its entry lands in the
+        report's ``boundary_syncs``) and its file operations are the fs
+        sanitizer's ``flight`` protocol (``lint/``).
 
         BEST-EFFORT by contract: a dump that cannot be written (typo'd
         path, full disk, unserializable snapshot) must never kill a
@@ -124,16 +128,17 @@ class FlightRecorder:
             if d:
                 os.makedirs(d, exist_ok=True)
             tmp = self.path + ".tmp"
-            with open(tmp, "w", encoding="utf-8") as f:
-                json.dump(doc, f, separators=(",", ":"))
-                # a post-mortem that evaporates with the page cache
-                # explains nothing: fsync before the commit rename, and
-                # the directory entry after
-                f.flush()
-                os.fsync(f.fileno())
-            os.replace(tmp, self.path)  # commit: never half a dump
-            if d:
-                _fsync_dir(d)
+            with fs_protocol("flight"):
+                with open(tmp, "w", encoding="utf-8") as f:
+                    json.dump(doc, f, separators=(",", ":"))
+                    # a post-mortem that evaporates with the page cache
+                    # explains nothing: fsync before the commit rename,
+                    # and the directory entry after
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp, self.path)  # commit: never half a dump
+                if d:
+                    _fsync_dir(d)
         except (OSError, TypeError, ValueError) as e:
             self.dump_failures += 1
             self.last_error = f"{type(e).__name__}: {e}"

@@ -23,10 +23,9 @@ closed when its stream ends (drained / shed / quarantined).  The
   a round (:meth:`RequestTracker._on_publish`) is folded into the
   round's active contexts, so a request trace records exactly which
   cross-thread propagation edges its data rode (status snapshot,
-  journal WAL record, broadcast-bus block).  In the JAX package the
-  race sanitizer calls the observer; the port has no race sanitizer
-  yet, so nothing calls it during a drain and a port trace records no
-  hops;
+  journal WAL record, broadcast-bus block, ingest delivery).  The race
+  sanitizer (``lint/race_sanitizer.py``) calls the observer at every
+  publish-point entry while the tracker is armed;
 - **exemplars** — at close, the request is attached to the
   ``doc_drain_latency`` histogram bucket its latency lands in (last
   request per bucket wins), so a p99.9 outlier in the artifact links
@@ -181,6 +180,12 @@ class RequestTracker:
         # on the PUBLISHING thread, and the prefetch thread has a publish
         # point of its own (serve/prefetch.py) — see _on_publish
         self._owner = threading.get_ident()
+        self._installed = False
+        if self.armed:
+            from ..lint import race_sanitizer
+
+            race_sanitizer.add_publish_observer(self._on_publish)
+            self._installed = True
 
     # ---- driver-side lifecycle ----
 
@@ -194,9 +199,13 @@ class RequestTracker:
         }
 
     def release(self) -> None:
-        """End the tracker's window (each bench run owns one).  The JAX
-        tracker removes its race-sanitizer observer here; the port
-        installs none, so there is nothing to drop.  Idempotent."""
+        """Remove the publish observer (each bench run owns its window).
+        Idempotent."""
+        if self._installed:
+            from ..lint import race_sanitizer
+
+            race_sanitizer.remove_publish_observer(self._on_publish)
+            self._installed = False
 
     # ---- the publish-hop observer (fires on the publishing thread,
     # which for every declared point in this stack is the hot thread) --
@@ -207,7 +216,8 @@ class RequestTracker:
             # worker's result swap): by definition not part of any
             # request's causal path — prefetch runs BEFORE admission
             # opens a context — and folding it here would mutate
-            # hot-owned accumulators cross-thread.  Dropped by design.
+            # hot-owned accumulators cross-thread.  Dropped by design;
+            # the race sanitizer's own counters still record the entry.
             return
         self._round_hops.add(point)
         self.hop_counts[point] = self.hop_counts.get(point, 0) + 1

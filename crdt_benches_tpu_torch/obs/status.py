@@ -30,10 +30,11 @@ methods are owned by the **hot** thread, the handler surface by the
 the status and metrics snapshots — crosses in the two publish methods as
 an atomic reference swap of an object the publisher never touches again.
 Health is a single immutable ``(ok, reason)`` tuple swap for the same
-reason (two separate field stores could be observed torn).  The JAX
-package wraps the two publish points and the readers in its race
-sanitizer's ``published``/``share``/``reveal``; the port has no race
-sanitizer yet, so they are plain stores and loads here.
+reason (two separate field stores could be observed torn).  The two
+publish methods are publish points of the race sanitizer
+(``lint/race_sanitizer.py``: ``published``, ``share``), and the readers
+pass its ``reveal`` gate: armed, a snapshot read on a handler thread
+before its publish, or changed after it, raises there.
 
 A polling terminal view ships as the module CLI::
 
@@ -50,6 +51,8 @@ import time
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from threading import Thread
+
+from ..lint.race_sanitizer import published, reveal, share
 
 # ---------------------------------------------------------------------------
 # Prometheus text exposition (format version 0.0.4)
@@ -246,13 +249,15 @@ class StatusServer:
 
     # ---- publisher side (hot path: reference swaps only) ----
 
+    @published
     def publish_status(self, snapshot: dict) -> None:
         snapshot["ts"] = time.time()
-        self._status = snapshot
+        self._status = share(snapshot, "StatusServer.status")
         self._last_publish = time.monotonic()
 
+    @published
     def publish_metrics(self, metrics: dict) -> None:
-        self._metrics = metrics
+        self._metrics = share(metrics, "StatusServer.metrics")
 
     def set_health(self, ok: bool, reason: str = "") -> None:
         self._health = (ok, reason)  # immutable tuple: atomic swap
@@ -260,10 +265,10 @@ class StatusServer:
     # ---- reader side (handler threads) ----
 
     def status_snapshot(self) -> dict:
-        return self._status
+        return reveal(self._status)
 
     def metrics_snapshot(self) -> dict:
-        return self._metrics
+        return reveal(self._metrics)
 
     def health(self) -> tuple[bool, str]:
         if self.stale_after is not None:

@@ -11,10 +11,10 @@ trace-event ``"X"`` (complete) entry and every :func:`instant` a ``"i"``
 event inside the span that owns it — load the file in Perfetto (or
 ``chrome://tracing``).
 
-The JAX package also draws each declared-fence crossing of its sync
-sanitizer on the timeline as a ``cat="fence"`` instant; the port has no
-sanitizer yet, so its traces carry no fence instants (the validator
-still checks any it finds).
+Armed, the tracer is also a fence observer of the sync sanitizer
+(``lint/sanitizer.py``): every declared-fence crossing lands on the
+timeline as a ``cat="fence"`` instant inside the span that owns it, as
+in the JAX package.
 
 Naming convention: span and metric names are **registered constants** —
 dotted lowercase (``serve.plan``, ``serve.dispatch``), never f-strings.
@@ -135,8 +135,8 @@ class SpanTracer:
         self.events.append(ev)
 
     def _on_fence(self, qualname: str) -> None:
-        """A fence-entry observer: one instant per crossing (the JAX
-        package's sync sanitizer calls it; the port has no caller yet)."""
+        """A fence-entry observer: one instant per crossing (the sync
+        sanitizer calls it while the tracer is armed)."""
         self.instant(qualname, cat=FENCE_CAT)
 
     def to_dict(self) -> dict:
@@ -164,9 +164,11 @@ def arm() -> SpanTracer:
     """Install a fresh tracer (a bench driver's call, before the drain
     starts; never from a hot scope)."""
     global _tracer
+    from ..lint import sanitizer
 
     disarm()
     _tracer = SpanTracer()
+    sanitizer.add_fence_observer(_tracer._on_fence)
     return _tracer
 
 
@@ -175,6 +177,10 @@ def disarm() -> SpanTracer | None:
     :meth:`SpanTracer.write` the collected events."""
     global _tracer
     t, _tracer = _tracer, None
+    if t is not None:
+        from ..lint import sanitizer
+
+        sanitizer.remove_fence_observer(t._on_fence)
     return t
 
 

@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..lint.boundary import boundary
 from ..device import resolve_device
 from .expand import expand_fill_zero, expand_packed
 from .resolve import ResolvedBatch
@@ -355,6 +356,7 @@ def batch3_finish(expanded, dest, fill, length, nvis) -> PackedState:
     )
 
 
+@boundary(dtypes=("int32", None, "int32"))
 def apply_batch3(
     state: PackedState, resolved: ResolvedBatch, slots: torch.Tensor
 ) -> PackedState:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..lint.boundary import boundary
 from .resolve import RUN, TINS
 
 _BIG = 1 << 30
@@ -49,6 +50,7 @@ def _prev_value(x, mask):
     return torch.where(mask & (prev >= 0), val, 0)
 
 
+@boundary(dtypes=("int32", "int32", "int32"))
 def apply_range_batch(state, tokens, dints):
     """One batch's range apply on a ``PackedState`` (engine v3): tokens
     (ttype, ta, tch, tlen) int32[R, T] and dints (dlo, dhi, dcount)

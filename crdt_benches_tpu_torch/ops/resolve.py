@@ -38,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..lint.boundary import boundary
 from .._build import check, kernels
 from ..traces.tensorize import DELETE, INSERT
 
@@ -250,6 +251,7 @@ def resolve_batch_plain(kind, pos, v0, *, emit_origin: bool = True):
 resolve_batch_plain.calls = 0
 
 
+@boundary(dtypes=("int32", "int32", "int32"), shapes=("B", "B", None))
 def resolve_batch(kind, pos, v0, *, emit_origin: bool = True) -> ResolvedBatch:
     """Resolve one batch of unit ops for R replicas (K5).
 

@@ -33,6 +33,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..lint.boundary import boundary
+from ..lint.sanitizer import kernel_body
 from .._build import check, kernels
 from ..traces.tensorize import DELETE, INSERT, PAD
 from .resolve import FREE, RUN, TINS
@@ -363,6 +365,7 @@ def _check_rows_operands(kind, pos, rlen, slot0, v0):
     return K, R, B
 
 
+@kernel_body
 def resolve_range_rows_plain(kind, pos, rlen, slot0, v0):
     """Plain PyTorch version of K1's per-row form (any device): per round,
     a loop over the B op columns with tensor passes over every row's
@@ -496,6 +499,12 @@ def resolve_range_rows_plain(kind, pos, rlen, slot0, v0):
 resolve_range_rows_plain.calls = 0
 
 
+@boundary(
+    # JAX's contract of its per-row resolver (the XLA twin of K1's per-row
+    # form), over the K rounds this form takes at once
+    dtypes=("int32", "int32", "int32", "int32", "int32"),
+    shapes=("K R B", "K R B", "K R B", "K R B", "R"),
+)
 def resolve_range_rows(kind, pos, rlen, slot0, v0):
     """Resolve K rounds of per-row range ops (K1's per-row form).
 

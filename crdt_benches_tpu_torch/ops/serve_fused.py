@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from .._build import check, kernels
+from ..lint.sanitizer import kernel_body
 from ..traces.tensorize import DELETE, INSERT
 from .apply2 import PackedState, _scatter_rows, _zeros_like_rows, count_le_tiled
 from .apply_range import _prev_value, extract_range_tokens
@@ -174,6 +175,7 @@ def serve_apply_round_plain(state: PackedState, tokens, dints) -> PackedState:
     )
 
 
+@kernel_body
 def serve_macro_plain(state: PackedState, tokens, dints) -> PackedState:
     """Plain PyTorch version of K4 (any device): the K resolved rounds
     (tokens int32[K, R, T], dints int32[K, R, B]) applied in turn with

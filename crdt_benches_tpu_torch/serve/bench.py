@@ -75,6 +75,7 @@ per-class sample of ``verify_sample`` docs.
 from __future__ import annotations
 
 import shutil
+import sys
 import tempfile
 import time
 
@@ -84,9 +85,19 @@ import torch
 from .._build import kernels
 from ..bench.harness import summarize
 from ..device import resolve_device
+from ..lint import (
+    SANITIZERS,
+    boundary,
+    fs_sanitizer,
+    lifecycle_sanitizer,
+    race_sanitizer,
+    range_sanitizer,
+    sanitizer,
+)
 from ..obs import trace as obs_trace
 from ..obs.anomaly import AnomalyDetector
 from ..obs.flight import FlightRecorder
+from ..obs.profiler import DeviceProfiler
 from ..obs.reqtrace import RequestTracker
 from ..obs.slo import SloTracker
 from ..obs.status import StatusServer
@@ -317,6 +328,147 @@ def _check_fault_plan(plan: FaultPlan, *, warm_docs: int, journal_dir,
     return queue_cap
 
 
+def parse_sanitize(sanitize) -> tuple[str, ...]:
+    """The words of a ``sanitize`` argument (a tuple or a comma-separated
+    string), each one of ``lint.SANITIZERS``; ValueError otherwise."""
+    words = (tuple(w.strip() for w in sanitize.split(",") if w.strip())
+             if isinstance(sanitize, str) else tuple(sanitize or ()))
+    bad = [w for w in words if w not in SANITIZERS]
+    if bad:
+        raise ValueError(f"--serve-sanitize: unknown sanitizer(s) {bad}; "
+                         f"choose from {','.join(SANITIZERS)}")
+    return words
+
+
+#: ``sanitize`` word -> the module its ``arm()`` and ``disarm()`` belong to
+#: (``lint.boundary`` is the decorator there, its module is here)
+_SANITIZER_MODULES = {
+    "syncs": sanitizer, "races": race_sanitizer, "fs": fs_sanitizer,
+    "lifecycle": lifecycle_sanitizer, "ranges": range_sanitizer,
+    "boundaries": sys.modules[boundary.__module__],
+}
+
+
+def _arm_sanitizers(words, dev, log) -> list:
+    """Arm the sanitizers of ``words`` that are not armed already (the
+    sync sanitizer adds the native tripwire on a CUDA device: the drain
+    thread is the only one issuing CUDA work in every serve family);
+    returns the modules armed here, for :func:`_disarm_sanitizers`."""
+    armed = []
+    for w in words:
+        mod = _SANITIZER_MODULES[w]
+        if mod.armed():
+            continue
+        mod.arm()
+        armed.append(mod)
+    if words:
+        log(f"serve: sanitizers ARMED: {','.join(words)}"
+            + (" (native sync tripwire on)"
+               if "syncs" in words and dev.type == "cuda" else ""))
+    return armed
+
+
+def _disarm_sanitizers(mods) -> None:
+    for mod in mods:
+        mod.disarm()
+
+
+def sanitizer_blocks(sanitize, *, stats, pool, journal, chaos: bool, coord,
+                     stream: bool, front, serve_kernel: str, flight: bool,
+                     status: bool, log=print) -> dict:
+    """The report's sanitizer blocks, JAX's keys: ``boundary_syncs`` (fence
+    entries, and the syncs in each while armed), ``thread_crossings``
+    (publish-point entries and, armed, the cross-thread reads),
+    ``fs_ops`` (protocol entries and, armed, their operations),
+    ``lifecycle`` (machine edges, resource pairs) and ``ranges`` (staged
+    checks and masks).  Each block's surface flags say which parts of
+    the stack the run exercised."""
+    words = set(sanitize)
+    sync_counts = sanitizer.counters()
+    syncs_armed = "syncs" in words
+    boundary_syncs = {
+        "sanitized": syncs_armed,
+        "chaos": chaos,
+        "journal": journal is not None,
+        # FlightRecorder.trigger is a fence crossed only by a drain that
+        # dumped; the reshard fences only by a reshard run
+        "flight": flight,
+        "reshard": coord is not None,
+        "entries": sync_counts["entries"],
+        "syncs": sync_counts["syncs"] if syncs_armed else None,
+    }
+    log("serve: boundary syncs — "
+        + (", ".join(f"{k.split('.')[-1]}={v}"
+                     for k, v in sync_counts["entries"].items()) or "none")
+        + (f"; observed {sum(sync_counts['syncs'].values())} fenced "
+           "transfers" if syncs_armed else ""))
+    race_counts = race_sanitizer.counters()
+    races_armed = "races" in words
+    thread_crossings = {
+        "sanitized": races_armed,
+        "status": status,
+        "journal": journal is not None,
+        "bus": False,  # only the replicated family drives the bus
+        "prefetch": pool.prefetcher is not None,
+        "ingest": front is not None,
+        "publishes": race_counts["publishes"],
+        "crossings": race_counts["crossings"] if races_armed else None,
+    }
+    log("serve: thread crossings — publishes "
+        + (", ".join(f"{k.split('.')[-1]}={v}"
+                     for k, v in race_counts["publishes"].items())
+           or "none")
+        + (f"; {sum(race_counts['crossings'].values())} cross-thread "
+           "accesses attributed" if races_armed else ""))
+    fs_counts = fs_sanitizer.counters()
+    fs_armed = "fs" in words
+    spool = (stats.evictions + stats.restores + pool.warm_evictions) > 0
+    reshard_began = coord is not None and coord.state != "idle"
+    fs_ops = {
+        "version": 1,
+        "sanitized": fs_armed,
+        "journal": journal is not None,
+        "spool": spool,
+        "flight": flight,
+        "reshard": reshard_began,
+        "protocols": fs_counts["protocols"],
+        "ops": fs_counts["ops"] if fs_armed else None,
+        "unattributed": fs_counts["unattributed"] if fs_armed else None,
+    }
+    lc_counts = lifecycle_sanitizer.counters()
+    lifecycle = {
+        "version": 1,
+        "sanitized": "lifecycle" in words,
+        "pool": spool,
+        "reshard": reshard_began,
+        "stream": stream,
+        "ingest": front is not None,
+        "journal": journal is not None,
+        "prefetch": pool.prefetcher is not None,
+        "machines": lc_counts["machines"],
+        "resources": lc_counts["resources"],
+        "unattributed": lc_counts["unattributed"],
+    }
+    range_counts = range_sanitizer.counters()
+    ranges = {
+        "version": 1,
+        "sanitized": "ranges" in words,
+        "staging": True,
+        "fused": serve_kernel == "fused",
+        "scan": serve_kernel == "scan",
+        "checks": range_counts["checks"],
+        "masks": range_counts["masks"],
+    }
+    log("serve: fs protocols — entries "
+        + (", ".join(f"{k}={v}" for k, v in fs_counts["protocols"].items())
+           or "none")
+        + (f"; {sum(n for t in fs_counts['ops'].values() for n in t.values())}"
+           " fs ops attributed" if fs_armed else ""))
+    return {"boundary_syncs": boundary_syncs,
+            "thread_crossings": thread_crossings, "fs_ops": fs_ops,
+            "lifecycle": lifecycle, "ranges": ranges}
+
+
 def run_serve_bench(
     mix: str = "mixed",
     n_docs: int = 4096,
@@ -364,6 +516,8 @@ def run_serve_bench(
     deadline: bool = False,
     deadline_budget: int = 0,
     knee_block: dict | None = None,
+    profile_rounds: int = 0,
+    sanitize=(),
     device: str | torch.device = "cuda",
     pool_hook=None,
     log=print,
@@ -395,9 +549,19 @@ def run_serve_bench(
     placement is logged), which refuses the warm tier, the recovery leg and
     the open loop, as JAX does.  ``sample_seed`` draws the verify sample
     (default ``seed + 1``; the construction block records it).
+    ``profile_rounds`` (> 0) captures that many steady rounds under the
+    device profiler (``obs/profiler.py``: the ``profile`` block).
+    ``sanitize`` (words of ``lint.SANITIZERS``, or a comma-separated
+    string: ``syncs``, ``races``, ``fs``, ``lifecycle``, ``ranges``,
+    ``boundaries``) arms those sanitizers for the run (``syncs`` on a CUDA
+    device with the native sync tripwire, ``lint/sanitizer.py``); each
+    is disarmed again at the end.  Armed or not, the report carries their
+    counters: the ``boundary_syncs``, ``thread_crossings``, ``fs_ops``,
+    ``lifecycle`` and ``ranges`` blocks.
     ``pool_hook(pool)``, if given, runs on the pool just before the
     drain (``chip_smoke.py`` arms the pool's CUDA-event spans or zeroes
     the kernels' counts there)."""
+    sanitize = parse_sanitize(sanitize)
     warm_docs = 0
     if serve_tiers:
         slots, warm_docs = parse_tier_spec(serve_tiers, slots)
@@ -551,7 +715,16 @@ def run_serve_bench(
     # a live front is stopped on every exit path: a failed drain or verify
     # leaves no listening socket behind
     front = None
+    armed_here = _arm_sanitizers(sanitize, dev, log)
     try:
+        # the sanitizers' counters start before the first status publish
+        # (the note_phase below publishes): each run owns its window
+        race_sanitizer.reset_counters()
+        fs_sanitizer.reset_counters()
+        lifecycle_sanitizer.reset_counters()
+        range_sanitizer.reset_counters()
+        if journal_dir:
+            fs_sanitizer.watch_root(journal_dir)
         if telemetry is not None:
             telemetry.note_phase("building")  # the staleness heartbeat
         # the construction window: the fleet (spec or sessions), the pool,
@@ -573,6 +746,7 @@ def run_serve_bench(
         pool = DocPool(classes=classes, slots=slots,
                        serve_kernel=serve_kernel, device=dev,
                        warm_docs=warm_docs, shards=pool_shards, mesh=mesh)
+        fs_sanitizer.watch_root(pool.spool_dir)
         if mesh is not None:
             log(f"serve: mesh={mesh.size} ({mesh.describe()})")
         if stream:
@@ -588,6 +762,8 @@ def run_serve_bench(
             streams = prepare_streams(sessions, pool, batch=batch,
                                       batch_chars=batch_chars)
         injector = FaultInjector(plan) if plan is not None else None
+        profiler = (DeviceProfiler(profile_rounds, device=dev.type)
+                    if profile_rounds > 0 else None)
         coord = None
         if rplan is not None:
             coord = ReshardCoordinator(pool, journal, rplan, faults=injector,
@@ -605,7 +781,8 @@ def run_serve_bench(
                         snapshot_keep=snapshot_keep,
                         snapshot_full_every=snapshot_full_every,
                         telemetry=telemetry, reqtrace=reqtrace, slo=slo,
-                        drained_gc=record_evict, reshard=coord)
+                        drained_gc=record_evict, reshard=coord,
+                        profiler=profiler)
         open_plan = admission = pump = load_client = None
         if open_rate:
             # delivery belongs to the ingest pump alone: burst 0 makes the
@@ -672,6 +849,13 @@ def run_serve_bench(
                 f" ({len(plan.events) if plan is not None else 0} events);"
                 f" queue cap {queue_cap or 'unbounded'}, overflow policy "
                 f"{overflow_policy}")
+        # the fence counters cover the drain and the verify; armed, a sync
+        # outside a declared fence raises inside run() at its callsite
+        sanitizer.reset_counters()
+        # the flight recorder may outlive a drain (the soak's bundle): the
+        # boundary_syncs block keys on this drain's dumps
+        flight_dumps0 = (telemetry.flight.dumps if telemetry is not None
+                         and telemetry.flight is not None else 0)
         if pool_hook is not None:
             pool_hook(pool)
         if open_rate:
@@ -686,11 +870,12 @@ def run_serve_bench(
                               faults=sched.faults)
             sched.ingest_status = pump.status_fields
             load_client = OpenLoadClient(port, open_plan)
-        tracer, armed_here = None, False
+        tracer, traced_here = None, False
         if trace_path:
             obs_trace.arm()
-            armed_here = True
+            traced_here = True
             log(f"serve: span tracer ARMED -> {trace_path}")
+        profile_block = None
         try:
             if open_rate:
                 load_client.start()
@@ -714,8 +899,12 @@ def run_serve_bench(
                     pass
             raise
         finally:
-            if armed_here:  # release only what this run armed
+            if traced_here:  # release only what this run armed
                 tracer = obs_trace.disarm()
+            if profiler is not None:
+                # an open capture is closed (the device fenced first), also
+                # when the drain raised
+                profile_block = profiler.finalize(fence=pool.block)
         trace_errors = None
         if tracer is not None:
             tracer.write(trace_path)
@@ -724,6 +913,15 @@ def run_serve_bench(
                 f"{trace_path} ("
                 + ("valid" if not trace_errors
                    else f"INVALID: {trace_errors[:4]}") + ")")
+        if profiler is not None:
+            if profile_block is None:
+                log("serve: profiler captured no steady rounds (drain too "
+                    "short?)")
+            else:
+                log(f"serve: profiled {profile_block['rounds']} steady "
+                    "rounds; top ops: " + ", ".join(
+                        f"{o['name']} {o['total_ms']:.1f}ms"
+                        for o in profile_block["top_ops"][:3]))
         if front is not None:
             ff = front.status_fields()
             dl = sched.deadline_fields()
@@ -929,7 +1127,10 @@ def run_serve_bench(
                                            batch_chars=batch_chars)
                 t_rec = time.perf_counter()
                 rep = recover_fleet(rpool, rstreams, journal_dir)
-                rpool.block()  # the restored buckets are on the device
+                if dev.type == "cuda":
+                    # the restored buckets are on the device (a timing
+                    # wait, not a fence of the drain's)
+                    torch.cuda.synchronize(dev)
                 recover_ms = (time.perf_counter() - t_rec) * 1e3
                 rsched = FleetScheduler(rpool, rstreams, batch=batch,
                                         macro_k=macro_k,
@@ -1071,6 +1272,14 @@ def run_serve_bench(
                     f"{d['burn_rate_slow']:.2f})")
         anomalies_ok = (telemetry is None or telemetry.anomaly is None
                         or telemetry.anomaly.uncleared == 0)
+        lint_blocks = sanitizer_blocks(
+            sanitize, stats=stats, pool=pool, journal=journal,
+            chaos=plan is not None, coord=coord, stream=stream,
+            front=front, serve_kernel=serve_kernel,
+            flight=(telemetry is not None and telemetry.flight is not None
+                    and telemetry.flight.dumps > flight_dumps0),
+            status=telemetry is not None and telemetry.status is not None,
+            log=log)
         return {
             "bench_id": f"serve/{mix_label}/{n_docs}",
             "fleet_docs": n_docs, "mix": mix, "seed": seed,
@@ -1194,6 +1403,10 @@ def run_serve_bench(
             "trace_valid": (None if tracer is None
                             else not trace_errors),
             "anomalies_ok": anomalies_ok,
+            # the device profiler's steady rounds (None without
+            # profile_rounds) and the sanitizers' blocks
+            "profile": profile_block,
+            **lint_blocks,
         }
     finally:
         if front is not None:
@@ -1207,6 +1420,8 @@ def run_serve_bench(
                 shutil.rmtree(journal_dir, ignore_errors=True)
         if owns_telemetry and telemetry is not None:
             telemetry.close()  # stop the status server, close the stream
+        # last: the release of the run's files is the fs sanitizer's too
+        _disarm_sanitizers(armed_here)
 
 
 def run_serve_open_sweep(sweep_rates, *, open_spec: str, log=print,
@@ -1218,20 +1433,20 @@ def run_serve_open_sweep(sweep_rates, *, open_spec: str, log=print,
 
     Each probe is a whole open-loop drain (live front, real wire) at its
     rate with the heavy side-channels stripped (faults, the status
-    server, the time-series, the tracer, the journal: the probes measure
-    latency against load and nothing else).  A probe records its offered
-    rate, its served rate (``range_ops / rounds``), its p50/p99 round
-    latency and its defer and shed tallies; ``capacity`` is the highest
-    served rate any probe sustained, each point's utilization is
-    ``offered / capacity``, and p99 against utilization is the knee
-    curve."""
+    server, the time-series, the profiler, the tracer, the journal: the
+    probes measure latency against load and nothing else).  A probe
+    records its offered rate, its served rate (``range_ops / rounds``),
+    its p50/p99 round latency and its defer and shed tallies;
+    ``capacity`` is the highest served rate any probe sustained, each
+    point's utilization is ``offered / capacity``, and p99 against
+    utilization is the knee curve."""
     rate, process = parse_open_spec(open_spec)
     rates = sorted({float(r) for r in sweep_rates} | {rate})
     points = []
     for probe_rate in rates:
         probe_kw = dict(kw)
         for heavy in ("faults", "status_port", "timeseries_path",
-                      "trace_path", "journal_dir"):
+                      "profile_rounds", "trace_path", "journal_dir"):
             probe_kw.pop(heavy, None)
         rep = run_serve_bench(open_spec=f"{probe_rate:g}:{process}",
                               log=lambda *_a, **_k: None, **probe_kw)

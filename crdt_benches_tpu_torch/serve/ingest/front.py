@@ -32,12 +32,15 @@ arrivals); ``err`` (a protocol violation: the connection closes); ``churn``
 
 **Confinement**: handler threads own nothing but their connection's
 state; every payload crosses to the hot pump through ONE point,
-:meth:`IngestFront._publish`, a bounded ``put``, and the pump's
-:meth:`IngestFront.drain` reads it.  Every counter belongs to the hot
+:meth:`IngestFront._publish`, a bounded ``put`` and a publish point of the
+race sanitizer (``lint/race_sanitizer.py``), and the pump's
+:meth:`IngestFront.drain` reads it through the ``reveal`` gate.  Every counter belongs to the hot
 thread: handler-side events (a bad CRC, a churn drop) ride the published
 payloads and are tallied at the drain.  The hot thread signals the
 handlers only through :meth:`churn`'s generation bump and the clock
-``now``, each an int swap.
+``now``, each an int swap.  A session walks the lifecycle sanitizer's
+``session`` machine (new, open, closed or dropped, its edges counted at the
+drain) and the listening socket is a ``socket`` resource.
 """
 
 from __future__ import annotations
@@ -47,6 +50,9 @@ import queue
 import socketserver
 import threading
 import zlib
+
+from ...lint import lifecycle_sanitizer as lifecycle
+from ...lint.race_sanitizer import published, reveal, share
 
 __all__ = ["IngestFront", "encode_frame", "decode_frame", "FRAME_KINDS"]
 
@@ -236,6 +242,12 @@ class IngestFront:
         self.sessions_resumed = 0
         self.sessions_closed = 0
         self.churn_drops = 0
+        # the session machine's legal graph (JAX's).  Its edges are
+        # counted unkeyed: a resumed session enters new->open again under
+        # its name, and per-session order is the client protocol's
+        lifecycle.declare_machine(
+            "session", ("new", "open", "closed", "dropped"),
+            (("new", "open"), ("open", "closed"), ("open", "dropped")))
 
     # ---- the bench ----
 
@@ -252,6 +264,7 @@ class IngestFront:
             kwargs={"poll_interval": 0.05},
         )
         self._thread.start()
+        lifecycle.acquire("socket", id(self))
         return self.port
 
     def stop(self) -> None:
@@ -264,6 +277,7 @@ class IngestFront:
             self._thread.join(timeout=5.0)
         self._srv = None
         self._thread = None
+        lifecycle.release("socket", id(self))
 
     # ---- the handlers ----
 
@@ -279,11 +293,12 @@ class IngestFront:
             return False
         return True
 
+    @published
     def _publish(self, payload: dict, timeout: float) -> None:
         """THE crossing point: one frame's payload leaves the handler
         thread.  The bounded ``put`` makes a stalled pump show as client
         backpressure, never as an unbounded buffer."""
-        self._q.put(payload, timeout=timeout)
+        self._q.put(share(payload, "IngestFront.delivery"), timeout=timeout)
 
     # ---- the hot thread (non-blocking) ----
 
@@ -303,9 +318,10 @@ class IngestFront:
         out: list[dict] = []
         while True:
             try:
-                payload = self._q.get_nowait()
+                item = self._q.get_nowait()
             except queue.Empty:
                 break
+            payload = reveal(item)
             self.frames += 1
             kind = payload.get("kind")
             if kind == "ops":
@@ -315,12 +331,15 @@ class IngestFront:
                 self.sessions_opened += 1
                 if payload.get("resume"):
                     self.sessions_resumed += 1
+                lifecycle.transition("session", "new", "open")
             elif kind == "bye":
                 self.sessions_closed += 1
+                lifecycle.transition("session", "open", "closed")
             elif kind == "bad_frame":
                 self.bad_frames += 1
             elif kind == "churn_drop":
                 self.churn_drops += 1
+                lifecycle.transition("session", "open", "dropped")
             out.append(payload)
         return out
 

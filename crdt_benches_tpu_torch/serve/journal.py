@@ -39,11 +39,14 @@ state by replaying the stream interval through ``engine/merge_fleet.py``
 
 The journal's counters and durability gauges are registry metrics
 (``serve.journal.*``, attached to a drain's registry by
-:meth:`OpJournal.bind_metrics`); the JAX module's sanitizer hooks are not
-ported.  :func:`recover_fleet` settles a reshard the journal records
-(``serve/reshard.py recover_torn_reshard``): committed ones stay retired, a
-committed manifest without a commit record rolls forward, a staged one rolls
-back.
+:meth:`OpJournal.bind_metrics`).  Its file operations run inside the fs
+sanitizer's protocols (``lint/fs_sanitizer.py``: ``wal`` for appends,
+seals and the torn-tail repair, ``gc`` for segment GC, ``snapshot`` for
+barriers, staging sweeps and recovery), and :meth:`OpJournal.round_record`
+is a publish point of the race sanitizer.  :func:`recover_fleet` settles a
+reshard the journal records (``serve/reshard.py recover_torn_reshard``):
+committed ones stay retired, a committed manifest without a commit record
+rolls forward, a staged one rolls back.
 """
 
 from __future__ import annotations
@@ -59,6 +62,8 @@ import torch
 
 from ..device import resolve_device
 from ..engine.merge_fleet import merge_rows_macro
+from ..lint.fs_sanitizer import durable_protocol, fs_protocol
+from ..lint.race_sanitizer import published
 from ..obs.metrics import Counter, Gauge
 from ..ops.apply2 import PackedState
 from ..traces.tensorize import PAD
@@ -132,11 +137,13 @@ class OpJournal:
         if os.path.exists(self.path):
             good = _valid_prefix_bytes(self.path)
             if good < os.path.getsize(self.path):
-                with open(self.path, "r+b") as f:
-                    f.truncate(good)
+                with fs_protocol("wal"):
+                    with open(self.path, "r+b") as f:
+                        f.truncate(good)
         self._seq = 1 + max(
             (_segment_seq(s) for s in wal_segments(journal_dir)), default=0)
-        self._f = open(self.path, "a", encoding="utf-8")
+        with fs_protocol("wal"):
+            self._f = open(self.path, "a", encoding="utf-8")
         self._active_bytes = os.path.getsize(self.path)
         self._since_snapshot = 0
         # max round of each SEALED segment (None: a round-less or damaged
@@ -224,10 +231,11 @@ class OpJournal:
     def append(self, obj: dict) -> None:
         payload = json.dumps(obj, separators=(",", ":"))
         line = f"{zlib.crc32(payload.encode()):08x} {payload}\n"
-        self._f.write(line)
-        self._f.flush()
-        if self.fsync:
-            os.fsync(self._f.fileno())
+        with fs_protocol("wal"):
+            self._f.write(line)
+            self._f.flush()
+            if self.fsync:
+                os.fsync(self._f.fileno())
         self._m_records.inc()
         self._m_bytes.inc(len(line))
         self._active_bytes += len(line)
@@ -248,17 +256,18 @@ class OpJournal:
         records only."""
         if not self.segment_bytes or self._active_bytes < self.segment_bytes:
             return False
-        self._f.flush()
-        os.fsync(self._f.fileno())
-        self._f.close()
-        name = _segment_name(self._seq)
-        os.replace(self.path, os.path.join(self.dir, name))
-        fsync_dir(self.dir)
-        self._seg_max[name] = (
-            None if self._active_roundless or not self._active_records
-            else self._active_max_r)
-        self._seq += 1
-        self._f = open(self.path, "a", encoding="utf-8")
+        with fs_protocol("wal"):
+            self._f.flush()
+            os.fsync(self._f.fileno())
+            self._f.close()
+            name = _segment_name(self._seq)
+            os.replace(self.path, os.path.join(self.dir, name))
+            fsync_dir(self.dir)
+            self._seg_max[name] = (
+                None if self._active_roundless or not self._active_records
+                else self._active_max_r)
+            self._seq += 1
+            self._f = open(self.path, "a", encoding="utf-8")
         self._active_bytes = 0
         self._active_max_r = -1
         self._active_roundless = False
@@ -267,6 +276,7 @@ class OpJournal:
         self._g_segments.set(1 + len(wal_segments(self.dir)))
         return True
 
+    @published
     def round_record(self, rnd: int,
                      lanes: dict[int, list[list[int]]]) -> None:
         """The write-ahead record of one macro-round: per class, the
@@ -324,23 +334,25 @@ class OpJournal:
             return info
         mpath = os.path.join(self.dir, GC_MANIFEST)
         tmp = mpath + ".tmp"
-        with open(tmp, "w", encoding="utf-8") as f:
-            json.dump({"round": int(covered_round), "segments": victims}, f,
-                      separators=(",", ":"))
-            f.flush()
-            os.fsync(f.fileno())  # the manifest is the commit record
-        os.replace(tmp, mpath)  # the GC commit point
-        fsync_dir(self.dir)
-        if crash_hook is not None and crash_hook():
-            info["crashed"] = True  # torn: the next open/compact repairs it
-            return info
-        for name in victims:
-            try:
-                os.unlink(os.path.join(self.dir, name))
-            except OSError:
-                pass
-            self._seg_max.pop(name, None)
-        os.unlink(mpath)
+        with fs_protocol("gc"):
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump({"round": int(covered_round), "segments": victims},
+                          f, separators=(",", ":"))
+                f.flush()
+                os.fsync(f.fileno())  # the manifest is the commit record
+            os.replace(tmp, mpath)  # the GC commit point
+            fsync_dir(self.dir)
+            if crash_hook is not None and crash_hook():
+                # torn: the next open or compaction repairs it
+                info["crashed"] = True
+                return info
+            for name in victims:
+                try:
+                    os.unlink(os.path.join(self.dir, name))
+                except OSError:
+                    pass
+                self._seg_max.pop(name, None)
+            os.unlink(mpath)
         self._m_gc_passes.inc()
         self._m_gc_segments.inc(len(victims))
         self._g_segments.set(1 + len(wal_segments(self.dir)))
@@ -398,34 +410,35 @@ def finish_torn_gc(journal_dir: str) -> int:
     the manifest.  Idempotent; returns the segments removed now.  A
     half-written ``GC_MANIFEST.json.tmp`` (a crash before the commit) is
     discarded and every segment survives."""
-    tmp = os.path.join(journal_dir, GC_MANIFEST + ".tmp")
-    if os.path.exists(tmp):
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-    mpath = os.path.join(journal_dir, GC_MANIFEST)
-    if not os.path.exists(mpath):
-        return 0
-    try:
-        with open(mpath, encoding="utf-8") as f:
-            victims = [str(s) for s in json.load(f).get("segments", [])]
-    except (OSError, json.JSONDecodeError, AttributeError):
-        victims = []  # unreadable manifest: drop it, keep every segment
-    removed = 0
-    for name in victims:
-        path = os.path.join(journal_dir, name)
-        if os.path.exists(path):
+    with fs_protocol("gc"):
+        tmp = os.path.join(journal_dir, GC_MANIFEST + ".tmp")
+        if os.path.exists(tmp):
             try:
-                os.unlink(path)
-                removed += 1
+                os.unlink(tmp)
             except OSError:
                 pass
-    try:
-        os.unlink(mpath)
-    except OSError:
-        pass
-    return removed
+        mpath = os.path.join(journal_dir, GC_MANIFEST)
+        if not os.path.exists(mpath):
+            return 0
+        try:
+            with open(mpath, encoding="utf-8") as f:
+                victims = [str(s) for s in json.load(f).get("segments", [])]
+        except (OSError, json.JSONDecodeError, AttributeError):
+            victims = []  # unreadable manifest: drop it, keep every segment
+        removed = 0
+        for name in victims:
+            path = os.path.join(journal_dir, name)
+            if os.path.exists(path):
+                try:
+                    os.unlink(path)
+                    removed += 1
+                except OSError:
+                    pass
+        try:
+            os.unlink(mpath)
+        except OSError:
+            pass
+        return removed
 
 
 def sweep_staging(journal_dir: str) -> list[str]:
@@ -435,11 +448,13 @@ def sweep_staging(journal_dir: str) -> list[str]:
     if not os.path.isdir(journal_dir):
         return []
     removed = []
-    for d in sorted(os.listdir(journal_dir)):
-        if d.startswith(SNAP_PREFIX) and d.endswith(".tmp") and \
-                os.path.isdir(os.path.join(journal_dir, d)):
-            shutil.rmtree(os.path.join(journal_dir, d), ignore_errors=True)
-            removed.append(d)
+    with fs_protocol("snapshot"):
+        for d in sorted(os.listdir(journal_dir)):
+            if d.startswith(SNAP_PREFIX) and d.endswith(".tmp") and \
+                    os.path.isdir(os.path.join(journal_dir, d)):
+                shutil.rmtree(os.path.join(journal_dir, d),
+                              ignore_errors=True)
+                removed.append(d)
     return removed
 
 
@@ -529,6 +544,7 @@ def _manifest_crc(snap_dir: str) -> str | None:
         return None
 
 
+@durable_protocol("snapshot")
 def write_snapshot(journal_dir: str, pool, streams, rnd: int,
                    keep: int = 2, kind: str = "full") -> tuple[str, dict]:
     """One fleet snapshot barrier: per-class bucket state (CRC'd .npz),
@@ -967,6 +983,7 @@ class RecoveryReport:
     reshard_completed: bool = False
 
 
+@durable_protocol("snapshot")
 def recover_fleet(pool, streams, journal_dir: str) -> RecoveryReport:
     """Restore a crashed fleet into a FRESH pool and stream set (built by
     the same ``prepare_streams`` the original run used): complete a torn
@@ -1006,6 +1023,7 @@ def recover_fleet(pool, streams, journal_dir: str) -> RecoveryReport:
         report.spools_restored = len(m["spooled"])
         report.warm_restored = len(m.get("warm", {}))
         report.chain_depth = len(members)
+        pool.recount_cold()  # the bulk restore wrote the spools directly
         break
 
     # ---- journal tail: redo span and re-applied decisions ----
@@ -1059,10 +1077,11 @@ def _reset_fleet(pool, streams) -> None:
             b.rows[rec.row] = None
             b.release_row(rec.row)
         rec.cls = rec.row = None
-        pool._set_spool(rec, None)
+        rec.spool = None  # a bulk reset: the count is derived below
         rec.length = rec.n_init
         rec.last_sched = -1
         pool.warm.take(rec.doc_id)
+    pool.recount_cold()
     for st in streams.values():
         st.cursor = 0
         st.limit = None
@@ -1107,7 +1126,9 @@ def _restore_snapshot(pool, streams, snap_dir: str, manifest: dict,
             continue
         dst = pool.spool_path(doc_id)
         shutil.copy2(src, dst)
-        pool._set_spool(pool.docs[doc_id], dst)
+        # a bulk restore (no residency transition, as in JAX): the
+        # caller derives the cold count once the restore is whole
+        pool.docs[doc_id].spool = dst
     # warm members go back into the warm tier when the recovering pool
     # has one (shadowed by the copied member, so a later demotion is
     # free); a pool without one takes them as cold spools
@@ -1126,7 +1147,7 @@ def _restore_snapshot(pool, streams, snap_dir: str, manifest: dict,
                               int(st.length[0]), int(st.nvis[0]),
                               shadow=dst)
         else:
-            pool._set_spool(pool.docs[doc_id], dst)
+            pool.docs[doc_id].spool = dst  # a bulk restore, as above
     for key, d in manifest["docs"].items():
         doc_id = int(key)
         st = streams.get(doc_id)

@@ -68,9 +68,14 @@ import torch
 
 from ..device import resolve_device
 from ..engine.merge_fleet import merge_rows_body
+from ..lint import lifecycle_sanitizer as lifecycle
+from ..lint import range_sanitizer as range_rt
+from ..lint.boundary import boundary
+from ..lint.fs_sanitizer import fs_protocol
+from ..lint.sanitizer import fenced
 from ..obs.metrics import Counter, Gauge
 from ..ops.apply2 import LANE, PackedState
-from ..ops.packing import op_lane_dtypes, widen_ops
+from ..ops.packing import NARROW_ID_BOUND, op_lane_dtypes, widen_ops
 from ..ops.resolve_range import resolve_range_rows
 from ..ops.serve_fused import serve_macro_fused, serve_round_inputs
 from ..traces.tensorize import PAD
@@ -236,6 +241,7 @@ class Bucket:
             r = heapq.heappop(heap)
             if r in free:
                 free.discard(r)
+                lifecycle.acquire("rows", (self.C, s * self.Rg + r))
                 return s * self.Rg + r
         raise RuntimeError(f"bucket c{self.C}: no free row")
 
@@ -245,11 +251,13 @@ class Bucket:
         if r not in self._free[s]:
             raise RuntimeError(f"bucket c{self.C}: row {row} not free")
         self._free[s].discard(r)  # its heap entry is dropped lazily
+        lifecycle.acquire("rows", (self.C, row))
 
     def release_row(self, row: int) -> None:
         s, r = divmod(row, self.Rg)
         self._free[s].add(r)
         heapq.heappush(self._heaps[s], r)
+        lifecycle.release("rows", (self.C, row))
 
 
 @dataclass
@@ -417,8 +425,13 @@ class DocPool:
         #: prefetch read that raced a re-eviction is stale
         self._spool_gens: dict[int, int] = {}
         #: docs whose live copy is a spool; every ``rec.spool`` write goes
-        #: through :meth:`_set_spool`, which keeps this count
+        #: through :meth:`_set_spool`, which keeps this count (a recovery's
+        #: bulk restore writes them directly and calls :meth:`recount_cold`)
         self._n_cold = 0
+        # the doc residency machine's legal graph (JAX's): armed runs
+        # enforce it, every run counts its edges (the lifecycle block)
+        lifecycle.declare_machine(
+            "doc", ("live", "cold"), (("live", "cold"), ("cold", "live")))
         #: when a list on a CUDA pool, each macro step appends its
         #: (name, start, end) CUDA-event pairs: upload, resolve, inputs, k4
         #: (fused); upload, then a "round" span for each round (scan)
@@ -570,6 +583,7 @@ class DocPool:
 
     # ---- row movement (host round trips, off the macro step) ----
 
+    @fenced
     def _pull_row(self, rec: DocRecord) -> tuple[np.ndarray, int, int]:
         st, r = self.buckets[rec.cls].locate(rec.row)
         return _host(st.doc[r]), int(st.length[r]), int(st.nvis[r])
@@ -584,6 +598,8 @@ class DocPool:
                  length: int, nvis: int) -> tuple[int, int]:
         b = self.buckets[cls]
         row = b.alloc_row()
+        range_rt.check_index("pool.write-row", row, len(b.rows),
+                             doc=rec.doc_id, cls=cls)
         full = np.full(b.C, 2, np.int32)  # promotion / trimmed-spool pad
         full[:len(doc_row)] = doc_row
         st, r = b.locate(row)
@@ -602,7 +618,12 @@ class DocPool:
         """The one place ``rec.spool`` changes: a doc entering or leaving
         the cold tier moves the O(1) :attr:`cold_docs` count."""
         if (rec.spool is None) != (path is None):
-            self._n_cold += 1 if path is not None else -1
+            if path is not None:
+                self._n_cold += 1
+                lifecycle.transition("doc", "live", "cold", key=rec.doc_id)
+            else:
+                self._n_cold -= 1
+                lifecycle.transition("doc", "cold", "live", key=rec.doc_id)
         rec.spool = path
 
     def recount_cold(self) -> int:
@@ -631,6 +652,7 @@ class DocPool:
         self._spool_gens[doc_id] = self._spool_gens.get(doc_id, 0) + 1
         return path
 
+    @fenced
     def evict(self, doc_id: int) -> str:
         """Move a resident doc to the spool and free its row (direct pool
         users; the drain moves evictions from its own bucket pull)."""
@@ -676,21 +698,22 @@ class DocPool:
         manifest = os.path.join(self.spool_dir, SPOOL_GC_MANIFEST)
         tmp = manifest + ".tmp"
         members = sorted({p for _d, ps in victims for p in ps})
-        with open(tmp, "w", encoding="utf-8") as f:
-            json.dump({"version": 1,
-                       "members": [os.path.basename(p) for p in members]},
-                      f, separators=(",", ":"))
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, manifest)  # the commit point
-        fsync_dir(self.spool_dir)
-        for p in members:
-            try:
-                os.unlink(p)
-            except OSError:
-                pass
-        os.unlink(manifest)
-        fsync_dir(self.spool_dir)
+        with fs_protocol("spool"):
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump({"version": 1,
+                           "members": [os.path.basename(p) for p in members]},
+                          f, separators=(",", ":"))
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, manifest)  # the commit point
+            fsync_dir(self.spool_dir)
+            for p in members:
+                try:
+                    os.unlink(p)
+                except OSError:
+                    pass
+            os.unlink(manifest)
+            fsync_dir(self.spool_dir)
         for d, _paths in victims:
             rec = self.docs.pop(d)
             self._set_spool(rec, None)
@@ -706,32 +729,33 @@ class DocPool:
         tmp = manifest + ".tmp"
         if not (os.path.exists(manifest) or os.path.exists(tmp)):
             return 0
-        if os.path.exists(tmp):
-            try:
-                os.unlink(tmp)  # uncommitted: rolls back
-            except OSError:
-                pass
-        if not os.path.exists(manifest):
-            return 0
-        try:
-            with open(manifest, encoding="utf-8") as f:
-                names = json.load(f)["members"]
-        except _SPOOL_GC_ERRORS:
-            names = []
-        done = 0
-        for name in names:
-            p = os.path.join(self.spool_dir, os.path.basename(str(name)))
-            if os.path.exists(p):
+        with fs_protocol("spool"):
+            if os.path.exists(tmp):
                 try:
-                    os.unlink(p)
-                    done += 1
+                    os.unlink(tmp)  # uncommitted: rolls back
                 except OSError:
                     pass
-        try:
-            os.unlink(manifest)
-        except OSError:
-            pass
-        fsync_dir(self.spool_dir)
+            if not os.path.exists(manifest):
+                return 0
+            try:
+                with open(manifest, encoding="utf-8") as f:
+                    names = json.load(f)["members"]
+            except _SPOOL_GC_ERRORS:
+                names = []
+            done = 0
+            for name in names:
+                p = os.path.join(self.spool_dir, os.path.basename(str(name)))
+                if os.path.exists(p):
+                    try:
+                        os.unlink(p)
+                        done += 1
+                    except OSError:
+                        pass
+            try:
+                os.unlink(manifest)
+            except OSError:
+                pass
+            fsync_dir(self.spool_dir)
         return done
 
     def admit(self, doc_id: int, need: int) -> tuple[int, int]:
@@ -919,6 +943,7 @@ class DocPool:
 
     # ---- boundary bulk movement (one sync, one upload per class) ----
 
+    @fenced
     def pull_bucket(self, cls: int):
         """Host copies of a whole bucket (doc, length, nvis), the shards
         concatenated in row order under a mesh; waits for any macro step
@@ -944,8 +969,15 @@ class DocPool:
                 f"{doc.shape}, length {length.shape}, nvis {nvis.shape}")
         if dirty_rows is None:
             dirty_rows = range(b.R)
-        elif any(not 0 <= int(r) < b.R for r in dirty_rows):
-            raise ValueError(f"bucket c{cls}: dirty rows outside [0, {b.R})")
+        else:
+            dirty_rows = [int(r) for r in dirty_rows]
+            # the scheduler's batched install writes these rows: the row
+            # bound of _install, under the same check name
+            range_rt.check_index("pool.write-row", dirty_rows, len(b.rows),
+                                 cls=cls)
+            if any(not 0 <= r < b.R for r in dirty_rows):
+                raise ValueError(
+                    f"bucket c{cls}: dirty rows outside [0, {b.R})")
         self._dirty[cls].update(int(r) for r in dirty_rows)
         up = lambda a, dev: torch.from_numpy(
             np.ascontiguousarray(a, np.int32)).to(dev)
@@ -960,6 +992,12 @@ class DocPool:
 
     # ---- the hot path ----
 
+    @boundary(
+        # the op lanes arrive in the pool's staged dtypes (op_dtypes), so
+        # the contract pins the (K, Rt, B) layout only
+        dtypes=(),
+        shapes=(None, None, "K R B", "K R B", "K R B", "K R B"),
+    )
     def macro_step(self, cls: int, kind: np.ndarray, pos: np.ndarray,
                    rlen: np.ndarray, slot0: np.ndarray, nbits: int) -> None:
         """Apply K staged rounds to the tier of ``Rt`` rows of class ``cls``
@@ -979,6 +1017,21 @@ class DocPool:
             raise ValueError(f"tier {Rt} incompatible with bucket {b.R} "
                              f"over {b.n_sh} shards")
         self._mark_op_rows(cls, kind)
+        # the staged lanes' bounds: host numpy, before the dispatch, PAD
+        # lanes masked out (their payloads are don't-care).  Disarmed, two
+        # counter bumps; armed, the check the kernels cannot make
+        range_rt.check_index("pool.macro-pos", lambda: pos[kind != PAD],
+                             b.C + 1, cls=cls)
+        # the narrow ladder's ceiling is the uint16 repack's; a wide
+        # ladder's ids are bounded by the class capacity
+        narrow = self.op_dtypes[3] == np.dtype(np.uint16)
+        range_rt.check_narrow("pool.macro-ids", lambda: slot0[kind != PAD],
+                              NARROW_ID_BOUND if narrow else b.C - 1,
+                              cls=cls)
+        # both serve kernels count below a clamped bound (JAX's mask tags)
+        range_rt.note_mask("count-le-clamp")
+        if self.serve_kernel == "fused":
+            range_rt.note_mask("fused-gap-gather")
         spans = self.spans if self.device.type == "cuda" else None
         marks = []
 
@@ -992,7 +1045,8 @@ class DocPool:
         mark("")
         ops = np.stack(widen_ops(kind, pos, rlen, slot0))  # (4, K, Rt, B)
         if b.parts is None:  # one piece: the tier's rows
-            piece_ops = [torch.from_numpy(ops).to(self.device).unbind(0)]
+            piece_ops = [torch.from_numpy(ops).to(
+                self.device, non_blocking=True).unbind(0)]
         else:
             # a piece a shard (JAX's P(None, AXIS, None)): the shards'
             # (K, Rt / N, B) ops, each device given its own shards' only
@@ -1002,7 +1056,8 @@ class DocPool:
             piece_ops = [None] * n
             for d in dict.fromkeys(self.shard_devices):
                 mine = [s for s, e in enumerate(self.shard_devices) if e == d]
-                up = (host if len(mine) == n else host[mine]).to(d)
+                up = (host if len(mine) == n else host[mine]).to(
+                    d, non_blocking=True)
                 for s, o in zip(mine, up):
                     piece_ops[s] = o.unbind(0)
         mark("upload")
@@ -1042,6 +1097,7 @@ class DocPool:
             spans.extend((name, marks[i][1], ev)
                          for i, (name, ev) in enumerate(marks[1:]))
 
+    @fenced
     def block(self) -> None:
         """Wait for every outstanding macro step (on every shard's device
         under a mesh)."""

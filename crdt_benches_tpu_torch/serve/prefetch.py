@@ -22,11 +22,12 @@ Thread confinement:
   and zlib, a builder is numpy tensorization (``build_stream_payload``),
   and a payload is a dict of numpy arrays and ints;
 - loaded rows cross back only through :meth:`Prefetcher._publish`, a
-  bounded ``put`` that counts its entries (``published_count``, written
-  by the worker alone); the hot thread's :meth:`drain` is the reader gate
-  and counts its own (``revealed_count``).  The two counts are the seam
-  where ownership tracking can later hang; nothing is armed by the
-  environment;
+  bounded ``put`` and a publish point of the race sanitizer
+  (``lint/race_sanitizer.py``: ``published``, ``share``) that counts its
+  entries (``published_count``, written by the worker alone); the hot
+  thread's :meth:`drain` is the reader gate (``reveal``) and counts its
+  own (``revealed_count``).  The worker thread is a ``thread`` resource
+  and ``inflight`` a gauge of the lifecycle sanitizer;
 - the hot thread never blocks on the worker: :meth:`submit` is
   ``put_nowait`` (a full queue refuses the prefetch and counts it),
   :meth:`drain` is ``get_nowait``, and an admission that misses the warm
@@ -52,6 +53,8 @@ from typing import Callable, Iterable
 
 import numpy as np
 
+from ..lint import lifecycle_sanitizer as lifecycle
+from ..lint.race_sanitizer import published, reveal, share
 from ..utils.checkpoint import load_state
 
 #: Default bound of the request and result queues: deep enough for one
@@ -102,6 +105,7 @@ class Prefetcher:
         self._reaped.update(seqs)
         self.lost += len(seqs)
         self.inflight = max(0, self.inflight - len(seqs))
+        lifecycle.gauge("prefetch_inflight", self.inflight)
 
     # ---- lifetime (the pool's constructor and close) ----
 
@@ -111,6 +115,7 @@ class Prefetcher:
         self._thread = threading.Thread(
             target=self._run, name="serve-prefetch", daemon=True)
         self._thread.start()
+        lifecycle.acquire("thread", id(self))
 
     def stop(self) -> None:
         """Stop the worker.  Requests not yet taken are dropped (counted),
@@ -130,6 +135,7 @@ class Prefetcher:
         self._req.put_nowait(None)  # only this thread puts: room for it
         self._thread.join(timeout=5.0)
         self._thread = None
+        lifecycle.release("thread", id(self))
 
     @property
     def alive(self) -> bool:
@@ -171,9 +177,10 @@ class Prefetcher:
         out: list[dict] = []
         while True:
             try:
-                payload = self._res.get_nowait()
+                item = self._res.get_nowait()
             except queue.Empty:
                 break
+            payload = reveal(item)
             self.revealed_count += 1
             seq = payload["seq"]
             if seq in self._reaped:
@@ -181,6 +188,7 @@ class Prefetcher:
                 self.reap_dropped += 1
                 continue
             self.inflight -= 1
+            lifecycle.gauge("prefetch_inflight", self.inflight)
             self.harvested += 1
             if payload["error"] is not None:
                 self.errors += 1
@@ -230,10 +238,11 @@ class Prefetcher:
             except queue.Full:
                 continue  # the hot thread stopped draining: dropped
 
+    @published
     def _publish(self, payload: dict) -> None:
         """The one publish point: a loaded row leaves the worker.  The
         ``put`` is bounded, so a consumer that stopped draining can never
         park the worker forever.  Counted on entry, as the reader gate
         counts on its own."""
         self.published_count += 1
-        self._res.put(payload, timeout=30.0)
+        self._res.put(share(payload, "Prefetcher.result"), timeout=30.0)

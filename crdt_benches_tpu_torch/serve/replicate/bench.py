@@ -26,7 +26,14 @@ import torch
 
 from ..._build import kernels
 from ...device import resolve_device
-from ..bench import arm_reqtrace, parse_slo
+from ...lint import race_sanitizer
+from ..bench import (
+    _arm_sanitizers,
+    _disarm_sanitizers,
+    arm_reqtrace,
+    parse_sanitize,
+    parse_slo,
+)
 from ..faults import FaultInjector, FaultPlan
 from ..journal import OpJournal
 from ..pool import DocPool
@@ -63,6 +70,7 @@ def run_serve_repl_bench(
     faults=None,
     reqtrace_samples: int = 0,
     slo_spec: str | None = None,
+    sanitize=(),
     device: str | torch.device = "cuda",
     pool_hook=None,
     log=print,
@@ -72,7 +80,11 @@ def run_serve_repl_bench(
     (every replica byte-identical to the oracle), ``ra_ok`` and
     ``faults_ok``.  ``journal_dir`` (``"auto"``: an owned temp dir) arms
     the journal with a barrier every ``snapshot_every`` rounds;
-    ``pool_hook(pool)`` runs just before the drain."""
+    ``sanitize`` arms sanitizers as ``run_serve_bench``'s does; the report
+    carries the race sanitizer's ``thread_crossings`` block (this family
+    alone drives the broadcast bus's publish point).  ``pool_hook(pool)``
+    runs just before the drain."""
+    sanitize = parse_sanitize(sanitize)
     if writers < 1:
         raise ValueError(f"writers must be >= 1, got {writers}")
     classes, slots = tuple(classes), tuple(slots)
@@ -99,7 +111,10 @@ def run_serve_repl_bench(
     reqtrace = arm_reqtrace(reqtrace_samples, slo, slo_spec, log,
                             prefix="serve/repl")
     pool = None
+    armed_here = _arm_sanitizers(sanitize, dev, log)
     try:
+        # the publish-point counters start before the first publish
+        race_sanitizer.reset_counters()
         log(f"serve/repl: building fleet n_docs={n_docs} x writers="
             f"{writers} mix={mix_name} seed={seed}")
         sessions = build_fleet(n_docs, mix=mix, seed=seed,
@@ -204,12 +219,26 @@ def run_serve_repl_bench(
                 "snapshot_every": snapshot_every,
             },
             "metrics": stats.metrics.to_dict(),
+            # the family that drives the bus's publish point; the surfaces
+            # it never arms are recorded False
+            "thread_crossings": {
+                "sanitized": "races" in sanitize,
+                "status": False,  # the family refuses --serve-status
+                "journal": journal is not None,
+                "bus": True,
+                "prefetch": False,  # a flat pool, no tiers
+                "ingest": False,  # the family refuses --serve-open
+                "publishes": race_sanitizer.counters()["publishes"],
+                "crossings": (race_sanitizer.counters()["crossings"]
+                              if "races" in sanitize else None),
+            },
             "reqtrace": reqtrace.block() if reqtrace.armed else None,
             "slo": slo.block() if slo is not None else None,
             "verify_ok": report.converged,
             "ra_ok": report.ra_ok,
         }
     finally:
+        _disarm_sanitizers(armed_here)
         reqtrace.release()
         if journal is not None:
             journal.close()

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from ...lint.race_sanitizer import published
 from .group import GroupTable, ReplicaGroup
 
 #: Ticks between a block's publication and its delivery to the peers.
@@ -63,10 +64,10 @@ class _GroupState:
 
 class BroadcastBus:
     """Publish and deliver over a :class:`GroupTable` (the module says
-    how), owned by the scheduler's thread.  The JAX bus declares each
-    block's publication a publish point of its race sanitizer
-    (``_cross_block``); here it is a plain call (the sanitizers are not
-    ported)."""
+    how), owned by the scheduler's thread.  Each block's publication
+    crosses :meth:`_cross_block`, a publish point of the race sanitizer
+    (``lint/race_sanitizer.py``), as in JAX: it counts the edge and gives
+    request traces their bus hop."""
 
     def __init__(self, table: GroupTable, *, pub_ops: int, op_nbytes: int,
                  journal=None, metrics=None,
@@ -203,6 +204,13 @@ class BroadcastBus:
             self.reordered_rounds += 1
             self._reorder = None
 
+    @published
+    def _cross_block(self, gid: int, seq: int, owner: int) -> None:
+        """Block ``seq`` of group ``gid`` leaves writer ``owner``'s log for
+        its peers.  The bus is owned by one thread, so nothing is handed
+        over here: the point counts the edge (one entry a published
+        block) and gives request traces their bus hop."""
+
     def _publish(self, gs: _GroupState, rnd: int) -> None:
         g = gs.group
         budget = self.pub_ops
@@ -213,6 +221,7 @@ class BroadcastBus:
             gs.published = seq + 1
             gs.last_publish_round = rnd
             self.blocks_published += 1
+            self._cross_block(g.logical_id, seq, owner)
             if g.logical_id in self.publish_log:
                 self.publish_log[g.logical_id].append((rnd, seq))
             if self.journal is not None:

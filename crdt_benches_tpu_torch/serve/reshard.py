@@ -31,9 +31,10 @@ serves:
 
 :func:`check_shard_partition` checks that every doc lives on exactly one
 shard.  The manifest's and the records' bytes are the JAX package's, so
-either package recovers the other's journal.  The JAX module's sanitizer
-hooks (the lifecycle state machine, the filesystem protocol scope and the
-sync fence) are not ported.
+either package recovers the other's journal.  The coordinator's states are
+the lifecycle sanitizer's ``row`` machine, the manifest's commit and retire
+run inside the fs sanitizer's ``reshard`` protocol, and :meth:`tick` and
+:meth:`finalize` are fences of the sync sanitizer (``lint/``).
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..lint import lifecycle_sanitizer as lifecycle
+from ..lint.fs_sanitizer import fs_protocol
+from ..lint.sanitizer import fenced
 from ..utils.fsdur import fsync_dir
 
 #: The migration manifest, the reshard's commit point, in the journal
@@ -189,12 +193,13 @@ def commit_manifest(journal_dir: str, manifest: dict) -> str:
     the coordinator, its in-run resume or recovery's roll-forward."""
     path = os.path.join(journal_dir, RESHARD_MANIFEST)
     tmp = path + ".tmp"
-    with open(tmp, "w", encoding="utf-8") as f:
-        json.dump(manifest, f, separators=(",", ":"))
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)  # the commit point
-    fsync_dir(journal_dir)
+    with fs_protocol("reshard"):
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(manifest, f, separators=(",", ":"))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)  # the commit point
+        fsync_dir(journal_dir)
     return path
 
 
@@ -221,23 +226,24 @@ def retire_manifest(journal_dir: str) -> bool:
     file is read, then unlinked; a staged ``.tmp`` (a crash before the
     commit) is discarded too.  Returns whether a manifest was removed."""
     path = os.path.join(journal_dir, RESHARD_MANIFEST)
-    tmp = path + ".tmp"
-    if os.path.exists(tmp):
+    with fs_protocol("reshard"):
+        tmp = path + ".tmp"
+        if os.path.exists(tmp):
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+        if not os.path.exists(path):
+            return False
         try:
-            os.unlink(tmp)
+            with open(path, encoding="utf-8") as f:
+                json.load(f)  # the read that witnesses the committed record
+        except _MANIFEST_ERRORS:
+            pass  # a damaged manifest is still ours to retire
+        try:
+            os.unlink(path)
         except OSError:
-            pass
-    if not os.path.exists(path):
-        return False
-    try:
-        with open(path, encoding="utf-8") as f:
-            json.load(f)  # the read that witnesses the committed record
-    except _MANIFEST_ERRORS:
-        pass  # a damaged manifest is still ours to retire
-    try:
-        os.unlink(path)
-    except OSError:
-        return False
+            return False
     return True
 
 
@@ -331,6 +337,12 @@ class ReshardCoordinator:
         self.telemetry = telemetry
         self.state = "idle"
         self.reshard_id = 0
+        # the coordinator machine's legal graph (JAX's): the only way out
+        # of `crashed` is a resume, which derives the pending set again
+        lifecycle.declare_machine(
+            "row", ("idle", "active", "crashed", "done"),
+            (("idle", "active"), ("active", "crashed"),
+             ("crashed", "active"), ("active", "done")))
         self._shards: tuple[int, ...] = self._resolve_shards()
         if plan.kind == "grow":
             # the target shards have rows but are not live yet: docs place
@@ -433,6 +445,7 @@ class ReshardCoordinator:
 
     # ---- the per-round hook ----
 
+    @fenced
     def tick(self, rnd: int, plan, imbalance: float,
              note_deferred=None) -> None:
         """One round of coordination: trigger, resume, migrate a batch and
@@ -492,6 +505,7 @@ class ReshardCoordinator:
                 self.pool.drain_shard(s)
         self._event("begin", rnd, change=self.plan.kind,
                     shards=list(self._shards), docs=docs0)
+        lifecycle.transition("row", "idle", "active", key=id(self))
         self.state = "active"
         if self.faults is not None:
             ev = self.faults.reshard_crash_event(rnd)
@@ -502,6 +516,8 @@ class ReshardCoordinator:
                 ev.fire(rnd, stage="post_manifest_pre_moves",
                         shards=list(self._shards), docs=docs0)
                 self._crash_ev = ev
+                lifecycle.transition("row", "active", "crashed",
+                                     key=id(self))
                 self.state = "crashed"
         self._gauge_refresh(docs0)
 
@@ -518,6 +534,7 @@ class ReshardCoordinator:
         if self._crash_ev is not None:
             self._crash_ev.recover(via="coordinator_resume", round=rnd)
             self._crash_ev = None
+        lifecycle.transition("row", "crashed", "active", key=id(self))
         self.state = "active"
 
     def _migrate_batch(self, rnd: int, plan, pending,
@@ -611,9 +628,11 @@ class ReshardCoordinator:
                      else []),
             migrated=self.migrated, evicted=self.evicted)
         retire_manifest(self.journal.dir)
+        lifecycle.transition("row", "active", "done", key=id(self))
         self.state = "done"
         self._gauge_refresh(0)
 
+    @fenced
     def finalize(self, rnd: int) -> None:
         """The drain's end: a reshard still in flight completes now (the
         draining shards' remaining residents are evicted on the host:

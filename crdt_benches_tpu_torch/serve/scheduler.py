@@ -92,6 +92,8 @@ from functools import partial
 
 import numpy as np
 
+from ..lint import lifecycle_sanitizer as lifecycle
+from ..lint.sanitizer import entries_total, fenced, hot_path
 from ..obs.metrics import (
     DEPTH_BUCKETS,
     LATENCY_BUCKETS_S,
@@ -270,8 +272,9 @@ class LazyStreams:
     is built on the hot thread (:meth:`__getitem__`), or on the prefetch
     thread (:meth:`builder`) and installed by :meth:`adopt`;
     :meth:`release` swaps a drained stream's arrays for shared empty ones.
-    The stream machine's lifecycle points and fences are left out
-    (``ROADMAP.md`` Queue 1 item 7)."""
+    A stream walks the lifecycle sanitizer's ``stream`` machine (genesis,
+    live, released), and its two materialization edges are fences of the
+    sync sanitizer, as in JAX."""
 
     def __init__(self, spec, pool: DocPool, batch: int = 64,
                  batch_chars: int = 256):
@@ -287,6 +290,11 @@ class LazyStreams:
         self.prefetch_built = 0  # streams adopted from the thread
         self.patches_total = 0  # n_patches over the materialized docs
         pool.set_genesis_population(spec.n_docs)
+        # the stream machine's legal graph (JAX's): a doc's op queue is
+        # built once and released once
+        lifecycle.declare_machine(
+            "stream", ("genesis", "live", "released"),
+            (("genesis", "live"), ("live", "released")))
 
     # ---- the mapping surface ----
 
@@ -320,8 +328,10 @@ class LazyStreams:
 
     # ---- materialization ----
 
+    @fenced
     def _install(self, st: DocStream, n_init: int, capacity: int,
                  chars) -> DocStream:
+        lifecycle.transition("stream", "genesis", "live", key=st.doc_id)
         self.pool.register(st.doc_id, n_init=n_init, capacity_need=capacity,
                            chars=chars)
         if self.bounded and st.delivered is None:
@@ -331,6 +341,7 @@ class LazyStreams:
         self.patches_total += st.n_patches
         return st
 
+    @fenced
     def _materialize(self, s) -> DocStream:
         # a trace band's docs share one lru-cached window, so its
         # tensorization is cached by (band, trace); synth traces are one
@@ -383,6 +394,7 @@ class LazyStreams:
         st = self._live.get(doc_id)
         if st is None or st.kind is _EMPTY_I32:
             return
+        lifecycle.transition("stream", "live", "released", key=doc_id)
         st.kind = st.pos = st.rlen = st.slot0 = _EMPTY_I32
         st.ins_cum = st.unit_cum = _EMPTY_I32
         st.cursor = 0
@@ -574,7 +586,8 @@ class FleetScheduler:
                  degrade_after: int = 3, degrade_window: int = 8,
                  degrade_rounds: int = 4, start_round: int = 0,
                  telemetry=None, reqtrace=None, slo=None,
-                 drained_gc: bool = False, gc_keep=None, reshard=None):
+                 drained_gc: bool = False, gc_keep=None, reshard=None,
+                 profiler=None):
         if overflow_policy not in ("defer", "shed"):
             raise ValueError(f"unknown overflow policy {overflow_policy!r}")
         self.pool = pool
@@ -675,6 +688,11 @@ class FleetScheduler:
         self.reqtrace = reqtrace if reqtrace is not None \
             else RequestTracker()
         self.slo = slo  # obs/slo.py SloTracker (or None)
+        #: obs/profiler.py DeviceProfiler (or None): its capture window
+        #: opens and closes at round boundaries
+        self.profiler = profiler
+        #: the last round's class for the profiler (None: no work left)
+        self._steady: bool | None = None
         # one registry a drain: the pool's, journal's and faults' metrics
         # attach to it, so the report's metrics block holds the whole run
         reg = self.stats.metrics
@@ -1207,6 +1225,13 @@ class FleetScheduler:
         ev = self.faults.tier_pressure_event(self.round)
         if ev is None or not len(self.pool.warm):
             return
+        self._tier_pressure_barrier(ev)
+
+    @fenced
+    def _tier_pressure_barrier(self, ev) -> None:
+        """One forced warm-to-cold churn: compressed spool writes for the
+        least recently scheduled warm entries (disk work, a fence as the
+        spool-tear injector is)."""
         n = ev.param or max(1, len(self.pool.warm) // 2)
         demoted = self.pool.warm_pressure(n)
         self.stats.faults_injected += 1
@@ -1221,6 +1246,7 @@ class FleetScheduler:
         return [(d, row) for cls in self.pool.classes
                 for d, row in self.pool.residents(cls)]
 
+    @fenced
     def _fire_spool_fault(self, plan: _Plan) -> None:
         """The ``spool_corrupt``/``spool_truncate`` faults: damage a spool
         on disk, an existing one of a doc with pending ops (its restore,
@@ -1290,6 +1316,7 @@ class FleetScheduler:
         start = min(base[3], st.cursor) if base is not None else 0
         return row_v, L, nv, disp, st.cursor - start
 
+    @fenced
     def _heal_spool(self, doc_id: int, cls: int, err: str):
         """A spool failed its integrity check at restore: rebuild the
         doc's row at its applied cursor (:meth:`_rebuild`).  Returns
@@ -1329,6 +1356,7 @@ class FleetScheduler:
         finally:
             self._bases.release()  # pin no snapshot arrays after the heal
 
+    @fenced
     def _recover_class(self, cls: int, plan: _Plan, ev) -> None:
         """Device-state loss right after a class's dispatch: the round's
         lanes of the class are dropped unadvanced (the WAL recorded them;
@@ -1427,6 +1455,7 @@ class FleetScheduler:
 
     # ---- boundary moves (the only syncs of a round) ----
 
+    @fenced
     def _execute_moves(self, plan: _Plan) -> None:
         """The plan's row movement: pull each affected bucket once, move
         the evictions (to the spool, or to the warm tier, whose overflow
@@ -1715,6 +1744,7 @@ class FleetScheduler:
             self._snapshot_barrier()
         return True
 
+    @fenced
     def _snapshot_barrier(self) -> None:
         """Persist a consistent fleet state (a full barrier every
         ``snapshot_full_every``-th time, a dirty-row delta between), then
@@ -1811,9 +1841,8 @@ class FleetScheduler:
 
     def _cum_counters(self) -> dict:
         """The cumulative counters the time-series recorder delta-encodes
-        into windows (``obs/timeseries.py CUM_KEYS``).  ``fence_entries``
-        stays 0: the port has no sync sanitizer to count fence
-        crossings."""
+        into windows (``obs/timeseries.py CUM_KEYS``); ``fence_entries``
+        is the sync sanitizer's running total of fence crossings."""
         s = self.stats
         return {
             "ops": s.ops,
@@ -1828,7 +1857,7 @@ class FleetScheduler:
             "recoveries": s.recoveries,
             "journal_bytes": (self.journal.bytes_total if self.journal
                               else 0),
-            "fence_entries": 0,
+            "fence_entries": entries_total(),
         }
 
     def status_fields(self) -> dict:
@@ -1878,6 +1907,23 @@ class FleetScheduler:
     # ---- the drain loop ----
 
     def run_round(self) -> bool:
+        """One macro-round inside the sync sanitizer's hot scope
+        (``lint/sanitizer.py hot_path``, a no-op unless armed: armed, a host
+        sync outside a declared fence raises at its callsite), with the
+        device profiler's window hooks around it (:meth:`_round`).  The
+        hooks stay outside the hot scope: stopping a CUDA capture
+        synchronizes the device, which is the profiler's wait, not the
+        round's."""
+        if self.profiler is not None:
+            self.profiler.round_begin()
+        self._steady = None
+        with hot_path(self.pool.device):
+            more = self._round()
+        if self.profiler is not None and self._steady is not None:
+            self.profiler.round_end(steady=self._steady)
+        return more
+
+    def _round(self) -> bool:
         """One macro-round (prefetch harvest -> overflow and tier-pressure
         faults -> plan -> the reshard tick -> WAL record -> stage -> stall fault -> boundary
         moves -> prefetch submissions -> spool fault -> one dispatch per
@@ -1996,6 +2042,8 @@ class FleetScheduler:
             # the rounds served while a move is in flight (the reshard
             # block's mid-reshard latency)
             self.reshard.note_round_latency(time.perf_counter() - t0)
+        # the round's class for the profiler's window (run_round)
+        self._steady = not compiled and not barrier
         return True
 
     def _flush_round(self) -> None:

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..engine.downstream import DownPacked, DownState
+from ..lint.fs_sanitizer import fs_protocol
 from ..ops.apply import DocState
 from ..ops.apply2 import PackedState, PackedState4, ReplayState
 from .fsdur import fsync_dir, fsync_file  # noqa: F401  (re-exported for
@@ -107,32 +108,33 @@ def save_state(path: str, state, compress: bool = True,
         crcs.append(zlib.crc32(np.ascontiguousarray(a).tobytes()))
     saver = np.savez_compressed if compress else np.savez
     d = os.path.dirname(os.path.abspath(path)) or "."
-    fd, tmp = tempfile.mkstemp(
-        dir=d, prefix=os.path.basename(path) + ".", suffix=".tmp"
-    )
-    try:
-        # a file object: np.savez would append ".npz" to a str path
-        with os.fdopen(fd, "wb") as fh:
-            saver(
-                fh,
-                __class__=np.asarray(cls),
-                __fields__=np.asarray(state._fields),
-                __dtypes__=np.asarray(dtypes),
-                __crcs__=np.asarray(crcs, np.uint64),
-                **arrays,
-            )
-            if durable:
-                fh.flush()
-                os.fsync(fh.fileno())
-        os.replace(tmp, path)
-        if durable:
-            fsync_dir(d)
-    except BaseException:
+    with fs_protocol("spool"):
+        fd, tmp = tempfile.mkstemp(
+            dir=d, prefix=os.path.basename(path) + ".", suffix=".tmp"
+        )
         try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
+            # a file object: np.savez would append ".npz" to a str path
+            with os.fdopen(fd, "wb") as fh:
+                saver(
+                    fh,
+                    __class__=np.asarray(cls),
+                    __fields__=np.asarray(state._fields),
+                    __dtypes__=np.asarray(dtypes),
+                    __crcs__=np.asarray(crcs, np.uint64),
+                    **arrays,
+                )
+                if durable:
+                    fh.flush()
+                    os.fsync(fh.fileno())
+            os.replace(tmp, path)
+            if durable:
+                fsync_dir(d)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
 
 
 def load_state(path: str, verify: bool = True):
@@ -141,7 +143,8 @@ def load_state(path: str, verify: bool = True):
     CRC manifest unless ``verify`` is False; damage raises
     :class:`CorruptCheckpointError`."""
     try:
-        z = np.load(path)
+        with fs_protocol("spool"):
+            z = np.load(path)
     except Exception as e:  # BadZipFile / OSError / EOFError / ValueError
         raise CorruptCheckpointError(
             f"checkpoint {path!r}: unreadable ({type(e).__name__}: {e})"

@@ -178,9 +178,9 @@ def test_validator_rejects_what_jax_rejects(doc, frag):
 
 def test_traced_drain_validates_in_both_packages(tmp_path):
     """A tiny drain under the armed tracer: every macro-round phase is a
-    span, the file passes the port's validator and the JAX package's, and
-    a JAX trace passes the port's (the port has no fence instants: its
-    sync sanitizer is not ported)."""
+    span, the file passes the port's validator and the JAX package's, the
+    sync sanitizer's fence crossings are instants inside their spans (the
+    validators check that), and a JAX trace passes the port's."""
     tracer = arm()
     try:
         d = drain_fleet("port", tmp_path, journal=True, snapshot_every=2)
@@ -194,7 +194,10 @@ def test_traced_drain_validates_in_both_packages(tmp_path):
     assert {"serve.round", "serve.plan", "serve.journal.wal", "serve.stage",
             "serve.moves", "serve.dispatch", "serve.snapshot",
             "serve.drain_fence"} <= names
-    assert not [e for e in tracer.events if e.get("cat") == "fence"]
+    fences = {e["name"] for e in tracer.events if e.get("cat") == "fence"}
+    assert {"FleetScheduler._execute_moves",
+            "FleetScheduler._snapshot_barrier",
+            "DocPool.pull_bucket"} <= fences
     jt = jax_trace.arm()
     try:
         with jax_trace.span("serve.round"):

@@ -130,7 +130,9 @@ def test_windows_partition_the_drain_and_stream(windowed):
         assert w["full"] == (w["rounds"] >= 2)
         assert sum(w["shard_ops"]) == w["ops"]
         assert sum(w["shard_lanes"]) == w["lanes"]
-        assert w["fence_entries"] == 0
+        # the sync sanitizer's fence crossings: the boundary moves' at
+        # least, one a round
+        assert w["fence_entries"] >= w["rounds"]
     assert all(w["full"] for w in ws[:-1])
     assert [json.loads(ln) for ln in
             d["path"].read_text().splitlines()] == ws

@@ -128,7 +128,12 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "serve.replicate.scheduler", "serve.replicate.bench",
                 "serve.ingest.__init__", "serve.ingest.admission",
                 "serve.ingest.front", "serve.ingest.deadline",
-                "serve.ingest.loadgen", "bench.serve_flags"):
+                "serve.ingest.loadgen", "bench.serve_flags",
+                "lint.__init__", "lint.sanitizer", "lint.boundary",
+                "lint.range_sanitizer", "lint.race_sanitizer",
+                "lint.fs_sanitizer", "lint.lifecycle_sanitizer",
+                "obs.profiler", "serve.edgecheck", "serve.fscrash",
+                "serve.lifecheck"):
         assert os.path.exists(os.path.join(
             REPO, "crdt_benches_tpu_torch", *mod.split(".")) + ".py"), mod
 

@@ -10,8 +10,11 @@ exit code, the bench id, the artifact's keys and every value that does not
 depend on the clock or the host.  The refusal matrix (the counterpart of
 JAX's ``tests/test_ingest.py`` one) holds exit 2 and JAX's message word
 for word; ``--serve-save-name`` and ``--serve-sample-seed`` name and draw
-as JAX's do; ``--serve-profile`` and ``--serve-edgecheck`` exit 2 naming
-ROADMAP item 7."""
+as JAX's do.  The sanitizers' and the profiler's blocks (``boundary_syncs``,
+``thread_crossings``, ``fs_ops``, ``lifecycle``, ``ranges``, ``profile``)
+equal JAX's but for their timed keys and the profile's op names (XLA's
+operations there, torch's here); ``--serve-profile 2`` and
+``--serve-edgecheck small`` run through both runners."""
 
 import functools
 import json
@@ -83,11 +86,28 @@ def _same_artifacts(jdir, pdir, name, live=False):
         assert p[k] == j[k], k
     assert set(p["extra"]) == set(j["extra"])
     for k, v in j["extra"].items():
-        if k in runner.ITEM7_BLOCKS:  # the lint and profiler blocks
-            assert p["extra"][k] is None, k
+        if k in runner.LINT_BLOCKS:  # the sanitizers' and the profiler's
+            assert _untimed(k, p["extra"][k], live) == _untimed(k, v, live), k
         elif k not in TIMED and not (live and k in LIVE):
             assert p["extra"][k] == v, k
     return j["extra"], p["extra"]
+
+
+def _untimed(key, block, live):
+    """A sanitizer or profile block without what follows the clock: the
+    profile's op table (its names are each package's own operations) and,
+    for a drain over the live wire, every count (the plans, and so the
+    boundary moves, follow the wire's timing): the surface flags stay."""
+    if block is None:
+        return None
+    if key == "profile":
+        ops = block["top_ops"]
+        assert ops and all(set(o) == {"name", "total_ms", "calls"}
+                           for o in ops)
+        return {k: v for k, v in block.items() if k != "top_ops"}
+    if live:
+        return {k: v for k, v in block.items() if not isinstance(v, dict)}
+    return block
 
 
 FAMILIES = [
@@ -152,6 +172,8 @@ REFUSALS = [
     ["--serve-deadline-budget", "4", "--serve-tenants", "a=1"],
     ["--serve-record-evict", "--serve-journal", "auto"],
     ["--serve-stream-scaling", "8", "--serve-soak", "1"],
+    ["--serve-edgecheck", "small", "--serve-mesh", "3", "--serve-journal",
+     "auto", "--serve-faults", "seed=1,stall=1"],
 ]
 
 
@@ -173,10 +195,24 @@ def test_refusal_matrix(extra, dirs, capsys):
 
 @pytest.mark.parametrize("extra", [["--serve-profile", "2"],
                                    ["--serve-edgecheck", "small"]])
-def test_item7_flags_exit_2(extra, dirs, capsys):
-    assert runner.main(["--family", "serve", "--device", "cpu", *TINY,
-                        *extra]) == 2
-    assert "ROADMAP Queue 1 item 7" in capsys.readouterr().err
+def test_profile_and_edgecheck_match_jax(extra, dirs, capsys):
+    """The device profiler and the edge harness (once refused with exit 2)
+    through both runners: the profiled drain's artifact equal to JAX's
+    but for the timed keys and the op names, the harness's ladders and
+    range checks word for word (the boundary fuzz counts each package's
+    own contracts)."""
+    argv = ([*TINY, *extra] if extra[0] == "--serve-profile"
+            else ["--serve-verify-sample", "4", *extra])
+    jrc, jout, prc, pout = _run(argv, capsys)
+    assert prc == jrc == 0
+    if extra[0] == "--serve-profile":
+        jx, px = _same_artifacts(*dirs, "serve_tiny_8")
+        assert px["profile"]["rounds"] == jx["profile"]["rounds"] == 2
+        return
+    jl, pl = jout.strip().splitlines(), pout.strip().splitlines()
+    assert pl[:-2] == jl[:-2]  # the ladders, oracle-identical
+    assert pl[-1].split(", ")[:-1] == jl[-1].split(", ")[:-1]
+    assert pl[-1].startswith("edgecheck: OK")
 
 
 def test_mesh_refusals_exit_2_with_jax_words(dirs, capsys):
