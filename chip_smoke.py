@@ -13,7 +13,8 @@ their plain PyTorch versions.
 ``--mesh-only`` the device, build and serve mesh phases alone (after a
 plain drain of serve/mixed/4096 for the reference rate),
 ``--tooling-only`` the device, build and runtime tooling phases alone
-(after the same reference drain),
+(after the same reference drain), ``--fleet-only`` the device, build and
+unit-op fleet step phases alone,
 ``--tier-full`` drains the README's 65,536-document tier cell in ``[serve
 tier]`` in place of its cut, ``--stream-full`` the README's
 262,144-document streamed cell in ``[serve stream]`` (and adds eager rows
@@ -68,7 +69,7 @@ Phases (one line each; any failure exits non-zero):
    reference's own configuration (one replica, ``layout="range"``), under
    the same checks with K1 and K3 once per batch and K2 never;
 6. K5 (unit resolver) against ``resolve_batch_plain``, with
-   ``emit_origin`` off and on, on every thirty-second batch of sveltecomponent at
+   ``emit_origin`` off and on, on every sixty-fourth batch of sveltecomponent at
    8 replicas (the plain versions run on the CPU, in worker processes), and
    on the worst-case batches (inserts at 0, deletes at 0, inserts at
    alternating ends, a late automerge-paper batch) at 1, 5 and 1024
@@ -129,7 +130,13 @@ Phases (one line each; any failure exits non-zero):
     oracle, every bucket state, row map and doc record and every counter
     equal to the fused drain's, its latency and spans; K1's per-row form
     and K4 at K = 1 held against their plain versions and timed on round 0
-    of the fused drain's kept dispatches; then ``[serve mesh]``: the
+    of the fused drain's kept dispatches; then ``[fleet step]``: every row
+    of every class a document of the same fleet, stepped once through
+    ``DocPool.step`` with its first 64 unit ops (K5's per-row form and K8
+    once a class), every row byte-identical to the oracle, K5's per-row
+    form held against ``resolve_batch_rows_plain`` on the stepped batches
+    and on its worst cases (all-PAD rows, rows at nvis 0, deletes past the
+    end, a batch at its shared-memory limit) and timed; then ``[serve mesh]``: the
     README's serve command (``--family serve --serve-docs 4096 --serve-mix
     mixed --serve-mesh 8 --serve-macro 8``, every document verified)
     in-process through the port's runner, 8 mesh shards on the one card:
@@ -264,12 +271,14 @@ Phases (one line each; any failure exits non-zero):
     byte-exact), K1's per-row form and K4 held against their plain
     versions on the big ladders' kept operands and timed (``[edgecheck
     kernels]``); ``[lifecheck]`` and ``[fscrash]`` at ``small``: zero
-    leaks, every crash point recovered;
+    leaks, every crash point recovered; ``[lint]``, beside those three:
+    ``python -m crdt_benches_tpu_torch.lint crdt_benches_tpu_torch`` with
+    the five artifact flags on ``[serve sanitized]``'s report, exit 0;
 15. the concurrent merges (``bench/merge.py``, ``--group merge``):
     merge/traces (rustcode and seph-blog1, 1,348,053 delivered ops)
     through the unit, run and flat engines at 64 replicas and through the
     run and flat engines at 1024, merge/adversarial (cut to about
-    625,000 delivered ops, each unique op ~16 times, shuffled) through
+    312,500 delivered ops, each unique op ~16 times, shuffled) through
     the unit and flat
     engines at 64: the generation counted (K5 once a batch of every
     agent's stream, held against its plain version on one batch), then per
@@ -330,6 +339,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import faulthandler
 import json
@@ -965,6 +975,243 @@ JAX_SERVE_KEYS = frozenset((
     "verified_docs", "verify_ok"))
 
 
+#: ``[fleet step]``: rows of every ``SERVE_CELL`` class, filled with
+#: serve/mixed/4096's documents, stepped once through ``DocPool.step`` with
+#: each document's first ``FLEET_STEP_OPS`` unit ops (the cell's batch).
+FLEET_STEP_OPS = SERVE_CELL["batch"]
+
+
+def fleet_step_docs(sessions, classes, slots, B):
+    """Each class's documents for ``[fleet step]``: the largest documents
+    go to the largest classes, each class full.  A document brings its
+    first ``B`` unit ops (``traces.tensorize`` of its first patches), the
+    chars of its slots and the oracle's text after those ops
+    (``oracle.replay_unit_ops``).  Returns ``{cls: [doc, ...]}``."""
+    import numpy as np
+
+    from crdt_benches_tpu_torch.oracle import text_oracle
+    from crdt_benches_tpu_torch.traces.loader import TestData, TestTxn
+    from crdt_benches_tpu_torch.traces.tensorize import tensorize
+
+    docs = []
+    for s in sessions:
+        patches, n_ops = [], 0
+        for p in s.trace.iter_patches():
+            if n_ops >= B:
+                break
+            patches.append(p)
+            n_ops += p.del_count + len(p.ins)
+        head = tensorize(TestData(s.trace.start_content, "",
+                                  [TestTxn("", patches)]), batch=B)
+        kind, pos, ch, slot = (a[:B] for a in (head.kind, head.pos, head.ch,
+                                               head.slot))
+        n_init = len(head.init_chars)
+        ins = kind == 1
+        need = n_init + int(ins.sum())
+        chars = np.concatenate([head.init_chars, ch[ins]]).astype(np.int32)
+        docs.append(dict(doc_id=s.doc_id, n_init=n_init, need=need,
+                         chars=chars, kind=kind, pos=pos, slot=slot,
+                         text=text_oracle.replay_unit_ops(
+                             kind, pos, ch, s.trace.start_content)))
+    docs.sort(key=lambda d: -max(d["need"], 1))
+    out, i = {}, 0
+    for c, r in sorted(zip(classes, slots), reverse=True):
+        picked = []
+        while len(picked) < r and i < len(docs):
+            if docs[i]["need"] <= c:
+                picked.append(docs[i])
+            i += 1
+        if len(picked) < r:
+            fail(f"fleet step: {len(picked)} documents fit class {c}, "
+                 f"want {r}")
+        out[c] = picked
+    return out
+
+
+def k5_rows_worst_cases(dev) -> dict[str, tuple]:
+    """K5's per-row worst cases (kind, pos, v0 on ``dev``): all-PAD rows,
+    rows at nvis 0, deletes past the end, and a batch at the per-row form's
+    shared-memory limit (``max_rows_batch``)."""
+    import numpy as np
+    import torch
+
+    from crdt_benches_tpu_torch.ops import resolve as rs
+
+    rng = np.random.default_rng(23)
+
+    def rows(R, B, p_kind, v0hi, pos_hi):
+        v0 = rng.integers(0, v0hi + 1, R).astype(np.int32)
+        kind = rng.choice([0, 1, 2], size=(R, B), p=p_kind).astype(np.int32)
+        pos = rng.integers(-2, pos_hi, (R, B)).astype(np.int32)
+        return v0, kind, pos
+
+    cases = {}
+    v0, kind, pos = rows(256, 64, (0.2, 0.5, 0.3), 40, 120)
+    kind[::2] = 0
+    cases["all-PAD rows"] = (kind, pos, v0)
+    v0, kind, pos = rows(256, 64, (0.1, 0.4, 0.5), 0, 8)
+    cases["nvis 0"] = (kind, pos, np.zeros_like(v0))
+    v0, kind, pos = rows(256, 64, (0.0, 0.2, 0.8), 8, 400)
+    cases["deletes past the end"] = (kind, pos, v0)
+    Bmax = rs.max_rows_batch()
+    # one block of four warps, each at the limit: the plain walk of its
+    # 2,399 ops runs on the host and sets the phase's time
+    v0, kind, pos = rows(4, Bmax, (0.05, 0.6, 0.35), 300, 300 + Bmax)
+    cases[f"B = {Bmax}, the shared-memory limit"] = (kind, pos, v0)
+    return {k: tuple(torch.from_numpy(a).to(dev) for a in v)
+            for k, v in cases.items()}
+
+
+def fleet_step_phase(dev, bound, smi_line) -> dict:
+    """``[fleet step]``: a pool of ``SERVE_CELL``'s classes and slots at
+    batch ``FLEET_STEP_OPS`` on the card, every row of every class a
+    document of serve/mixed/4096 (``share_serve_fleet``'s sessions), each
+    class stepped once at its full row count through ``DocPool.step``
+    (K5's per-row form, then K8 in ``apply_batch3``); every stepped row
+    decodes to the oracle's text of the same ops.  The counts are set to
+    0 just before the steps and read just after: K5's per-row form and K8
+    launched once a class, no plain version.  Then K5's per-row form is
+    held against ``resolve_batch_rows_plain`` (run on the card) on each
+    class's stepped batch and on :func:`k5_rows_worst_cases`, max abs
+    error 0 on every field, and timed per launch (CUDA events) beside the
+    plain version.  Returns its row of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from crdt_benches_tpu_torch.ops import resolve as rs
+    from crdt_benches_tpu_torch.serve import bench as bench_mod
+    from crdt_benches_tpu_torch.serve.pool import DocPool, decode_row_np
+    from crdt_benches_tpu_torch.traces.tensorize import INSERT, PAD
+
+    t0 = time.perf_counter()
+    c = SERVE_CELL
+    sessions = bench_mod.build_fleet(
+        c["n_docs"], mix=c["mix"], seed=c["seed"],
+        arrival_span=c["arrival_span"], arrival_dist="uniform", bands=None,
+        horizon=1, delivery=None)
+    B = FLEET_STEP_OPS
+    per_class = fleet_step_docs(sessions, c["classes"], c["slots"], B)
+    pool = DocPool(classes=c["classes"], slots=c["slots"], device=dev,
+                   prefetch=False)
+    ops, v0s = {}, {}
+    try:
+        for cls, docs in per_class.items():
+            R = pool.buckets[cls].R
+            kind = np.full((R, B), PAD, np.int32)
+            pos = np.zeros((R, B), np.int32)
+            slot = np.full((R, B), -1, np.int32)
+            for d in docs:
+                pool.register(d["doc_id"], d["n_init"], d["need"],
+                              d["chars"])
+                got, row = pool.admit(d["doc_id"], cls)
+                if got != cls:
+                    fail(f"fleet step: doc {d['doc_id']} in class {got}, "
+                         f"want {cls}")
+                kind[row], pos[row], slot[row] = d["kind"], d["pos"], d["slot"]
+                d["row"] = row
+            ops[cls] = (kind, pos, slot)
+        build_s = time.perf_counter() - t0
+        for cls in ops:
+            v0s[cls] = pool.buckets[cls].state.nvis.clone()
+        torch.cuda.synchronize()
+        zero_all_counts()
+        t1 = time.perf_counter()
+        for cls, (kind, pos, slot) in ops.items():
+            pool.step(cls, kind, pos, slot)
+        pool.block()
+        step_s = time.perf_counter() - t1
+        launches = read_all_counts("fleet step")
+        want = {"resolve_batch_rows": len(ops), "expand_packed": len(ops)}
+        if launches != want:
+            fail(f"fleet step: launches {launches}, want {want}")
+        n_rows = 0
+        for cls, docs in per_class.items():
+            doc, length, nvis = pool.pull_bucket(cls)
+            for d in docs:
+                r = d["row"]
+                got = decode_row_np(doc[r], int(length[r]), int(nvis[r]),
+                                    d["chars"])
+                if got != d["text"]:
+                    fail(f"fleet step: doc {d['doc_id']} (class {cls}, row "
+                         f"{r}) differs from the oracle")
+                n_rows += 1
+            if pool.buckets[cls].steps != 1:
+                fail(f"fleet step: class {cls} counted "
+                     f"{pool.buckets[cls].steps} steps")
+    finally:
+        pool.close()
+    # ---- K5's per-row form against its plain version, timed ----
+    err, worst = 0, {}
+    ms = plain_ms = b_bytes = b_ops = 0.0
+    for cls, (kind, pos, _slot) in ops.items():
+        args = (torch.from_numpy(kind).to(dev), torch.from_numpy(pos).to(dev),
+                v0s[cls])
+        got = rs.resolve_batch_rows(*args)
+        plain = []
+        plain_ms += elapsed_ms(
+            lambda: plain.append(rs.resolve_batch_rows_plain(*args)), 1)
+        err = max(err, max_err(tuple(got), tuple(plain[0])))
+        ms += queued_ms(lambda: rs.resolve_batch_rows(*args), 20)
+        R = kind.shape[0]
+        b_bytes += R * B * (2 * 4 + 5 * 4 + 1) + R * 4
+        b_ops += k5_rows_ops(*args)
+    n = len(ops)
+    checks_s = time.perf_counter() - t1 - step_s
+    t2 = time.perf_counter()
+    for name, args in k5_rows_worst_cases(dev).items():
+        # with origins and without, against one plain walk: without, an
+        # insert's origin is -1 and any other op's -2, every other field
+        # the same.  The long batch's plain walk (2,399 ops over 4 rows)
+        # runs on the CPU, where it takes less time
+        long = args[0].shape[1] > 256
+        host = tuple(a.cpu() for a in args) if long else args
+        plain = rs.resolve_batch_rows_plain(*host)
+        no_origin = plain._replace(origin=torch.where(
+            host[0] == INSERT, -1, -2).to(plain.origin.dtype))
+        e = max(max_err(
+            tuple(x.cpu() if long else x
+                  for x in rs.resolve_batch_rows(*args, emit_origin=eo)),
+            tuple(want))
+            for eo, want in ((True, plain), (False, no_origin)))
+        worst[name] = e
+        err = max(err, e)
+    worst_s = time.perf_counter() - t2
+    if err:
+        fail(f"fleet step: K5's per-row form differs from its plain version "
+             f"by {err} ({worst})")
+    b_ms, b_by = bound(b_bytes / n, b_ops / n)
+    print(f"[fleet step] DocPool.step on every SERVE_CELL class at full rows "
+          f"({', '.join(f'{k}x{v}' for k, v in zip(c['classes'], c['slots']))}"
+          f"), batch {B}, {smi_line}: {n_rows} serve/mixed/4096 docs stepped, "
+          f"all byte-identical to the oracle; launches {launches}; K5 per-row "
+          f"equals resolve_batch_rows_plain (max abs error 0) on the stepped "
+          f"batches and on {', '.join(worst)}; {ms / n:.4f} ms a launch "
+          f"(mean of the {n} classes) against a bound of {b_ms:.6f} ms "
+          f"({b_by}), plain on the card {plain_ms / n:.3f} ms; build "
+          f"{build_s:.1f} s, steps {step_s * 1e3:.1f} ms, decode and stepped "
+          f"checks {checks_s:.1f} s, worst cases {worst_s:.1f} s, phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return kernel_row("resolve_batch_rows", "resolve_unit.cu",
+                      "resolve_pallas.py:282", launches["resolve_batch_rows"],
+                      err, ms / n, plain_ms / n, (b_ms, b_by))
+
+
+def k5_rows_ops(kind, pos, v0) -> int:
+    """The int32 operations K5's per-row form needs on these inputs, as
+    :func:`k5_ops` counts them, from the plain per-row token walk: per op
+    that acts, two fields moved for each live token after its token and
+    ceil(log2(nused + 1)) search compares."""
+    import torch
+
+    from crdt_benches_tpu_torch.ops import resolve as rs
+
+    w = rs.resolve_tokens_rows_plain(kind, pos, v0, emit_origin=False)
+    acts = w.t >= 0
+    nused, t = w.nused[acts], w.t[acts]
+    steps = torch.ceil(torch.log2(nused.double() + 1)).long()
+    return int(2 * (nused - t).sum() + steps.sum())
+
+
 def share_serve_fleet() -> dict:
     """Build ``SERVE_CELL``'s 4,096 sessions once for every drain of that
     fleet (``[serve]``, ``[serve scan]``, ``[serve mesh]``, the telemetry,
@@ -1384,6 +1631,9 @@ def tooling_phases(dev, bound, serve_rate, smi_line) -> list[dict]:
                 if isinstance(v, dict) and v}
         print(f"[serve sanitized] {key}, {smi_line}: "
               f"{json.dumps(body, sort_keys=True)}", flush=True)
+    # ---- [lint]: the static lint against this drain's report, in the
+    # background while the harnesses below run ----
+    lint_run = start_lint(rep)
 
     # ---- [edgecheck]: the full harness, the uint16 bracket kept ----
     keep: dict = {}
@@ -1454,7 +1704,57 @@ def tooling_phases(dev, bound, serve_rate, smi_line) -> list[dict]:
           f"{fc['mutations']} crash points recovered byte-identical to the "
           f"oracle, per protocol {fc['per_protocol']}; launches "
           f"{launches}; {time.perf_counter() - t0:.1f} s", flush=True)
+    finish_lint(lint_run)
     return rows
+
+
+#: The blocks of a serve report the lint's five cross-checks read.
+LINT_BLOCKS = ("boundary_syncs", "thread_crossings", "fs_ops", "lifecycle",
+               "ranges")
+LINT_FLAGS = ("--sync-artifact", "--thread-artifact", "--fs-artifact",
+              "--lifecycle-artifact", "--ranges-artifact")
+
+
+def start_lint(report) -> tuple:
+    """Start ``[lint]``: write the report's five blocks to a temporary
+    file and run ``python -m crdt_benches_tpu_torch.lint
+    crdt_benches_tpu_torch`` with all five artifact flags on it, in a
+    process of its own (pure AST work on the host)."""
+    import tempfile
+
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_lint_", suffix=".json")
+    with os.fdopen(fd, "w") as fh:
+        json.dump({k: report[k] for k in LINT_BLOCKS}, fh, default=str)
+    cmd = [sys.executable, "-m", "crdt_benches_tpu_torch.lint",
+           "crdt_benches_tpu_torch"]
+    for flag in LINT_FLAGS:
+        cmd += [flag, path]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    # a failure before finish_lint still stops the child
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path, time.perf_counter()
+
+
+def finish_lint(run) -> None:
+    """``[lint]``'s result: the lint must exit 0 ("graftlint: clean")."""
+    proc, path, t0 = run
+    try:
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        os.unlink(path)
+    secs = time.perf_counter() - t0
+    last = out.strip().splitlines()[-1] if out.strip() else ""
+    if proc.returncode != 0 or last != "graftlint: clean":
+        fail(f"lint: exit {proc.returncode} against [serve sanitized]'s "
+             f"report:\n{out[-4000:]}")
+    print(f"[lint] python -m crdt_benches_tpu_torch.lint "
+          f"crdt_benches_tpu_torch {' '.join(LINT_FLAGS)} on [serve "
+          f"sanitized]'s report: exit 0, {last}; {secs:.1f} s (run beside "
+          f"[edgecheck], [lifecheck] and [fscrash])", flush=True)
 
 
 def kept_kernel_check(tag, label, keep, classes, dev, bound) -> dict:
@@ -4378,11 +4678,12 @@ MERGE_PATHS = {
                ("flat", 1024)),
     "adversarial": (("unit", 64), ("flat", 64)),
 }
-#: merge/adversarial's delivered ops (``--merge-ops``): 625,000, a sixteenth
-#: of the config's 10,000,000 (half since the replication and reshard
-#: phases came, an eighth since the open-loop phases did, a sixteenth since
-#: the runtime tooling phases)
-MERGE_ADVERSARIAL_OPS = 625_000
+#: merge/adversarial's delivered ops (``--merge-ops``): 312,500, a
+#: thirty-second of the config's 10,000,000 (half since the replication and
+#: reshard phases came, an eighth since the open-loop phases did, a
+#: sixteenth since the runtime tooling phases, a thirty-second since the
+#: fleet step and lint phases)
+MERGE_ADVERSARIAL_OPS = 312_500
 
 
 def merge_phases(dev, bound) -> tuple[list[dict], dict]:
@@ -4927,11 +5228,12 @@ def port_counters():
 
     kernels = (rr.resolve_range, rr.resolve_range_rows, arf.range_apply,
                arf.range_apply_blocked, sf.serve_macro_fused,
-               rs.resolve_batch, arf.apply_fused2, ex.apply_fused_blocked,
-               ex.expand_packed, ex.expand_fill_zero)
+               rs.resolve_batch, rs.resolve_batch_rows, arf.apply_fused2,
+               ex.apply_fused_blocked, ex.expand_packed, ex.expand_fill_zero)
     plains = (rr.resolve_range_plain, rr.resolve_range_rows_plain,
               arf.range_apply_plain, sf.serve_macro_plain,
-              rs.resolve_batch_plain, arf.apply_fused2_plain,
+              rs.resolve_batch_plain, rs.resolve_batch_rows_plain,
+              arf.apply_fused2_plain,
               ex.apply_fused_blocked_plain, ex.expand_packed_plain,
               ex.expand_fill_zero_plain)
     return kernels, plains
@@ -5263,6 +5565,9 @@ def main(argv=None) -> int:
                     "phases (a plain drain of serve/mixed/4096 for the "
                     "reference rate, then [serve profile], [serve "
                     "sanitized], [edgecheck], [lifecheck], [fscrash])")
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="run only the device, build and unit-op fleet step "
+                    "phases ([fleet step])")
     ap.add_argument("--open-full", action="store_true",
                     help="[serve open] on the uncut OPEN_FULL cell (4,096 "
                     "docs at 16,384 ops/round)")
@@ -5346,6 +5651,12 @@ def main(argv=None) -> int:
         if "registers" in ln or "bytes stack" in ln:
             print(f"[build] {ln.strip()}", flush=True)
     fleet = share_serve_fleet()
+    if opts.fleet_only:
+        rows = [fleet_step_phase(dev, bound, smi_line)]
+        print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(json.dumps({"kernels": rows}))
+        print(smi_line)
+        return 0
     if opts.mesh_only or opts.tooling_only:
         from crdt_benches_tpu_torch.serve.bench import run_serve_bench
 
@@ -5899,11 +6210,11 @@ def main(argv=None) -> int:
     unit_walk("v4", sv.init_state(), engine_chunks(sv), k5_log=k5_log)
     if len(k5_log) != sv.tt.n_batches:
         fail(f"K5 logged {len(k5_log)} batches, want {sv.tt.n_batches}")
-    # every thirty-second batch (every fourth until the streaming phases
+    # every sixty-fourth batch (every fourth until the streaming phases
     # came, every eighth until the open-loop phases did, every sixteenth
-    # until the runtime tooling phases: the plain version on the CPU sets
-    # this phase's time; every batch of the main paths runs K5 at full
-    # width)
+    # until the runtime tooling phases, every thirty-second until the
+    # fleet step and lint phases: the plain version on the CPU sets this
+    # phase's time; every batch of the main paths runs K5 at full width)
     k5_log = k5_log[::K5_STRIDE]
     tasks, got = [], []
     for args, out in k5_log:
@@ -6378,6 +6689,8 @@ def main(argv=None) -> int:
     # ---- the serving fleet: K1's per-row form and K4 ----
     serve_rate, serve_rows, serve_ref = serve_phases(dev, bound)
     rows += serve_rows
+    # ---- the unit-op fleet step: K5's per-row form, on the same fleet ----
+    rows.append(fleet_step_phase(dev, bound, smi_line))
     # ---- the serve mesh through the runner's serve family ----
     t0 = time.perf_counter()
     rows += serve_mesh_phase(dev, bound, serve_rate, smi_line)

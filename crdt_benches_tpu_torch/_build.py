@@ -53,6 +53,8 @@ SIGNATURES = {
     # kind, pos, v0, R, B, T, emit_origin,
     # del_rank, ins_gvis, ins_seq, ins_alive, origin, del_batch, stream
     "crdt_resolve_unit": [_P] * 3 + [_I] * 4 + [_P] * 6 + [_P],
+    # the same with kind/pos int32[R, B] (one op stream a row)
+    "crdt_resolve_unit_rows": [_P] * 3 + [_I] * 4 + [_P] * 6 + [_P],
     # doc, combo, new_len, R, C, emit_cv, doc_out, cv_intile, vis_tile,
     # stream
     "crdt_unit_apply": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_P],
@@ -150,8 +152,10 @@ def build() -> str:
     return lib
 
 
-def kernels() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+def kernels() -> ctypes.CDLL:  # graftlint: fence=cold
+    """The loaded kernel library (built on first use).  A declared sync
+    boundary off the drain: the build runs once a process, and the serve
+    benches load the library before their clock starts."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())

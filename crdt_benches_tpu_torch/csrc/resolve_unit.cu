@@ -43,6 +43,10 @@
 // tie-break rank), as in ops/resolve.py extract_from_tokens.
 // Shared memory per block: (kWarps * 2 * (T + 1) + 2 * B) * 4 bytes
 // (22,560 at B = 256, T = 640); ops/resolve.py unit_smem_bytes mirrors it.
+// The per-row form (crdt_resolve_unit_rows) takes one op stream a row,
+// kind/pos int32[R, B]: each warp stages its row's ops beside its list,
+// kWarps * (2 * (T + 1) + 2 * B) * 4 bytes a block (10,272 at B = 64,
+// T = 256); ops/resolve.py unit_rows_smem_bytes mirrors it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,6 +69,12 @@ constexpr unsigned kAll = 0xffffffffu;
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 
+// kRows == false: one op stream (kind/pos int32[B]) for every replica,
+// staged once a block.  kRows == true: one op stream a row (kind/pos
+// int32[R, B], JAX's vmap of resolve_batch over the fleet's rows); each
+// warp stages its own row's ops beside its list, (2 * (T + 1) + 2 * B)
+// ints a warp, and nothing syncs more than the warp.
+template <bool kRows>
 __global__ void __launch_bounds__(kWarps * 32)
 resolve_unit_kernel(const int* __restrict__ kind, const int* __restrict__ pos,
                     const int* __restrict__ v0, int R, int B, int T,
@@ -73,21 +83,34 @@ resolve_unit_kernel(const int* __restrict__ kind, const int* __restrict__ pos,
                     bool* __restrict__ alive_o, int* __restrict__ origin_o,
                     int* __restrict__ dbatch_o) {
   extern __shared__ int smem[];
-  int* skind = smem;
-  int* spos = smem + B;
-  for (int i = threadIdx.x; i < B; i += kWarps * 32) {
-    skind[i] = kind[i];
-    spos[i] = pos[i];
-  }
-  __syncthreads();
-
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + warp;
-  if (r >= R) return;
-  int* tta = smem + 2 * B + warp * 2 * (T + 1);
-  int* cum = tta + T + 1;
   const size_t rb = static_cast<size_t>(r) * B;
+  int* skind;
+  int* spos;
+  int* tta;
+  if constexpr (kRows) {
+    if (r >= R) return;
+    skind = smem + warp * (2 * (T + 1) + 2 * B);
+    spos = skind + B;
+    tta = spos + B;
+    for (int i = lane; i < B; i += 32) {
+      skind[i] = kind[rb + i];
+      spos[i] = pos[rb + i];
+    }
+  } else {
+    skind = smem;
+    spos = smem + B;
+    for (int i = threadIdx.x; i < B; i += kWarps * 32) {
+      skind[i] = kind[i];
+      spos[i] = pos[i];
+    }
+    __syncthreads();
+    if (r >= R) return;
+    tta = smem + 2 * B + warp * 2 * (T + 1);
+  }
+  int* cum = tta + T + 1;
   const int vr = v0[r];
   if (lane < 2) {  // RUN(0) of length v0, then the FREE sentinel
     tta[lane] = lane == 0 ? kRun : kFree;
@@ -261,6 +284,25 @@ resolve_unit_kernel(const int* __restrict__ kind, const int* __restrict__ pos,
   }
 }
 
+template <bool kRows>
+int launch(const int* kind, const int* pos, const int* v0, int R, int B,
+           int T, int emit_origin, int* del_rank, int* ins_gvis, int* ins_seq,
+           bool* ins_alive, int* origin, int* del_batch, void* stream) {
+  const int smem =
+      (kRows ? kWarps * (2 * (T + 1) + 2 * B) : kWarps * 2 * (T + 1) + 2 * B) *
+      static_cast<int>(sizeof(int));
+  cudaError_t e = cudaFuncSetAttribute(
+      resolve_unit_kernel<kRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (R + kWarps - 1) / kWarps;
+  resolve_unit_kernel<kRows><<<blocks, kWarps * 32, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      kind, pos, v0, R, B, T, emit_origin, del_rank, ins_gvis, ins_seq,
+      ins_alive, origin, del_batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int crdt_resolve_unit(const int* kind, const int* pos,
@@ -268,15 +310,19 @@ extern "C" int crdt_resolve_unit(const int* kind, const int* pos,
                                  int emit_origin, int* del_rank,
                                  int* ins_gvis, int* ins_seq, bool* ins_alive,
                                  int* origin, int* del_batch, void* stream) {
-  const int smem =
-      (kWarps * 2 * (T + 1) + 2 * B) * static_cast<int>(sizeof(int));
-  cudaError_t e = cudaFuncSetAttribute(
-      resolve_unit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (R + kWarps - 1) / kWarps;
-  resolve_unit_kernel<<<blocks, kWarps * 32, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      kind, pos, v0, R, B, T, emit_origin, del_rank, ins_gvis, ins_seq,
-      ins_alive, origin, del_batch);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(kind, pos, v0, R, B, T, emit_origin, del_rank,
+                       ins_gvis, ins_seq, ins_alive, origin, del_batch,
+                       stream);
+}
+
+// The per-row form: kind/pos int32[R, B], one op stream a row.
+extern "C" int crdt_resolve_unit_rows(const int* kind, const int* pos,
+                                      const int* v0, int R, int B, int T,
+                                      int emit_origin, int* del_rank,
+                                      int* ins_gvis, int* ins_seq,
+                                      bool* ins_alive, int* origin,
+                                      int* del_batch, void* stream) {
+  return launch<true>(kind, pos, v0, R, B, T, emit_origin, del_rank,
+                      ins_gvis, ins_seq, ins_alive, origin, del_batch,
+                      stream);
 }

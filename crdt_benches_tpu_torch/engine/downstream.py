@@ -308,7 +308,7 @@ def apply_update_batch3(state: PackedState, ins, gap, rank, del_pos):
     n_ins = is_ins.sum(dim=1, dtype=I32)
     n_del = has_del.sum(dim=1, dtype=I32)
     length = state.length + n_ins
-    beyond = torch.arange(C, device=doc.device) >= length[:, None]
+    beyond = torch.arange(C, device=doc.device, dtype=torch.int64) >= length[:, None]
     return PackedState(doc=torch.where(beyond, 2, doc), length=length,
                        nvis=state.nvis + n_ins - n_del)
 
@@ -484,10 +484,11 @@ class DownstreamEngine:
         if self.engine == "v5":
             return apply_updates5(st, self.ins_b, self.anchor_b, self.rank_b,
                                   self.dslot_b, epoch=self.epoch)
+        # st is read below only on the branches where v5 did not run
         if self.engine == "v3":
-            return apply_updates3(st, self.ins_b, self.gap_b, self.rank_b,
+            return apply_updates3(st, self.ins_b, self.gap_b, self.rank_b,  # graftlint: disable=G004
                                   self.dpos_b)
-        return apply_updates(st, self.ins_b, self.anchor_b, self.rank_b,
+        return apply_updates(st, self.ins_b, self.anchor_b, self.rank_b,  # graftlint: disable=G004
                              self.dslot_b)
 
     def decode(self, state, replica: int = 0) -> str:

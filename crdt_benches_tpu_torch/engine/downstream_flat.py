@@ -42,7 +42,7 @@ def _rightmost_fill(marks: torch.Tensor) -> torch.Tensor:
     """The latest nonnegative value at or before each index (a segment
     fill; JAX's associative 'rightmost valid' scan, which leaves marks[0]
     where none is valid): a ``cummax`` over the valid indices."""
-    idx = torch.arange(marks.shape[0], device=marks.device)
+    idx = torch.arange(marks.shape[0], device=marks.device, dtype=torch.int64)
     last = torch.cummax(torch.where(marks >= 0, idx, -1), dim=0).values
     return torch.where(last >= 0, marks[last.clamp(min=0)], marks[0])
 

@@ -172,7 +172,7 @@ def _rank_sorted_segments(lamport, agent, kind, elem, origin, ch,
         parts.append(r)
     rank = torch.cat(parts).long()
     inv = torch.empty_like(rank)
-    inv[rank] = torch.arange(n, device=rank.device)
+    inv[rank] = torch.arange(n, device=rank.device, dtype=torch.int64)
     return lamport, agent, kind[inv], elem[inv], origin[inv], ch
 
 

@@ -314,7 +314,7 @@ def delete_fold(state: DownPacked, dlo, dhi) -> DownPacked:
         1, tgt, killed.expand(R, C))[:, :C]
     vis = state.doc & 1
     newvis = vis * (kill_doc == 0).to(I32)
-    in_doc = torch.arange(C, device=dev) < state.length[:, None]
+    in_doc = torch.arange(C, device=dev, dtype=torch.int64) < state.length[:, None]
     return DownPacked(doc=state.doc - (vis - newvis), snap=snap,
                       length=state.length,
                       nvis=(newvis * in_doc.to(I32)).sum(dim=1, dtype=I32))

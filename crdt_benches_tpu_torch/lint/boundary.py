@@ -60,9 +60,22 @@ class BoundaryContract:
     shapes: tuple  # per-positional-arg "K R B" spec or None
     donates: tuple  # positions written in place
 
+    def describe(self) -> dict:
+        return {
+            "dtypes": list(self.dtypes),
+            "shapes": list(self.shapes),
+            "donates": list(self.donates),
+        }
+
 
 #: The contract table, keyed by "module.qualname".
 REGISTRY: dict[str, BoundaryContract] = {}
+
+
+def boundary_table() -> dict[str, dict]:
+    """The registry as plain JSON-ready data (the lint's ``--boundaries``
+    dump)."""
+    return {name: c.describe() for name, c in sorted(REGISTRY.items())}
 
 
 def _leaves(x):

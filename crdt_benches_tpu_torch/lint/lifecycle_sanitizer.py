@@ -63,6 +63,13 @@ class LifecycleLeakError(LifecycleError):
 #: protocol (the prefetch worker releases off-thread), so the counter
 #: tables take a real mutex — same reasoning as fs_sanitizer._mu.
 _mu = threading.Lock()
+#: The machine vocabulary (the static rules reject any other tag).
+KNOWN_MACHINES = ("doc", "row", "spool", "stream", "session")
+
+#: The resource vocabulary for acquire/release pairing.
+KNOWN_RESOURCES = ("rows", "spool", "stream", "segment", "socket",
+                   "thread")
+
 _machines: dict[str, dict[str, int]] = {}  # machine -> edge -> count
 _resources: dict[str, dict[str, int]] = {}  # resource -> acq/rel count
 _unattributed: list[str] = []  # transitions on undeclared machines

@@ -30,6 +30,12 @@ import threading
 
 import numpy as np
 
+#: The armed-surface vocabulary for the ``ranges`` artifact block:
+#: ``staging`` is armed on every drain, ``fused``/``scan`` name the serve
+#: kernel the run dispatched (the static G026/G029 surfaces).
+KNOWN_SURFACES = ("staging", "fused", "scan")
+
+
 class RangeSanitizerError(RuntimeError):
     """Base class for every armed value-range violation."""
 

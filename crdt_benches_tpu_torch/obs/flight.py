@@ -54,7 +54,7 @@ FLIGHT_VERSION = 1
 DEFAULT_RING = 256
 
 
-class FlightRecorder:
+class FlightRecorder:  # graftlint: thread=hot
     """Bounded pre-anomaly window + atomic dump (module docstring)."""
 
     def __init__(self, path: str, ring: int = DEFAULT_RING,
@@ -86,7 +86,7 @@ class FlightRecorder:
     # ---- triggers (anomaly fire / unrecovered fault / crash) ----
 
     @fenced
-    def trigger(self, reason: str, *, registry=None, status=None,
+    def trigger(self, reason: str, *, registry=None, status=None,  # graftlint: fence=flight  # graftlint: durable=flight
                 requests=None, anomalies=None) -> str:
         """Dump the recorder's state atomically and return the path.
         Later triggers replace the file (each dump is a superset-in-

@@ -142,7 +142,7 @@ class RequestContext:
         }
 
 
-class RequestTracker:
+class RequestTracker:  # graftlint: thread=hot
     """Request lifecycle owner (module docstring has the model).
 
     Disarmed (``samples=0`` and no SLO tracker — the default every

@@ -200,7 +200,7 @@ class _ClassState:
         }
 
 
-class SloTracker:
+class SloTracker:  # graftlint: thread=hot
     """Per-class SLO accounting over closed doc requests (module
     docstring has the model).  Gauges are pre-registered at
     :meth:`bind`; :meth:`note_request` touches held references only."""

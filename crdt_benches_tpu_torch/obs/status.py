@@ -158,7 +158,7 @@ def render_prometheus(metrics: dict) -> str:
 # ---------------------------------------------------------------------------
 
 
-class _Handler(BaseHTTPRequestHandler):
+class _Handler(BaseHTTPRequestHandler):  # graftlint: thread=status
     server_version = "crdt-serve-status/1"
 
     def log_message(self, *args) -> None:  # no stderr chatter per scrape
@@ -250,27 +250,27 @@ class StatusServer:
     # ---- publisher side (hot path: reference swaps only) ----
 
     @published
-    def publish_status(self, snapshot: dict) -> None:
+    def publish_status(self, snapshot: dict) -> None:  # graftlint: publish=status  # graftlint: thread=hot
         snapshot["ts"] = time.time()
         self._status = share(snapshot, "StatusServer.status")
         self._last_publish = time.monotonic()
 
     @published
-    def publish_metrics(self, metrics: dict) -> None:
+    def publish_metrics(self, metrics: dict) -> None:  # graftlint: publish=status  # graftlint: thread=hot
         self._metrics = share(metrics, "StatusServer.metrics")
 
-    def set_health(self, ok: bool, reason: str = "") -> None:
+    def set_health(self, ok: bool, reason: str = "") -> None:  # graftlint: thread=hot
         self._health = (ok, reason)  # immutable tuple: atomic swap
 
     # ---- reader side (handler threads) ----
 
-    def status_snapshot(self) -> dict:
+    def status_snapshot(self) -> dict:  # graftlint: thread=status
         return reveal(self._status)
 
-    def metrics_snapshot(self) -> dict:
+    def metrics_snapshot(self) -> dict:  # graftlint: thread=status
         return reveal(self._metrics)
 
-    def health(self) -> tuple[bool, str]:
+    def health(self) -> tuple[bool, str]:  # graftlint: thread=status
         if self.stale_after is not None:
             silent = time.monotonic() - self._last_publish
             if silent > self.stale_after:

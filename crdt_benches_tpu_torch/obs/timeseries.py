@@ -71,7 +71,7 @@ def read_rss_bytes() -> int | None:
                     else 4096)
 
 
-class TimeseriesRecorder:
+class TimeseriesRecorder:  # graftlint: thread=hot
     """Fold per-round samples into bounded, delta-encoded windows.
 
     One window = up to ``window_rounds`` macro-rounds: wall seconds,
@@ -222,7 +222,7 @@ class TimeseriesRecorder:
 
 
 @dataclass
-class ServeTelemetry:
+class ServeTelemetry:  # graftlint: thread=hot
     """The continuous-telemetry bundle one serve run threads through
     its scheduler(s).  Any piece may be None; a soak run shares one
     bundle across every drain it spins up."""

@@ -72,7 +72,8 @@ def set_rows(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
 
 def take_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """arr[r, idx[r, b]] with idx clamped into [0, C) (JAX's gather)."""
-    return arr.gather(1, idx.clamp(0, arr.shape[1] - 1).long())
+    # the clamp is the contract (JAX's gather clamps): callers mask
+    return arr.gather(1, idx.clamp(0, arr.shape[1] - 1).long())  # graftlint: disable=G026
 
 
 def doc_order_visibility(order, visible, length):
@@ -80,7 +81,7 @@ def doc_order_visibility(order, visible, length):
     the length), whether it is a visible char, and the inclusive int32
     prefix of vis."""
     C = order.shape[1]
-    valid = torch.arange(C, device=order.device) < length[:, None]
+    valid = torch.arange(C, device=order.device, dtype=torch.int64) < length[:, None]
     slot_at = torch.where(valid, order, 0)
     vis = valid & take_rows(visible, slot_at)
     return slot_at, vis, torch.cumsum(vis, dim=1, dtype=I32)

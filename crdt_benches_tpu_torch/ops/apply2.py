@@ -149,13 +149,14 @@ def count_le_two_level(cv_intile, tile_base, tmax_abs, q):
     nt = C // LANE
     nfull = torch.searchsorted(tmax_abs, q.contiguous(), right=True)
     tq = nfull.clamp(max=nt - 1)
-    base = tile_base.gather(1, tq)
+    base = tile_base.gather(1, tq)  # graftlint: mask=count-le-clamp
     start = tq * LANE
     within = torch.zeros_like(tq)
     for s in (64, 32, 16, 8, 4, 2, 1):
-        v = cv_intile.gather(1, start + within + (s - 1)).to(I32) + base
+        # in range: start + within + s - 1 < (tq + 1) * LANE <= C
+        v = cv_intile.gather(1, start + within + (s - 1)).to(I32) + base  # graftlint: disable=G026
         within = within + torch.where(v <= q, s, 0)
-    return torch.where(nfull >= nt, C, nfull * LANE + within).to(I32)
+    return torch.where(nfull >= nt, C, nfull * LANE + within).to(I32)  # graftlint: mask=count-le-clamp
 
 
 def count_le_tiled(sorted_rc: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -178,9 +179,10 @@ def _expand(arrays, r):
     prefix of insert destinations, so d - r[d] < 0 only at a destination;
     those positions get x[0], and callers overwrite them)."""
     C = r.shape[1]
-    col = torch.arange(C, device=r.device)
+    col = torch.arange(C, device=r.device, dtype=torch.int64)
     src = (col - r).clamp(min=0).long()
-    return [x.gather(1, src) for x in arrays]
+    # d - r[d] < 0 only at a destination, which every caller overwrites
+    return [x.gather(1, src) for x in arrays]  # graftlint: disable=G026
 
 
 def _scatter_rows(arr, idx, val):
@@ -243,7 +245,7 @@ def _insert_dest(g_phys, is_ins, seq, drop: int):
         is_ins, g_phys.long() * (B + 1) + seq, torch.iinfo(torch.int64).max
     )
     perm = torch.argsort(key, dim=1, stable=True)
-    ar = torch.arange(B, device=g_phys.device).expand(R, B)
+    ar = torch.arange(B, device=g_phys.device, dtype=torch.int64).expand(R, B)
     rank = torch.empty_like(perm).scatter_(1, perm, ar)
     return torch.where(is_ins, g_phys + rank.to(I32), drop)
 
@@ -276,12 +278,12 @@ def _new_counts(state, has_del, is_ins, alive):
 
 def _visible_cumsum(vis, length):
     C = vis.shape[1]
-    valid = torch.arange(C, device=vis.device) < length[:, None]
+    valid = torch.arange(C, device=vis.device, dtype=torch.int64) < length[:, None]
     return torch.cumsum(vis * valid, dim=1, dtype=I32)
 
 
 def _beyond(length, C: int):
-    return torch.arange(C, device=length.device) >= length[:, None]
+    return torch.arange(C, device=length.device, dtype=torch.int64) >= length[:, None]
 
 
 def batch2_operands(state: ReplayState, resolved: ResolvedBatch, slots):
@@ -329,7 +331,9 @@ def apply_batch2(
 
 def batch3_operands(state: PackedState, resolved: ResolvedBatch, slots):
     """The v3 producer: K8's operands (doc after the deletes,
-    cntind = cnt << 1 | ind), and what :func:`batch3_finish` needs."""
+    cntind = cnt << 1 | ind), and what :func:`batch3_finish` needs.
+    ``slots`` is int32[B] (one op stream for every row) or int32[R, B]
+    (a stream a row: the fleet step)."""
     R, C = state.doc.shape
     drop = C + 7
     cumvis = _visible_cumsum(state.doc & 1, state.length)
@@ -340,8 +344,9 @@ def batch3_operands(state: PackedState, resolved: ResolvedBatch, slots):
     doc = _scatter_rows(state.doc.clone(), dphys, -1)
     ind = _scatter_rows(_zeros_like_rows(dest, C), dest, 1)
     cntind = (torch.cumsum(ind, dim=1, dtype=I32) << 1) | ind
+    rows = slots if slots.dim() == 2 else slots[None, :]
     fill = torch.where(
-        is_ins, pack_doc(slots[None, :], resolved.ins_alive.to(I32)), 0
+        is_ins, pack_doc(rows, resolved.ins_alive.to(I32)), 0
     )
     length, nvis = _new_counts(state, has_del, is_ins, resolved.ins_alive)
     return (doc, cntind), (dest, fill, length, nvis)
@@ -361,7 +366,9 @@ def apply_batch3(
     state: PackedState, resolved: ResolvedBatch, slots: torch.Tensor
 ) -> PackedState:
     """apply_batch2 on the packed one-array state; the expansion is K8
-    (:func:`expand_packed`) over cntind = cnt << 1 | ind."""
+    (:func:`expand_packed`) over cntind = cnt << 1 | ind.  ``slots`` may
+    be int32[B] (shared by every row) or int32[R, B] (a stream a row, as
+    the fleet step passes them)."""
     ops, rest = batch3_operands(state, resolved, slots)
     return batch3_finish(expand_packed(*ops), *rest)
 
@@ -412,7 +419,7 @@ def decode_state2(state: ReplayState, chars: torch.Tensor, replica: int = 0):
     Off the hot path."""
     order = state.order[replica]
     C = order.shape[0]
-    valid = torch.arange(C, device=order.device) < state.length[replica]
+    valid = torch.arange(C, device=order.device, dtype=torch.int64) < state.length[replica]
     keep = (state.vis[replica] > 0) & valid
     codes = chars[order[keep].clamp(0, chars.shape[0] - 1).long()]
     return codes, int(keep.sum())

@@ -43,10 +43,11 @@ def _prev_value(x, mask):
     """Per row: at each masked position, the previous masked position's
     value (0 if none); 0 at unmasked positions."""
     R, T = x.shape
-    idx = torch.arange(T, device=x.device).expand(R, T)
+    idx = torch.arange(T, device=x.device, dtype=torch.int64).expand(R, T)
     last = torch.where(mask, idx, -1).cummax(dim=1).values
     prev = torch.cat([torch.full_like(last[:, :1], -1), last[:, :-1]], dim=1)
-    val = x.gather(1, prev.clamp(min=0))
+    # prev < 0 reads column 0, which the where below masks
+    val = x.gather(1, prev.clamp(min=0))  # graftlint: disable=G026
     return torch.where(mask & (prev >= 0), val, 0)
 
 

@@ -129,7 +129,7 @@ def range_apply_ring_misses(ind_d, new_len) -> int:
     outside a run, whose source max(d - cnt[d], 0) lies left of the ring
     (the K2_RING columns ending with d's chunk)."""
     C = ind_d.shape[1]
-    col = torch.arange(C, device=ind_d.device)
+    col = torch.arange(C, device=ind_d.device, dtype=torch.int64)
     run = torch.cumsum(ind_d, dim=1, dtype=I32) > 0
     cnt = torch.cumsum(run.to(I32), dim=1, dtype=I32)
     src = (col - cnt).clamp(min=0)
@@ -302,7 +302,7 @@ def apply_fused2_plain(doc_predel, combo, new_len, *, emit_cv: bool = True):
     int32[R, nt]) with ``emit_cv``."""
     apply_fused2_plain.calls += 1
     R, C = doc_predel.shape
-    col = torch.arange(C, device=doc_predel.device)
+    col = torch.arange(C, device=doc_predel.device, dtype=torch.int64)
     ind = combo & 1
     cnt = torch.cumsum(ind, dim=1, dtype=I32)
     y = doc_predel.gather(1, (col - cnt).clamp(min=0).long())

@@ -53,7 +53,7 @@ def _check(*named):
 
 def _source(cnt):
     C = cnt.shape[1]
-    col = torch.arange(C, device=cnt.device)
+    col = torch.arange(C, device=cnt.device, dtype=torch.int64)
     return (col - cnt).clamp(min=0).long()
 
 
@@ -153,7 +153,7 @@ def apply_fused_blocked_plain(doc_predel, combo, cnt_base, new_len):
     ind = combo & 1
     cnt = torch.cumsum(ind.view(R, C // LANE, LANE), dim=2, dtype=I32)
     cnt = (cnt + cnt_base[:, :, None]).view(R, C)
-    col = torch.arange(C, device=combo.device)
+    col = torch.arange(C, device=combo.device, dtype=torch.int64)
     y = doc_predel.gather(1, (col - cnt).clamp(0, C - 1).long())
     out = torch.where(ind != 0, combo >> 1, y)
     return torch.where(col >= new_len[:, None], 2, out).to(I32)

@@ -87,7 +87,8 @@ def _prefix_at(ks, cum, q, right: bool):
     """sum of the weights whose key is < q (``right``: <=), from a
     :func:`_sorted_prefix` pair, for int32[R, Q] queries."""
     n = torch.searchsorted(ks, q.contiguous(), right=right)
-    got = cum.gather(1, (n - 1).clamp(min=0))
+    # n == 0 reads column 0, which the where below masks
+    got = cum.gather(1, (n - 1).clamp(min=0))  # graftlint: disable=G026
     return torch.where(n > 0, got, 0).to(I32)
 
 
@@ -123,12 +124,15 @@ def query(snap: torch.Tensor, levels: list[Level], ids: torch.Tensor):
     position in the level's frame."""
     C = snap.shape[1]
     ids = ids.to(I32).contiguous()
-    p = snap.gather(1, ids.clamp(0, C - 1).long())
+    # an id past the snapshot reads garbage, as in the JAX package; the
+    # levels below overwrite every id they inserted and callers mask the rest
+    p = snap.gather(1, ids.clamp(0, C - 1).long())  # graftlint: disable=G026
     for lv in levels:
         p = p + _prefix_at(lv.sub_sorted, lv.rlen_cum, p, right=True)
         n = torch.searchsorted(lv.slot_sorted, ids, right=True)
         k = (n - 1).clamp(min=0)
-        off = ids - lv.slot_sorted.gather(1, k)
-        found = (n > 0) & (off < lv.slot_rlen.gather(1, k))
-        p = torch.where(found, lv.slot_dest0.gather(1, k) + off, p)
+        # k = n - 1 clamped: n == 0 is masked by `found` below
+        off = ids - lv.slot_sorted.gather(1, k)  # graftlint: disable=G026
+        found = (n > 0) & (off < lv.slot_rlen.gather(1, k))  # graftlint: disable=G026 (n == 0 masked here)
+        p = torch.where(found, lv.slot_dest0.gather(1, k) + off, p)  # graftlint: disable=G026 (masked by found)
     return p.to(I32)

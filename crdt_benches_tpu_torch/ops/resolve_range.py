@@ -246,7 +246,7 @@ def range_token_walk(kind, pos, rlen, v0) -> RangeWalk:
     dev = v0.device
     i64 = torch.int64
     kind, pos, rlen = (x.to(i64) for x in (kind, pos, rlen))
-    col = torch.arange(T + 1, device=dev)[None, :]
+    col = torch.arange(T + 1, device=dev, dtype=torch.int64)[None, :]
     # C[:, i + 1] is token i's cum; column 0 is 0 "before" the first token
     C = torch.zeros((R, T + 1), dtype=i64, device=dev)
     C[:, 1:] = v0.to(i64)[:, None]
@@ -265,18 +265,20 @@ def range_token_walk(kind, pos, rlen, v0) -> RangeWalk:
         L = torch.where(is_ins, L0, 0)
         pD = p + D
         t = torch.minimum((C[:, 1:] <= p).sum(1, keepdim=True), nused)
-        pre, c_t = C.gather(1, t), C.gather(1, t + 1)
+        # K1's plain walk: t <= nused < T, so t + 1 <= T (C has T + 1 columns)
+        pre, c_t = C.gather(1, t), C.gather(1, t + 1)  # graftlint: disable=G026
         split = (p > pre) & (is_ins | (pD < c_t))
         m = torch.where(act, torch.where(is_ins, 2, 1) + split, 1)
         # the tail moved by m - 1 with cum + L (an insert) or clamped (a
         # delete); token t becomes its m pieces
         clamped = torch.minimum(C, p) + (C - pD).clamp(min=0)
         moved = torch.where(D > 0, clamped, C + L)
-        Y = moved.gather(1, (col - (m - 1)).clamp(min=0))
+        # col < m - 1 lies left of token t, which the where below keeps
+        Y = moved.gather(1, (col - (m - 1)).clamp(min=0))  # graftlint: disable=G026
         Y = torch.where(col <= t, C, Y)
         pieces = (
             torch.where(is_ins, torch.where(split, p, pre + L),
-                        torch.where(split, p, clamped.gather(1, t + 1))),
+                        torch.where(split, p, clamped.gather(1, t + 1))),  # graftlint: disable=G026 (t + 1 <= T)
             torch.where(is_ins, torch.where(split, p + L, c_t + L), c_t - D),
             c_t + L,
         )

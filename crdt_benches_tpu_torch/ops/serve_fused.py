@@ -163,8 +163,8 @@ def serve_apply_round_plain(state: PackedState, tokens, dints) -> PackedState:
 
     # expansion: one gather, then the fill at the holes (col - cnt < 0
     # only at holes, which the fill overwrites)
-    doc = doc.gather(1, (col - cnt).clamp(min=0).long())
-    doc = torch.where(ind > 0, ((col + delta_cum + 2) << 1) | 1, doc)
+    doc = doc.gather(1, (col - cnt).clamp(min=0).long())  # graftlint: mask=fused-gap-gather surface=fused
+    doc = torch.where(ind > 0, ((col + delta_cum + 2) << 1) | 1, doc)  # graftlint: mask=fused-gap-gather surface=fused
 
     out = torch.full_like(state.doc, 2)
     out[:, :C] = torch.where(col >= new_len[:, None], 2, doc)
@@ -291,7 +291,9 @@ def serve_macro_launch_geometry(Rt: int, C: int, device=None):
                     chosen = chosen or (*geo, None)
                     break
                 count = ctypes.c_int(0)
-                err = lib.crdt_serve_macro_clusters(
+                # an occupancy query, not a launch: an error means this
+                # cluster size does not fit, and the loop tries the next
+                err = lib.crdt_serve_macro_clusters(  # graftlint: disable=G009
                     Rt, n, width, int(resident), ctypes.addressof(count))
                 if err or not count.value:
                     continue

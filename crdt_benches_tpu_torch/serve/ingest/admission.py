@@ -173,7 +173,7 @@ class AdmissionController:
                 f"{', '.join(sorted(self.policies))})"
             ) from None
 
-    def refill(self) -> None:
+    def refill(self) -> None:  # graftlint: thread=hot
         """Once a macro-round: refill the buckets and snapshot the SLO
         class burns the round's decisions read."""
         for t, p in self.policies.items():
@@ -194,7 +194,7 @@ class AdmissionController:
         """(fast, slow) burn of an SLO class name; 0.0 when unknown."""
         return self._burns.get(klass, (0.0, 0.0))
 
-    def decide(self, tenant: str, ops: int, klass: str,
+    def decide(self, tenant: str, ops: int, klass: str,  # graftlint: thread=hot
                pending: int, defers: int = 0) -> tuple[str, str]:
         """One batch's verdict: ``("admit"|"defer"|"shed", reason)``.
 
@@ -216,7 +216,7 @@ class AdmissionController:
         self.tokens[tenant] -= ops
         return self._note(tenant, "admit", "ok", ops)
 
-    def journal_shed(self, doc_id: int, keep: int, shed: int,
+    def journal_shed(self, doc_id: int, keep: int, shed: int,  # graftlint: thread=hot
                      tenant: str, rnd: int) -> None:
         """Journal an admission shed in the overflow shed's record shape:
         ``recover_fleet`` replays ``t="shed"`` by (doc, at, ops) and

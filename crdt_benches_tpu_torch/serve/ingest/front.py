@@ -98,7 +98,7 @@ def decode_frame(line: bytes) -> dict:
     return obj
 
 
-class _IngestHandler(socketserver.StreamRequestHandler):
+class _IngestHandler(socketserver.StreamRequestHandler):  # graftlint: thread=ingest
     """One connection = one session = one doc.  Connection-local state
     only; everything leaving this thread goes through the front's publish
     point."""
@@ -205,7 +205,7 @@ class _Server(socketserver.ThreadingTCPServer):
     owner: "IngestFront"
 
 
-class IngestFront:
+class IngestFront:  # graftlint: state=session states=new,open,closed,dropped edges=new->open,open->closed,open->dropped
     """The sessioned op-intake server (the module docstring has the wire
     and confinement contracts).
 
@@ -251,7 +251,7 @@ class IngestFront:
 
     # ---- the bench ----
 
-    def start(self) -> int:
+    def start(self) -> int:  # graftlint: acquire=socket
         """Listen on an ephemeral loopback port; returns it."""
         if self._srv is not None:
             return self.port  # type: ignore[return-value]
@@ -267,7 +267,7 @@ class IngestFront:
         lifecycle.acquire("socket", id(self))
         return self.port
 
-    def stop(self) -> None:
+    def stop(self) -> None:  # graftlint: release=socket
         """Stop serving and release the port (idempotent)."""
         if self._srv is None:
             return
@@ -281,7 +281,7 @@ class IngestFront:
 
     # ---- the handlers ----
 
-    def publish(self, payload: dict, timeout: float | None = None
+    def publish(self, payload: dict, timeout: float | None = None  # graftlint: thread=ingest
                 ) -> bool:
         """Hand one payload to the hot pump.  Control payloads use a short
         default timeout; ``ops`` frames pass the configured backpressure
@@ -294,7 +294,7 @@ class IngestFront:
         return True
 
     @published
-    def _publish(self, payload: dict, timeout: float) -> None:
+    def _publish(self, payload: dict, timeout: float) -> None:  # graftlint: publish=ingest  # graftlint: thread=ingest
         """THE crossing point: one frame's payload leaves the handler
         thread.  The bounded ``put`` makes a stalled pump show as client
         backpressure, never as an unbounded buffer."""
@@ -306,13 +306,13 @@ class IngestFront:
     def idle(self) -> bool:
         return self._q.empty()
 
-    def churn(self) -> None:
+    def churn(self) -> None:  # graftlint: thread=hot
         """Drop every live connection at its next frame (the
         ``conn_churn`` chaos fault): a generation bump the handlers
         poll."""
         self.churn_gen = self.churn_gen + 1
 
-    def drain(self) -> list[dict]:
+    def drain(self) -> list[dict]:  # graftlint: thread=hot  # graftlint: transition=session:new->open,open->closed,open->dropped
         """Harvest every pending payload (never blocks), tallying the
         counters on the hot thread that owns them."""
         out: list[dict] = []

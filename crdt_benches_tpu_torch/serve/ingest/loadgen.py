@@ -352,7 +352,7 @@ class OpenLoadClient:
 
     # ---- the load threads ----
 
-    def _run_shard(self, shard: int) -> None:
+    def _run_shard(self, shard: int) -> None:  # graftlint: thread=load
         sent = retries = reconnects = errors = 0
         try:
             for sess in self.plan.sessions[shard::self.shards]:
@@ -372,7 +372,7 @@ class OpenLoadClient:
         finally:
             self._done_q.put((sent, retries, reconnects, errors))
 
-    def _run_session(self, sess: _SessionLoad
+    def _run_session(self, sess: _SessionLoad  # graftlint: thread=load
                      ) -> tuple[int, int, int, int]:
         sent = retries = reconnects = 0
         seq = 0
@@ -515,7 +515,7 @@ class IngestPump:
             self._klass[doc] = k
         return k
 
-    def step(self, rnd: int) -> bool:
+    def step(self, rnd: int) -> bool:  # graftlint: thread=hot
         """One macro-round of intake: chaos hooks, bucket refill,
         drain the front, admit everything due.  Returns True while the
         pump still holds (or the front still buffers) work."""
@@ -586,7 +586,7 @@ class IngestPump:
                 and tenant == self._flood_tenant
                 and rnd <= self._flood_until)
 
-    def _admit(self, rnd: int) -> None:
+    def _admit(self, rnd: int) -> None:  # graftlint: thread=hot
         sched = self.sched
         adm = self.admission
         # per-tenant in-queue ops, computed once per round
@@ -662,7 +662,7 @@ class IngestPump:
                 self.admitted_frames += 1
         self._holding = keep
 
-    def status_fields(self) -> dict:
+    def status_fields(self) -> dict:  # graftlint: thread=hot
         """The ``ingest`` sub-block for /status.json: front gauges,
         admission totals, pump counters, chaos state."""
         out = self.front.status_fields()
@@ -680,7 +680,7 @@ class IngestPump:
         return out
 
 
-def drive_open_loop(sched, pump, client):
+def drive_open_loop(sched, pump, client):  # graftlint: thread=hot
     """The open-loop drain: pump → ``run_round`` → explicit clock tick
     when the queues are empty but producers still owe ops (the base
     idle-jump only understands the static arrival schedule).  Epilogue

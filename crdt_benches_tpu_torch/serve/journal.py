@@ -109,7 +109,7 @@ _RECOVER_ERRORS = (ValueError, KeyError, IndexError, TypeError, OSError)
 # ---------------------------------------------------------------------------
 
 
-class OpJournal:
+class OpJournal:  # graftlint: thread=hot
     """Append-only write-ahead journal, one record per line:
     ``<crc32 of payload, 8 hex chars> <compact json payload>``.  Owned by
     the drain's thread.
@@ -125,7 +125,7 @@ class OpJournal:
     the active file: records appended behind a damaged line would be
     hidden from the next recovery, whose reader stops there."""
 
-    def __init__(self, journal_dir: str, fsync: bool = False,
+    def __init__(self, journal_dir: str, fsync: bool = False,  # graftlint: durable=wal
                  segment_bytes: int = DEFAULT_SEGMENT_BYTES):
         os.makedirs(journal_dir, exist_ok=True)
         self.dir = journal_dir
@@ -228,7 +228,7 @@ class OpJournal:
         self._g_since.set(0)
         return total
 
-    def append(self, obj: dict) -> None:
+    def append(self, obj: dict) -> None:  # graftlint: durable=wal
         payload = json.dumps(obj, separators=(",", ":"))
         line = f"{zlib.crc32(payload.encode()):08x} {payload}\n"
         with fs_protocol("wal"):
@@ -249,7 +249,7 @@ class OpJournal:
         else:
             self._active_roundless = True
 
-    def maybe_roll(self) -> bool:
+    def maybe_roll(self) -> bool:  # graftlint: durable=wal
         """Seal the active file as the next numbered segment (once past
         ``segment_bytes``) and open a fresh one.  The file is fsynced
         before the rename: a sealed segment is trusted to hold complete
@@ -277,7 +277,7 @@ class OpJournal:
         return True
 
     @published
-    def round_record(self, rnd: int,
+    def round_record(self, rnd: int,  # graftlint: publish=journal
                      lanes: dict[int, list[list[int]]]) -> None:
         """The write-ahead record of one macro-round: per class, the
         ``[doc, start_cursor, end_cursor]`` of every scheduled lane.  MUST
@@ -293,7 +293,7 @@ class OpJournal:
 
     # ---- segment GC (inside the barrier) ----
 
-    def compact(self, covered_round: int, crash_hook=None) -> dict:
+    def compact(self, covered_round: int, crash_hook=None) -> dict:  # graftlint: durable=gc
         """Delete the sealed segments whose every record has ``r <
         covered_round``; a segment with a record at or above it, or one
         without a round, survives.  Callers pass :func:`retained_floor`
@@ -360,7 +360,7 @@ class OpJournal:
         info["freed_bytes"] = freed
         return info
 
-    def finish_torn_gc(self) -> int:
+    def finish_torn_gc(self) -> int:  # graftlint: durable=gc
         """Complete a GC pass torn by a crash (:func:`finish_torn_gc`),
         counted like a clean pass."""
         n = finish_torn_gc(self.dir)
@@ -404,7 +404,7 @@ def wal_segments(journal_dir: str) -> list[str]:
                   if f.startswith(WAL_PREFIX) and f.endswith(".log"))
 
 
-def finish_torn_gc(journal_dir: str) -> int:
+def finish_torn_gc(journal_dir: str) -> int:  # graftlint: durable=gc
     """Complete a GC pass that crashed between its manifest write and the
     unlinks: delete every listed victim that still exists, then retire
     the manifest.  Idempotent; returns the segments removed now.  A
@@ -441,7 +441,7 @@ def finish_torn_gc(journal_dir: str) -> int:
         return removed
 
 
-def sweep_staging(journal_dir: str) -> list[str]:
+def sweep_staging(journal_dir: str) -> list[str]:  # graftlint: durable=snapshot
     """Remove snapshot staging directories (``snap_*.tmp``) abandoned by a
     crash before the commit rename.  They may hold a valid-looking
     manifest; the rename IS the commit, so they never count."""
@@ -545,7 +545,7 @@ def _manifest_crc(snap_dir: str) -> str | None:
 
 
 @durable_protocol("snapshot")
-def write_snapshot(journal_dir: str, pool, streams, rnd: int,
+def write_snapshot(journal_dir: str, pool, streams, rnd: int,  # graftlint: durable=snapshot
                    keep: int = 2, kind: str = "full") -> tuple[str, dict]:
     """One fleet snapshot barrier: per-class bucket state (CRC'd .npz),
     hard links of the live cold spools and the warm entries' shadows, and
@@ -677,7 +677,7 @@ def write_snapshot(journal_dir: str, pool, streams, rnd: int,
     return final, manifest
 
 
-def _prune_chains(journal_dir: str, keep: int) -> None:
+def _prune_chains(journal_dir: str, keep: int) -> None:  # graftlint: durable=snapshot
     """Prune committed snapshots by CHAIN (a full snapshot starts one, a
     delta whose base is the previous member continues it, anything else
     is its own group): all but the newest ``keep`` chains go, so a
@@ -811,7 +811,7 @@ def load_chain_states(journal_dir: str, name: str,
     return tip, states, members
 
 
-def probe_recovery(journal_dir: str) -> tuple[str | None, int]:
+def probe_recovery(journal_dir: str) -> tuple[str | None, int]:  # graftlint: durable=snapshot
     """Dry-run recovery's snapshot selection: ``(first usable snapshot,
     candidates skipped over damage)``; ``(None, n)`` is a cold start."""
     manifests: dict = {}
@@ -863,7 +863,7 @@ class SnapshotBases:
             self._class_cache[ck] = st
         return self._class_cache[ck]
 
-    def base(self, doc_id: int):
+    def base(self, doc_id: int):  # graftlint: durable=snapshot
         if self.dir is None:
             return None
         key = str(doc_id)
@@ -984,7 +984,7 @@ class RecoveryReport:
 
 
 @durable_protocol("snapshot")
-def recover_fleet(pool, streams, journal_dir: str) -> RecoveryReport:
+def recover_fleet(pool, streams, journal_dir: str) -> RecoveryReport:  # graftlint: durable=snapshot
     """Restore a crashed fleet into a FRESH pool and stream set (built by
     the same ``prepare_streams`` the original run used): complete a torn
     GC pass, sweep abandoned staging directories, restore the newest

@@ -74,8 +74,9 @@ from ..lint.boundary import boundary
 from ..lint.fs_sanitizer import fs_protocol
 from ..lint.sanitizer import fenced
 from ..obs.metrics import Counter, Gauge
-from ..ops.apply2 import LANE, PackedState
+from ..ops.apply2 import LANE, PackedState, apply_batch3
 from ..ops.packing import NARROW_ID_BOUND, op_lane_dtypes, widen_ops
+from ..ops.resolve import resolve_batch_rows
 from ..ops.resolve_range import resolve_range_rows
 from ..ops.serve_fused import serve_macro_fused, serve_round_inputs
 from ..traces.tensorize import PAD
@@ -116,6 +117,26 @@ def decode_row_np(doc: np.ndarray, length: int, nvis: int,
     return "".join(chr(int(c)) for c in chars[slots])
 
 
+@boundary(
+    dtypes=("int32", "int32", "int32", "int32"),
+    shapes=(None, "R B", "R B", "R B"),
+    # the port's donates: written in place (JAX's donate_argnums=(0,))
+    donates=(0,),
+)
+def fleet_step(state: PackedState, kind, pos, slot) -> PackedState:
+    """One unit-op batch a resident doc (the pre-macro step, kept as the
+    minimal one-round reference): ``kind``/``pos``/``slot`` int32[R, B],
+    row r the next B ops of the doc in row r (PAD everywhere for an idle
+    row, a no-op end to end).  K5's per-row form resolves each row against
+    its own ``nvis``, then :func:`apply_batch3` with (R, B) slots; the
+    result is written into ``state``'s tensors, which are returned."""
+    resolved = resolve_batch_rows(kind, pos, state.nvis)
+    new = apply_batch3(state, resolved, slot)
+    for x, y in zip(state, new):
+        x.copy_(y)
+    return state
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     """A host copy of ``t`` that later in-place device updates cannot
     change."""
@@ -139,7 +160,7 @@ def _zero_state(R: int, C: int, device: torch.device) -> PackedState:
 
 
 @dataclass
-class DocRecord:
+class DocRecord:  # graftlint: state=doc field=spool states=live,cold edges=live->cold,cold->live
     """Host bookkeeping for one document: its length and capacity evolve
     deterministically with its stream, so the scheduler promotes and
     admits from host state alone."""
@@ -187,6 +208,7 @@ class Bucket:
         self._heaps = [list(range(self.Rg)) for _ in range(n_sh)]
         self._free = [set(range(self.Rg)) for _ in range(n_sh)]
         self.live: list[bool] = [True] * n_sh
+        self.steps = 0  # rounds applied (a fleet step 1, a macro step K)
 
     @property
     def free(self) -> list[int]:
@@ -229,7 +251,7 @@ class Bucket:
         s, r = divmod(row, self.Rg)
         return self.parts[s], r
 
-    def alloc_row(self) -> int:
+    def alloc_row(self) -> int:  # graftlint: acquire=rows
         """The lowest local row on the emptiest live shard (ties: the
         lowest shard)."""
         lives = [s for s in range(self.n_sh) if self.live[s]]
@@ -245,7 +267,7 @@ class Bucket:
                 return s * self.Rg + r
         raise RuntimeError(f"bucket c{self.C}: no free row")
 
-    def take_row(self, row: int) -> None:
+    def take_row(self, row: int) -> None:  # graftlint: acquire=rows
         """Claim a specific free row (compaction relocations)."""
         s, r = divmod(row, self.Rg)
         if r not in self._free[s]:
@@ -253,7 +275,7 @@ class Bucket:
         self._free[s].discard(r)  # its heap entry is dropped lazily
         lifecycle.acquire("rows", (self.C, row))
 
-    def release_row(self, row: int) -> None:
+    def release_row(self, row: int) -> None:  # graftlint: release=rows
         s, r = divmod(row, self.Rg)
         self._free[s].add(r)
         heapq.heappush(self._heaps[s], r)
@@ -584,7 +606,7 @@ class DocPool:
     # ---- row movement (host round trips, off the macro step) ----
 
     @fenced
-    def _pull_row(self, rec: DocRecord) -> tuple[np.ndarray, int, int]:
+    def _pull_row(self, rec: DocRecord) -> tuple[np.ndarray, int, int]:  # graftlint: fence
         st, r = self.buckets[rec.cls].locate(rec.row)
         return _host(st.doc[r]), int(st.length[r]), int(st.nvis[r])
 
@@ -598,6 +620,7 @@ class DocPool:
                  length: int, nvis: int) -> tuple[int, int]:
         b = self.buckets[cls]
         row = b.alloc_row()
+        # graftlint: inrange=row<nrows check=pool.write-row
         range_rt.check_index("pool.write-row", row, len(b.rows),
                              doc=rec.doc_id, cls=cls)
         full = np.full(b.C, 2, np.int32)  # promotion / trimmed-spool pad
@@ -614,7 +637,7 @@ class DocPool:
     def spool_path(self, doc_id: int) -> str:
         return os.path.join(self.spool_dir, f"doc{doc_id}.npz")
 
-    def _set_spool(self, rec: DocRecord, path: str | None) -> None:
+    def _set_spool(self, rec: DocRecord, path: str | None) -> None:  # graftlint: transition=doc:live->cold,cold->live
         """The one place ``rec.spool`` changes: a doc entering or leaving
         the cold tier moves the O(1) :attr:`cold_docs` count."""
         if (rec.spool is None) != (path is None):
@@ -637,7 +660,7 @@ class DocPool:
         the staleness tag a prefetch submission carries."""
         return self._spool_gens.get(doc_id, 0)
 
-    def spool_save(self, doc_id: int, doc_row: np.ndarray, length: int,
+    def spool_save(self, doc_id: int, doc_row: np.ndarray, length: int,  # graftlint: durable=spool
                    nvis: int, compress: bool = False) -> str:
         """Write one doc's checkpoint (only the used ``length`` prefix;
         the tail is the constant ``2`` an install re-pads).  Uncompressed
@@ -653,7 +676,7 @@ class DocPool:
         return path
 
     @fenced
-    def evict(self, doc_id: int) -> str:
+    def evict(self, doc_id: int) -> str:  # graftlint: fence=cold
         """Move a resident doc to the spool and free its row (direct pool
         users; the drain moves evictions from its own bucket pull)."""
         rec = self.docs[doc_id]
@@ -668,7 +691,7 @@ class DocPool:
 
     # ---- drained-doc record eviction (two-phase, manifest-committed) ----
 
-    def gc_drained_docs(self, doc_ids) -> int:
+    def gc_drained_docs(self, doc_ids) -> int:  # graftlint: durable=spool
         """Reclaim drained docs: the pool record, the spool member (the
         live claim, or the stale file a restore or warm hit leaves behind)
         and any warm entry and its shadow.  Two phases, as the journal's
@@ -944,7 +967,7 @@ class DocPool:
     # ---- boundary bulk movement (one sync, one upload per class) ----
 
     @fenced
-    def pull_bucket(self, cls: int):
+    def pull_bucket(self, cls: int):  # graftlint: fence
         """Host copies of a whole bucket (doc, length, nvis), the shards
         concatenated in row order under a mesh; waits for any macro step
         in flight."""
@@ -973,6 +996,7 @@ class DocPool:
             dirty_rows = [int(r) for r in dirty_rows]
             # the scheduler's batched install writes these rows: the row
             # bound of _install, under the same check name
+            # graftlint: inrange=row<nrows check=pool.write-row
             range_rt.check_index("pool.write-row", dirty_rows, len(b.rows),
                                  cls=cls)
             if any(not 0 <= r < b.R for r in dirty_rows):
@@ -990,7 +1014,45 @@ class DocPool:
         b.state = PackedState(up(doc, self.device), up(length, self.device),
                               up(nvis, self.device))
 
-    # ---- the hot path ----
+    # ---- the hot paths ----
+
+    def step(self, cls: int, kind: np.ndarray, pos: np.ndarray,
+             slot: np.ndarray) -> None:
+        """Apply one (R, B) unit-op batch to class ``cls`` through
+        :func:`fleet_step` (row r the ops of the doc resident in row r;
+        PAD rows are no-ops).  The ops upload without blocking; under a
+        mesh each shard's rows step on its device.  Nothing syncs."""
+        b = self.buckets[cls]
+        self._mark_op_rows(cls, kind[None])
+        ops = np.stack([np.asarray(a, np.int32)
+                        for a in (kind, pos, slot)])[:, None]  # (3, 1, R, B)
+        states = b.parts if b.parts is not None else [b.state]
+        devs = self.shard_devices or [self.device]
+        for state, lanes, dev in zip(states, self._piece_ops(b, ops), devs):
+            with _on(dev):
+                fleet_step(state, *(o[0] for o in lanes))
+        b.steps += 1
+
+    def _piece_ops(self, b: Bucket, ops: np.ndarray) -> list:
+        """The op lanes ``ops`` (L, K, Rt, B) uploaded without blocking, as
+        each piece's L (K, Rt / pieces, B) tensors: one piece, on the
+        pool's device, without a mesh; under a mesh one piece a shard (JAX's
+        P(None, AXIS, None)), each device given its own shards' ops only."""
+        if b.parts is None:
+            return [torch.from_numpy(ops).to(
+                self.device, non_blocking=True).unbind(0)]
+        L, K, Rt, B = ops.shape
+        n, rt = b.n_sh, Rt // b.n_sh
+        host = torch.from_numpy(np.ascontiguousarray(
+            ops.reshape(L, K, n, rt, B).transpose(2, 0, 1, 3, 4)))
+        pieces = [None] * n
+        for d in dict.fromkeys(self.shard_devices):
+            mine = [s for s, e in enumerate(self.shard_devices) if e == d]
+            up = (host if len(mine) == n else host[mine]).to(
+                d, non_blocking=True)
+            for s, o in zip(mine, up):
+                pieces[s] = o.unbind(0)
+        return pieces
 
     @boundary(
         # the op lanes arrive in the pool's staged dtypes (op_dtypes), so
@@ -1020,11 +1082,13 @@ class DocPool:
         # the staged lanes' bounds: host numpy, before the dispatch, PAD
         # lanes masked out (their payloads are don't-care).  Disarmed, two
         # counter bumps; armed, the check the kernels cannot make
+        # graftlint: inrange=pos<=cap check=pool.macro-pos
         range_rt.check_index("pool.macro-pos", lambda: pos[kind != PAD],
                              b.C + 1, cls=cls)
         # the narrow ladder's ceiling is the uint16 repack's; a wide
         # ladder's ids are bounded by the class capacity
         narrow = self.op_dtypes[3] == np.dtype(np.uint16)
+        # graftlint: inrange=slot0<=NARROW_ID_BOUND check=pool.macro-ids
         range_rt.check_narrow("pool.macro-ids", lambda: slot0[kind != PAD],
                               NARROW_ID_BOUND if narrow else b.C - 1,
                               cls=cls)
@@ -1043,27 +1107,14 @@ class DocPool:
                 marks.append((name, ev))
 
         mark("")
-        ops = np.stack(widen_ops(kind, pos, rlen, slot0))  # (4, K, Rt, B)
-        if b.parts is None:  # one piece: the tier's rows
-            piece_ops = [torch.from_numpy(ops).to(
-                self.device, non_blocking=True).unbind(0)]
-        else:
-            # a piece a shard (JAX's P(None, AXIS, None)): the shards'
-            # (K, Rt / N, B) ops, each device given its own shards' only
-            n, rt = b.n_sh, Rt // b.n_sh
-            host = torch.from_numpy(np.ascontiguousarray(
-                ops.reshape(4, K, n, rt, B).transpose(2, 0, 1, 3, 4)))
-            piece_ops = [None] * n
-            for d in dict.fromkeys(self.shard_devices):
-                mine = [s for s, e in enumerate(self.shard_devices) if e == d]
-                up = (host if len(mine) == n else host[mine]).to(
-                    d, non_blocking=True)
-                for s, o in zip(mine, up):
-                    piece_ops[s] = o.unbind(0)
+        # (4, K, Rt, B): one piece, the tier's rows, or one a shard
+        piece_ops = self._piece_ops(b, np.stack(
+            widen_ops(kind, pos, rlen, slot0)))
         mark("upload")
         if b.parts is None:
             subs = [self.tier_rows(cls, Rt)]
         else:  # each shard's first Rt / N rows, in place
+            rt = Rt // b.n_sh
             subs = [PackedState(p.doc[:rt], p.length[:rt], p.nvis[:rt])
                     for p in b.parts]
         # every piece launches before anything syncs; the ops launch on
@@ -1093,12 +1144,13 @@ class DocPool:
             sub.nvis.copy_(new.nvis)
         if b.parts is None and b.n_sh > 1 and Rt < b.R:
             self._put_tier(cls, Rt, subs[0])  # the gathered tier back
+        b.steps += K
         if spans is not None:
             spans.extend((name, marks[i][1], ev)
                          for i, (name, ev) in enumerate(marks[1:]))
 
     @fenced
-    def block(self) -> None:
+    def block(self) -> None:  # graftlint: fence
         """Wait for every outstanding macro step (on every shard's device
         under a mesh)."""
         if self.device.type == "cuda":

@@ -109,7 +109,7 @@ class Prefetcher:
 
     # ---- lifetime (the pool's constructor and close) ----
 
-    def start(self) -> None:
+    def start(self) -> None:  # graftlint: acquire=thread
         if self._thread is not None:
             return
         self._thread = threading.Thread(
@@ -117,7 +117,7 @@ class Prefetcher:
         self._thread.start()
         lifecycle.acquire("thread", id(self))
 
-    def stop(self) -> None:
+    def stop(self) -> None:  # graftlint: release=thread
         """Stop the worker.  Requests not yet taken are dropped (counted),
         so the sentinel always finds room and the worker always exits
         once its current load ends.  The join is bounded: a worker wedged
@@ -131,7 +131,7 @@ class Prefetcher:
             except queue.Empty:
                 break
             self.dropped += 1
-            self.inflight -= 1
+            self.inflight = max(0, self.inflight - 1)
         self._req.put_nowait(None)  # only this thread puts: room for it
         self._thread.join(timeout=5.0)
         self._thread = None
@@ -197,7 +197,7 @@ class Prefetcher:
 
     # ---- the prefetch thread ----
 
-    def _run(self) -> None:
+    def _run(self) -> None:  # graftlint: thread=prefetch
         """Worker loop: wait on the request queue, load the spool or build
         the stream, publish the result.  A damaged or vanished spool, or a
         builder that raised, is not this thread's to repair: the error
@@ -239,7 +239,7 @@ class Prefetcher:
                 continue  # the hot thread stopped draining: dropped
 
     @published
-    def _publish(self, payload: dict) -> None:
+    def _publish(self, payload: dict) -> None:  # graftlint: publish=prefetch  # graftlint: thread=prefetch
         """The one publish point: a loaded row leaves the worker.  The
         ``put`` is bounded, so a consumer that stopped draining can never
         park the worker forever.  Counted on entry, as the reader gate

@@ -36,7 +36,7 @@ REMOTE_LAG = 1
 
 
 @dataclass
-class _GroupState:
+class _GroupState:  # graftlint: thread=hot
     """One group's bus state; index ``w`` is writer ``w``'s replica."""
 
     group: ReplicaGroup
@@ -62,7 +62,7 @@ class _GroupState:
         self.prefix[w] = p
 
 
-class BroadcastBus:
+class BroadcastBus:  # graftlint: thread=hot
     """Publish and deliver over a :class:`GroupTable` (the module says
     how), owned by the scheduler's thread.  Each block's publication
     crosses :meth:`_cross_block`, a publish point of the race sanitizer
@@ -205,7 +205,7 @@ class BroadcastBus:
             self._reorder = None
 
     @published
-    def _cross_block(self, gid: int, seq: int, owner: int) -> None:
+    def _cross_block(self, gid: int, seq: int, owner: int) -> None:  # graftlint: publish=bus
         """Block ``seq`` of group ``gid`` leaves writer ``owner``'s log for
         its peers.  The bus is owned by one thread, so nothing is handed
         over here: the point counts the edge (one entry a published

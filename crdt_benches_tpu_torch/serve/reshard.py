@@ -186,7 +186,7 @@ def parse_reshard_spec(spec: str) -> ReshardPlan:
 # ---------------------------------------------------------------------------
 
 
-def commit_manifest(journal_dir: str, manifest: dict) -> str:
+def commit_manifest(journal_dir: str, manifest: dict) -> str:  # graftlint: durable=reshard
     """Commit the migration manifest, the reshard's point of no return:
     written to a ``.tmp`` sibling and fsynced, installed by ``os.replace``,
     the directory fsynced.  After the replace the reshard completes, by
@@ -221,7 +221,7 @@ def read_manifest(journal_dir: str) -> dict | None:
         return None
 
 
-def retire_manifest(journal_dir: str) -> bool:
+def retire_manifest(journal_dir: str) -> bool:  # graftlint: durable=reshard
     """Retire a completed reshard's manifest (idempotent): the committed
     file is read, then unlinked; a staged ``.tmp`` (a crash before the
     commit) is discarded too.  Returns whether a manifest was removed."""
@@ -313,7 +313,7 @@ def check_shard_partition(pool) -> list[str]:
 # ---------------------------------------------------------------------------
 
 
-class ReshardCoordinator:
+class ReshardCoordinator:  # graftlint: state=row field=state states=idle,active,crashed,done edges=idle->active,active->crashed,crashed->active,active->done
     """Drives one shard-map change through a serving fleet.
 
     The scheduler ticks it once a macro-round, after the round's plan is
@@ -446,7 +446,7 @@ class ReshardCoordinator:
     # ---- the per-round hook ----
 
     @fenced
-    def tick(self, rnd: int, plan, imbalance: float,
+    def tick(self, rnd: int, plan, imbalance: float,  # graftlint: fence=reshard
              note_deferred=None) -> None:
         """One round of coordination: trigger, resume, migrate a batch and
         commit once the draining shards are empty.  ``plan`` is the round's
@@ -481,7 +481,7 @@ class ReshardCoordinator:
             return True
         return p.at_round is None and p.imbalance is None and rnd >= 2
 
-    def _begin(self, rnd: int) -> None:
+    def _begin(self, rnd: int) -> None:  # graftlint: transition=row:idle->active,active->crashed
         """The commit point: the manifest first (the durable decision),
         then the live shard-map flip, then the begin record.  The
         ``reshard_crash`` kill point is right after."""
@@ -521,7 +521,7 @@ class ReshardCoordinator:
                 self.state = "crashed"
         self._gauge_refresh(docs0)
 
-    def _resume(self, rnd: int) -> None:
+    def _resume(self, rnd: int) -> None:  # graftlint: transition=row:crashed->active
         """The in-run recovery of a crashed coordinator: what it needs to
         finish is in the committed manifest and the pool's shard map, so
         read the manifest, derive the pending set again and carry on."""
@@ -612,7 +612,7 @@ class ReshardCoordinator:
             return ops
         return 0
 
-    def _commit(self, rnd: int) -> None:
+    def _commit(self, rnd: int) -> None:  # graftlint: transition=row:active->done
         """The draining shards are empty: retire them, journal the commit
         record, retire the manifest."""
         retired: list[int] = []
@@ -633,7 +633,7 @@ class ReshardCoordinator:
         self._gauge_refresh(0)
 
     @fenced
-    def finalize(self, rnd: int) -> None:
+    def finalize(self, rnd: int) -> None:  # graftlint: fence=reshard
         """The drain's end: a reshard still in flight completes now (the
         draining shards' remaining residents are evicted on the host:
         their streams are done and nothing admits them again) and commits.

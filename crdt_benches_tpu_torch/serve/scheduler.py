@@ -260,7 +260,7 @@ def prepare_streams(sessions, pool: DocPool, batch: int = 64,
 _EMPTY_I32 = np.zeros(0, np.int32)
 
 
-class LazyStreams:
+class LazyStreams:  # graftlint: state=stream states=genesis,live,released edges=genesis->live,live->released
     """The op queues of a fleet as a mapping over a ``FleetSpec``, each
     stream materialized on first touch: streaming construction.  A doc
     has nothing (no session, trace, stream or pool record: genesis) until
@@ -329,7 +329,7 @@ class LazyStreams:
     # ---- materialization ----
 
     @fenced
-    def _install(self, st: DocStream, n_init: int, capacity: int,
+    def _install(self, st: DocStream, n_init: int, capacity: int,  # graftlint: fence=genesis  # graftlint: transition=stream:genesis->live
                  chars) -> DocStream:
         lifecycle.transition("stream", "genesis", "live", key=st.doc_id)
         self.pool.register(st.doc_id, n_init=n_init, capacity_need=capacity,
@@ -342,7 +342,7 @@ class LazyStreams:
         return st
 
     @fenced
-    def _materialize(self, s) -> DocStream:
+    def _materialize(self, s) -> DocStream:  # graftlint: fence=genesis
         # a trace band's docs share one lru-cached window, so its
         # tensorization is cached by (band, trace); synth traces are one
         # a doc and transient, so they are never cached (an id(trace) key
@@ -388,7 +388,7 @@ class LazyStreams:
         self.prefetch_built += 1
         return True
 
-    def release(self, doc_id: int) -> None:
+    def release(self, doc_id: int) -> None:  # graftlint: transition=stream:live->released
         """Drop a drained doc's op arrays, keeping the stream object.
         Idempotent; a doc never materialized is left alone."""
         st = self._live.get(doc_id)
@@ -1228,7 +1228,7 @@ class FleetScheduler:
         self._tier_pressure_barrier(ev)
 
     @fenced
-    def _tier_pressure_barrier(self, ev) -> None:
+    def _tier_pressure_barrier(self, ev) -> None:  # graftlint: fence=chaos
         """One forced warm-to-cold churn: compressed spool writes for the
         least recently scheduled warm entries (disk work, a fence as the
         spool-tear injector is)."""
@@ -1247,7 +1247,7 @@ class FleetScheduler:
                 for d, row in self.pool.residents(cls)]
 
     @fenced
-    def _fire_spool_fault(self, plan: _Plan) -> None:
+    def _fire_spool_fault(self, plan: _Plan) -> None:  # graftlint: fence=chaos
         """The ``spool_corrupt``/``spool_truncate`` faults: damage a spool
         on disk, an existing one of a doc with pending ops (its restore,
         and so the detection, is certain) or, with none, one written for
@@ -1317,7 +1317,7 @@ class FleetScheduler:
         return row_v, L, nv, disp, st.cursor - start
 
     @fenced
-    def _heal_spool(self, doc_id: int, cls: int, err: str):
+    def _heal_spool(self, doc_id: int, cls: int, err: str):  # graftlint: fence=chaos
         """A spool failed its integrity check at restore: rebuild the
         doc's row at its applied cursor (:meth:`_rebuild`).  Returns
         ``(row, length, nvis)``, or None after quarantining a doc whose
@@ -1357,7 +1357,7 @@ class FleetScheduler:
             self._bases.release()  # pin no snapshot arrays after the heal
 
     @fenced
-    def _recover_class(self, cls: int, plan: _Plan, ev) -> None:
+    def _recover_class(self, cls: int, plan: _Plan, ev) -> None:  # graftlint: fence=chaos
         """Device-state loss right after a class's dispatch: the round's
         lanes of the class are dropped unadvanced (the WAL recorded them;
         the docs are scheduled again), every resident row is rebuilt at
@@ -1456,7 +1456,7 @@ class FleetScheduler:
     # ---- boundary moves (the only syncs of a round) ----
 
     @fenced
-    def _execute_moves(self, plan: _Plan) -> None:
+    def _execute_moves(self, plan: _Plan) -> None:  # graftlint: fence
         """The plan's row movement: pull each affected bucket once, move
         the evictions (to the spool, or to the warm tier, whose overflow
         is demoted to the compressed spool here), compose the installs on
@@ -1745,7 +1745,7 @@ class FleetScheduler:
         return True
 
     @fenced
-    def _snapshot_barrier(self) -> None:
+    def _snapshot_barrier(self) -> None:  # graftlint: fence=journal
         """Persist a consistent fleet state (a full barrier every
         ``snapshot_full_every``-th time, a dirty-row delta between), then
         run the WAL GC pass the barrier made safe, then journal the
@@ -1906,7 +1906,7 @@ class FleetScheduler:
 
     # ---- the drain loop ----
 
-    def run_round(self) -> bool:
+    def run_round(self) -> bool:  # graftlint: thread=hot
         """One macro-round inside the sync sanitizer's hot scope
         (``lint/sanitizer.py hot_path``, a no-op unless armed: armed, a host
         sync outside a declared fence raises at its callsite), with the

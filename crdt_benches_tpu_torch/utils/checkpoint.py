@@ -80,7 +80,7 @@ class CorruptCheckpointError(ValueError):
     CRC mismatch, or an undecodable archive."""
 
 
-def save_state(path: str, state, compress: bool = True,
+def save_state(path: str, state, compress: bool = True,  # graftlint: durable=spool
                durable: bool = False) -> None:
     """Persist a state of one of the six classes (numpy arrays or tensors
     on any device).  ``compress=False`` skips zlib (``np.savez``), as the
@@ -137,7 +137,7 @@ def save_state(path: str, state, compress: bool = True,
             raise
 
 
-def load_state(path: str, verify: bool = True):
+def load_state(path: str, verify: bool = True):  # graftlint: durable=spool
     """Restore a state saved by :func:`save_state` in either package (numpy
     arrays; a bfloat16 field as int16).  Every array is checked against the
     CRC manifest unless ``verify`` is False; damage raises
